@@ -1,0 +1,529 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+``nvcc``, holds each kernel against its plain PyTorch version (ragged
+shapes first, then the main path's own inputs), and drives the port's
+main path once at the configuration below:
+
+    corpus (make_clustered_corpus) -> build_ivfpq + pad_clusters on the
+    card -> search_ivfpq(use_kernels=True), f32 and uint8 LUTs ->
+    LocalEngine behind ServingRuntime answering a Poisson query stream.
+
+The launch counters of the four kernels are reset just before the main
+path and read just after it; each must have risen.  Recall@10 is taken
+against the port's exact_search.  The last lines printed are one
+``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
+Any failed check raises, so the exit code is non-zero and the ``ok`` line
+is never printed; so is a run without CUDA or outside a checkout.
+
+Configuration: the repo's DRIM-ANN shape (configs/drim_ann.py, the
+paper's SV-A setup: D=128 uint8 points, M=16, CB=256, k=10, 10,000
+queries a batch), with N cut from 100M to 10M so one run can generate
+and build the index; nlist = 4 sqrt(N) rounded up to a power of two
+(16,384 at 10M), train_sample = 40 nlist, nprobe = 32, query_chunk 256
+(8,192 LC/DC tasks a launch).  ``--n-points`` cuts N further for a quick
+run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+RTOL, ATOL = 1e-4, 1e-3        # the reference's kernel tolerance
+
+D, M, CB, K = 128, 16, 256, 10
+N_QUERIES, QUERY_CHUNK, NPROBE = 10_000, 256, 32
+N_RECALL, N_SERVE = 1_000, 400
+
+KERNELS = {   # wrapper counter -> (route source, TPU kernel it replaces)
+    "lut_build": ("src/repro_torch/kernels/csrc/lut_build.cu",
+                  "src/repro/kernels/lut_build.py:49"),
+    "lut_build_q": ("src/repro_torch/kernels/csrc/lut_build.cu",
+                    "src/repro/kernels/lut_build.py:100"),
+    "pq_scan_dc": ("src/repro_torch/kernels/csrc/pq_scan.cu",
+                   "src/repro/kernels/pq_scan.py:118"),
+    "pq_scan_dc_q": ("src/repro_torch/kernels/csrc/pq_scan.cu",
+                     "src/repro/kernels/pq_scan.py:151"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def sync_time(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def event_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean device time of ``fn`` over ``reps`` warm calls (CUDA events)."""
+    for _ in range(warm):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def same_neighbours(kd, ki, pd, pi, rtol, atol):
+    """Count queries whose id sets differ beyond a tie at the k-th place.
+    (kd, ki): k columns; (pd, pi): the other path with k+1 columns."""
+    bad = 0
+    for q in range(ki.shape[0]):
+        got, want = set(ki[q].tolist()), set(pi[q, :K].tolist())
+        if got == want:
+            continue
+        kth, nxt = pd[q, K - 1], pd[q, K]
+        sure = {i for i, d in zip(pi[q, :K], pd[q, :K])
+                if d < kth - (atol + rtol * abs(kth))}
+        if not (np.isclose(kth, nxt, rtol=rtol, atol=atol) and sure <= got):
+            bad += 1
+    return bad
+
+
+# ---------------------------------------------------------------------------
+# Kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_lut(ops, ref, adc, res, books, sqn, where: str):
+    """A against its plain version (the same expansion form) and the
+    subtraction-form oracle; B against quantize_lut of A's output (the
+    reference's contract: <= 1 count) and of the plain f32 table.
+    Returns (A, B, A's max |err| vs plain, B's max count diff vs plain)."""
+    from repro_torch.core.pq import PQCodebook
+    t = res.shape[0]
+    lut = ops.lut_build(res, books, sqn)
+    q = ops.lut_build_q(res, books, sqn)
+    plain = adc.build_lut_batch(PQCodebook(books, sqn), res)
+    oracle = ref.lut_build_ref(res.view(t, books.shape[0], -1), books, sqn)
+    torch.cuda.synchronize()
+    err = float((lut - plain).abs().max())
+    check(torch.allclose(lut, plain, rtol=RTOL, atol=ATOL)
+          and torch.allclose(lut, oracle, rtol=RTOL, atol=ATOL),
+          f"lut_build {where}: max |err| {err} vs plain, "
+          f"{float((lut - oracle).abs().max())} vs oracle")
+    counts = []
+    for name, table in (("A's output", lut), ("the plain table", plain)):
+        hq = adc.quantize_lut(table)
+        diff = (q.lut_q.int() - hq.lut_q.int()).abs()
+        check(int(diff.max()) <= 1 and torch.allclose(
+                  q.scale, hq.scale, rtol=RTOL, atol=ATOL)
+              and torch.allclose(q.bias, hq.bias, rtol=RTOL, atol=ATOL),
+              f"lut_build_q {where}: differs from quantize_lut({name})")
+        counts.append((int(diff.max()), int((diff != 0).sum())))
+    log(f"  {where}: lut_build max|err| {err:.3e} vs plain; lut_build_q "
+        f"differs by 1 count on {counts[0][1]} of {q.lut_q.numel()} entries "
+        f"vs quantize_lut(A), on {counts[1][1]} vs the plain version")
+    return lut, q, err, counts[1][0]
+
+
+def check_scan(ops, plain_f32, plain_u8, lut, q, codes, sizes, where: str):
+    errs = {}
+    for name, table, plain in (("pq_scan_dc", lut, plain_f32),
+                               ("pq_scan_dc_q", q, plain_u8)):
+        for sz in (sizes, None):
+            got = ops.pq_scan_dc(table, codes, sz)
+            want = plain(table, codes, sz)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(want)
+            check(torch.equal(fin, torch.isfinite(got)),
+                  f"{name} {where}: +inf mask differs")
+            e = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+            check(torch.allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL),
+                  f"{name} {where}: max |err| {e}")
+            errs[name] = max(errs.get(name, 0.0), e)
+    log(f"  {where}: pq_scan_dc max|err| {errs['pq_scan_dc']:.3e}, "
+        f"pq_scan_dc_q max|err| {errs['pq_scan_dc_q']:.3e}")
+    return errs
+
+
+def ragged_checks(ops, ref, adc):
+    """Shapes that are not multiples of the blocks, a task with sizes=0,
+    sizes < C, u8 and i32 codes."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for t, c, code_dtype in ((1, 1, torch.uint8), (37, 1029, torch.uint8),
+                             (300, 77, torch.int32), (5000, 2050,
+                                                      torch.uint8)):
+        res = torch.randn(t, D, device="cuda", generator=g) * 8
+        books = torch.randn(M, CB, D // M, device="cuda", generator=g) * 6
+        sqn = (books * books).sum(-1)
+        codes = torch.randint(0, CB, (t, c, M), device="cuda", generator=g,
+                              dtype=torch.int32).to(code_dtype)
+        sizes = torch.randint(0, c + 1, (t,), device="cuda", generator=g,
+                              dtype=torch.int32)
+        sizes[0] = 0
+        where = f"T={t} C={c} {str(code_dtype).split('.')[-1]}"
+        lut, q, _, _ = check_lut(ops, ref, adc, res, books, sqn, where)
+        check_scan(ops, adc.adc_distances, adc.adc_distances_quantized, lut,
+                   q, codes, sizes, where)
+
+
+def main_shape_report(ops, ref, adc, res, books, sqn, codes, sizes,
+                      launches):
+    """The main path's first chunk: check, time and bound each kernel."""
+    t, c = codes.shape[0], codes.shape[1]
+    dsub = books.shape[2]
+    lut, q, err_a, err_b = check_lut(ops, ref, adc, res, books, sqn,
+                                     f"main path T={t} C={c}")
+    errs = check_scan(ops, adc.adc_distances, adc.adc_distances_quantized,
+                      lut, q, codes, sizes, f"main path T={t} C={c}")
+    valid = int(sizes.clamp(max=c).sum())
+    from repro_torch.core.pq import PQCodebook
+    cbk = PQCodebook(books, sqn)
+    res3 = res.view(t, M, dsub)
+
+    ins_lc = t * M * dsub * 4 + M * CB * dsub * 4 + M * CB * 4
+    ops_lc = t * M * CB * (2 * dsub + 4) + t * M * 2 * dsub
+    rows = {
+        "lut_build": dict(
+            fn=lambda: ops.lut_build(res, books, sqn),
+            plain=lambda: adc.build_lut_batch(cbk, res),
+            lib=lambda: torch.cdist(res3.transpose(0, 1), books).square_(),
+            nbytes=ins_lc + t * M * CB * 4, nops=ops_lc,
+            err=err_a),
+        "lut_build_q": dict(
+            fn=lambda: ops.lut_build_q(res, books, sqn),
+            plain=lambda: adc.quantize_lut(adc.build_lut_batch(cbk, res)),
+            lib=None,
+            nbytes=ins_lc + t * M * CB + 2 * t * M * 4,
+            nops=ops_lc + t * M * CB * 6, err=err_b),
+        "pq_scan_dc": dict(
+            fn=lambda: ops.pq_scan_dc(lut, codes, sizes),
+            plain=lambda: adc.adc_distances(lut, codes, sizes),
+            lib=None,
+            nbytes=t * M * CB * 4 + valid * M * codes.element_size()
+            + t * 4 + t * c * 4,
+            nops=valid * M, err=errs["pq_scan_dc"]),
+        "pq_scan_dc_q": dict(
+            fn=lambda: ops.pq_scan_dc(q, codes, sizes),
+            plain=lambda: adc.adc_distances_quantized(q, codes, sizes),
+            lib=None,
+            nbytes=t * M * CB + 2 * t * M * 4
+            + valid * M * codes.element_size() + t * 4 + t * c * 4,
+            nops=valid * M * 2 + t * M, err=errs["pq_scan_dc_q"]),
+    }
+    out = []
+    for name, r in rows.items():
+        ms = event_ms(r["fn"], reps=20)
+        plain_ms = event_ms(r["plain"], reps=5, warm=1)
+        lib_ms = event_ms(r["lib"], reps=20) if r["lib"] else None
+        b_ms, b_by = bound_ms(r["nbytes"], r["nops"])
+        src, replaces = KERNELS[name]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": r["err"], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                    "bytes": r["nbytes"], "ops": r["nops"],
+                    "shape": {"T": t, "M": M, "CB": CB, "dsub": dsub, "C": c,
+                              "valid_rows": valid}})
+        log(f"  {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+            f"plain {plain_ms:.4f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'})")
+    return out
+
+
+def phase_breakdown(ops, index, clusters, q, dt: str) -> dict:
+    """Device time of each phase of one query chunk, each phase timed
+    alone with CUDA events on the chunk's own intermediates (the steps of
+    ``core.search._search_chunk``)."""
+    from repro_torch.core.search import cluster_locate
+    from repro_torch.core.topk import topk_smallest
+    qc = q.shape[0]
+    probes = cluster_locate(q, index.centroids, NPROBE, block=QUERY_CHUNK)[0]
+    flat = probes.reshape(-1)
+    res = (q[:, None, :] - index.centroids[probes]).reshape(qc * NPROBE, -1)
+    cb = index.codebook
+    lc = ops.lut_build_q if dt == "uint8" else ops.lut_build
+    lut = lc(res, cb.codebooks, cb.sqnorms)
+    codes = clusters.codes.index_select(0, flat)
+    sizes = clusters.sizes.index_select(0, flat)
+    ids = clusters.ids.index_select(0, flat)
+    dists = ops.pq_scan_dc(lut, codes, sizes)
+    cand = qc, NPROBE * clusters.cmax
+    phases = {
+        "CL (GEMM + top-nprobe)": lambda: cluster_locate(
+            q, index.centroids, NPROBE, block=QUERY_CHUNK),
+        "RC (residuals)": lambda: (q[:, None, :]
+                                   - index.centroids[probes]).reshape(
+                                       qc * NPROBE, -1),
+        "gather codes/ids/sizes": lambda: (
+            clusters.codes.index_select(0, flat),
+            clusters.ids.index_select(0, flat),
+            clusters.sizes.index_select(0, flat)),
+        "LC kernel": lambda: lc(res, cb.codebooks, cb.sqnorms),
+        "DC kernel": lambda: ops.pq_scan_dc(lut, codes, sizes),
+        "TS (torch.topk)": lambda: topk_smallest(dists.reshape(cand),
+                                                 ids.reshape(cand), K),
+    }
+    return {name: event_ms(fn, reps=10) for name, fn in phases.items()}
+
+
+# ---------------------------------------------------------------------------
+# Main path
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n-points", type=int, default=10_000_000)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this smoke needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 1
+    from repro_torch.core import adc
+    from repro_torch.core.search import (SearchParams, cluster_locate,
+                                         exact_search, recall_at_k,
+                                         search_ivfpq)
+    from repro_torch.core.ivf import build_ivfpq, pad_clusters
+    from repro_torch.data import make_clustered_corpus, make_query_stream
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.runtime import LocalEngine, ServingConfig, ServingRuntime
+    from repro_torch.util import ieee_f32_matmul, next_pow2
+
+    # -- 1. device --------------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    log(smi.stdout.strip().splitlines()[0])
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    ieee_f32_matmul()
+    check(torch.get_float32_matmul_precision() == "highest",
+          "float32 matmul precision is not 'highest'")
+
+    # -- 2. build ---------------------------------------------------------
+    secs = _build.build()
+    log(f"build: {secs:.2f} s for {list(_build.SOURCES)} "
+        f"({' '.join(_build.NVCC_FLAGS)})")
+    for name, text in _build.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    # -- 3a. kernels vs plain at ragged shapes ----------------------------
+    log("kernels vs plain, ragged shapes:")
+    ragged_checks(ops, ref, adc)
+
+    # -- 3c. recall on the reference's bench corpus ------------------------
+    # benchmarks/common.py corpus_and_index at M=32 (n=30k, D=64, nlist=128):
+    # the reference's recall/m=32_nprobe=8 row reads 0.830 (BENCH_quick.json),
+    # above the paper's 0.8 bar; recall does not depend on the hardware
+    bench = make_clustered_corpus(0, 30_000, 64, n_queries=256,
+                                  n_components=64, k_gt=K, device="cuda")
+    bidx = build_ivfpq(torch.Generator().manual_seed(0), bench.points,
+                       nlist=128, m=32, cb=CB, kmeans_iters=8, pq_iters=8,
+                       device="cuda")
+    bcl = pad_clusters(bidx)
+    brec = {}
+    for dt in ("f32", "uint8"):
+        _, ids = search_ivfpq(bidx, bcl, bench.queries.float(), SearchParams(
+            nprobe=8, k=K, query_chunk=128, use_kernels=True, lut_dtype=dt))
+        brec[dt] = recall_at_k(ids, bench.groundtruth)
+    log(f"bench corpus (n=30000, D=64, nlist=128, M=32, nprobe=8): "
+        f"recall@{K} f32 {brec['f32']:.4f}, uint8 {brec['uint8']:.4f} "
+        f"(reference f32 0.830)")
+    check(brec["f32"] >= 0.8, "bench-corpus recall@10 below the 0.8 bar")
+    check(brec["f32"] - brec["uint8"] <= 0.01, "bench-corpus uint8 drop "
+                                               "> 0.01")
+
+    # -- 4. main path -----------------------------------------------------
+    n = args.n_points
+    nlist = next_pow2(int(4 * math.sqrt(n)))
+    train_sample = min(40 * nlist, n)
+    log(f"main path: N={n} D={D} M={M} CB={CB} nlist={nlist} "
+        f"train_sample={train_sample} nprobe={NPROBE} k={K} "
+        f"queries={N_QUERIES} query_chunk={QUERY_CHUNK}")
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    ds = make_clustered_corpus(args.seed, n, D, n_queries=N_QUERIES,
+                               device="cuda")
+    log(f"  corpus: {time.perf_counter() - t0:.1f} s (host generation + "
+        f"copy), points {tuple(ds.points.shape)} {ds.points.dtype}")
+    gen = torch.Generator().manual_seed(args.seed)
+    index, t_build = sync_time(lambda: build_ivfpq(
+        gen, ds.points, nlist=nlist, m=M, cb=CB, train_sample=train_sample,
+        device="cuda"))
+    clusters, t_pad = sync_time(lambda: pad_clusters(index))
+    idx_bytes = sum(x.numel() * x.element_size() for x in (
+        index.centroids, index.codebook.codebooks, index.codebook.sqnorms,
+        index.codes, index.ids, index.offsets))
+    cl_bytes = sum(x.numel() * x.element_size() for x in clusters)
+    sizes_all = index.sizes
+    log(f"  build_ivfpq {t_build:.1f} s, pad_clusters {t_pad:.1f} s; "
+        f"cmax {clusters.cmax}, cluster sizes min/mean/max "
+        f"{int(sizes_all.min())}/{float(sizes_all.float().mean()):.1f}/"
+        f"{int(sizes_all.max())}; index {idx_bytes / 2**20:.1f} MiB + "
+        f"padded clusters {cl_bytes / 2**20:.1f} MiB on the card")
+    check(clusters.codes.dtype == torch.uint8, "codes are not uint8")
+
+    queries = ds.queries.float()
+    results = {}
+    for dt in ("f32", "uint8"):
+        p = SearchParams(nprobe=NPROBE, k=K, query_chunk=QUERY_CHUNK,
+                         use_kernels=True, lut_dtype=dt)
+        search_ivfpq(index, clusters, queries[:QUERY_CHUNK], p)   # warm-up
+        (d, i), secs = sync_time(lambda: search_ivfpq(index, clusters,
+                                                      queries, p))
+        check(d.shape == (N_QUERIES, K) and i.shape == (N_QUERIES, K),
+              f"{dt}: result shape {tuple(d.shape)}")
+        check(bool(torch.isfinite(d).all()), f"{dt}: non-finite distances")
+        check(bool((i >= 0).all()), f"{dt}: padding ids in results")
+        results[dt] = (d, i)
+        log(f"  search_ivfpq use_kernels=True lut={dt}: {secs * 1e3:.1f} ms "
+            f"for {N_QUERIES} queries ({N_QUERIES / secs:.0f} QPS)")
+
+    # ground truth on a prefix of the queries; (64, N) f32 blocks
+    _, gt = exact_search(ds.points, queries[:N_RECALL], k=K, chunk=64)
+    rec = {dt: recall_at_k(results[dt][1][:N_RECALL], gt) for dt in results}
+    log(f"  recall@{K} on {N_RECALL} queries: f32 {rec['f32']:.4f}, "
+        f"uint8 {rec['uint8']:.4f} (drop {rec['f32'] - rec['uint8']:.4f})")
+    check(rec["f32"] - rec["uint8"] <= 0.01, "uint8 recall drop > 0.01")
+    sweep = {}
+    for nprobe in (64, 128, 256):       # same T = 8,192 tasks a launch
+        p = SearchParams(nprobe=nprobe, k=K, use_kernels=True,
+                         query_chunk=QUERY_CHUNK * NPROBE // nprobe)
+        sweep[nprobe] = recall_at_k(
+            search_ivfpq(index, clusters, queries[:N_RECALL], p)[1], gt)
+    log(f"  recall@{K} vs nprobe (f32): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sweep.items()))
+
+    # the plain path on the same card: f32 ids agree as sets
+    plain = {}
+    for dt in ("f32", "uint8"):
+        p = SearchParams(nprobe=NPROBE, k=K + 1, query_chunk=QUERY_CHUNK,
+                         lut_dtype=dt)
+        plain[dt] = search_ivfpq(index, clusters, queries, p)
+    kd, ki = (x.cpu().numpy() for x in results["f32"])
+    pd, pi = (x.cpu().numpy() for x in plain["f32"])
+    bad = same_neighbours(kd, ki, pd, pi, RTOL, ATOL)
+    check(np.allclose(kd, pd[:, :K], rtol=RTOL, atol=ATOL),
+          "f32 kernel distances differ from the plain path")
+    check(bad == 0, f"f32: {bad} queries' ids differ from the plain path "
+                    f"beyond k-th-place ties")
+    u8_same = float(np.mean([set(a.tolist()) == set(b[:K].tolist())
+                             for a, b in zip(results["uint8"][1].cpu().numpy(),
+                                             plain["uint8"][1].cpu().numpy())]))
+    rec_plain_u8 = recall_at_k(plain["uint8"][1][:N_RECALL, :K], gt)
+    log(f"  plain path: f32 ids agree on every query (ties allowed); uint8 "
+        f"id sets identical on {u8_same:.4f} of queries, plain uint8 recall "
+        f"{rec_plain_u8:.4f}")
+    check(abs(rec_plain_u8 - rec["uint8"]) <= 0.005,
+          "uint8 kernel recall differs from the plain path by > 0.005")
+
+    # serving: LocalEngine behind ServingRuntime, Poisson arrivals
+    params = SearchParams(nprobe=NPROBE, k=K, query_chunk=QUERY_CHUNK,
+                          use_kernels=True)
+    rt = ServingRuntime(LocalEngine(index, clusters, params),
+                        ServingConfig(buckets=(1, 2, 4, 8, 16, 32)))
+    rt.warmup(D)
+    pool = ds.queries.float().cpu().numpy()
+    trace = make_query_stream(pool, N_SERVE, qps=2000.0, seed=args.seed)
+    reqs = rt.run_stream(trace)
+    check(all(r.done for r in reqs), "unserved requests")
+    qs = torch.from_numpy(np.stack([r.query for r in reqs])).cuda()
+    p11 = params._replace(k=K + 1)
+    dd, di = (x.cpu().numpy() for x in search_ivfpq(index, clusters, qs, p11))
+    sd = np.stack([r.dists for r in reqs])
+    si = np.stack([r.ids for r in reqs])
+    rows_off = int((~np.isclose(sd, dd[:, :K], rtol=1e-5, atol=1e-3)
+                    ).any(axis=1).sum())
+    check(rows_off == 0, f"served distances differ from a direct search on "
+                         f"{rows_off} of {len(reqs)} queries")
+    bad = same_neighbours(sd, si, dd, di, 1e-5, 1e-3)
+    check(bad == 0, f"served ids differ from a direct search on {bad} "
+                    f"queries")
+    m = rt.metrics()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(ops.launches)
+    log(f"  serving {m['requests']} requests in {m['batches']} batches: "
+        f"p50 {m['p50_ms']:.3f} ms, p99 {m['p99_ms']:.3f} ms, "
+        f"QPS {m['qps']:.1f}, occupancy {m['avg_batch_occupancy']:.3f}")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB; launches {launches}")
+    for name in KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the main path")
+
+    # -- where a search's time goes (after the counts were read) ----------
+    serve_batch = torch.from_numpy(pool[:32]).cuda()
+    for label, qs, dt in ((f"one {QUERY_CHUNK}-query chunk", queries[:QUERY_CHUNK],
+                           "f32"),
+                          (f"one {QUERY_CHUNK}-query chunk", queries[:QUERY_CHUNK],
+                           "uint8"),
+                          ("one 32-query serving batch", serve_batch, "f32")):
+        p = SearchParams(nprobe=NPROBE, k=K, query_chunk=QUERY_CHUNK,
+                         use_kernels=True, lut_dtype=dt)
+        wall = event_ms(lambda: search_ivfpq(index, clusters, qs, p), reps=10)
+        ph = phase_breakdown(ops, index, clusters, qs, dt)
+        busy = sum(ph.values())
+        log(f"  {label}, lut={dt}: search_ivfpq {wall:.3f} ms (CUDA events, "
+            f"idle share ~{max(0.0, 1 - busy / wall):.3f}); phases timed "
+            f"alone sum to {busy:.3f} ms: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in ph.items()))
+
+    # -- 3b. the main path's own shapes: check, time, bound ---------------
+    log("kernels vs plain, main-path shapes (first query chunk):")
+    q0 = queries[:QUERY_CHUNK]
+    probes, _ = cluster_locate(q0, index.centroids, NPROBE,
+                               block=QUERY_CHUNK)
+    res = (q0[:, None, :] - index.centroids[probes]).reshape(-1, D)
+    flat = probes.reshape(-1)
+    rows = main_shape_report(ops, ref, adc, res.contiguous(),
+                             index.codebook.codebooks,
+                             index.codebook.sqnorms,
+                             clusters.codes.index_select(0, flat),
+                             clusters.sizes.index_select(0, flat), launches)
+
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,185 @@
+// DC phase on Hopper: the PQ code scan over padded clusters.
+//
+// Replaces the Pallas TPU kernels `pq_scan_dc_pallas` and
+// `pq_scan_dc_q_pallas` (src/repro/kernels/pq_scan.py), plus the sizes
+// mask their wrapper applied afterwards (src/repro/kernels/ops.py):
+//
+//     f32:  d[t, c] = sum_m lut[t, m, codes[t, c, m]]
+//     u8:   d[t, c] = sum_m scale[t, m] * lut_q[t, m, codes[t, c, m]]
+//                     + sum_m bias[t, m]
+//     rows c >= sizes[t] are written as +inf (sizes == NULL: all valid).
+//
+// The TPU kernels turned the gather into a one-hot MXU contraction,
+// because a lane gather is slow there.  On Hopper a gather out of shared
+// memory is cheap, so this is the paper's own loop: table lookups + adds.
+//
+// What bounds it on an H100: bytes.  Per task it reads the table (16 KB
+// f32 or 4 KB u8 at M=16, CB=256) and 16 bytes of codes per valid row,
+// and writes 4 bytes per row; the adds are ~1 op per byte read.  The
+// design:
+//
+//   * grid (T, ceil(C / 1024)): a block stages its task's table in
+//     shared memory once and scores up to 1024 rows with 256 threads;
+//   * a thread reads a row's M=16 u8 codes as one 16-byte load (generic
+//     loop for other M and for int32 codes), then M lookups out of shared
+//     memory, summed in order m = 0..M-1;
+//   * rows past the task's size are not read: they are written +inf.
+//
+// The kernels allocate nothing and never synchronise.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kRowsPerBlock = 1024;
+
+template <bool kQuant>
+__device__ __forceinline__ float add_entry(float acc, int m, int code,
+                                           const float* lut_f,
+                                           const uint8_t* lut_q,
+                                           const float* sc, int CB) {
+  if constexpr (kQuant) return fmaf(sc[m], (float)lut_q[m * CB + code], acc);
+  return acc + lut_f[m * CB + code];
+}
+
+// Distance of one code row, summed in order m = 0..M-1.
+template <typename CodeT, bool kQuant, bool kVec16>
+__device__ __forceinline__ float row_dist(const CodeT* row, const float* lut_f,
+                                          const uint8_t* lut_q,
+                                          const float* sc, int M, int CB) {
+  float acc = 0.0f;
+  if constexpr (kVec16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(row);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int m = 0; m < 16; ++m)
+      acc = add_entry<kQuant>(acc, m, (w[m >> 2] >> (8 * (m & 3))) & 0xff,
+                              lut_f, lut_q, sc, CB);
+  } else {
+    for (int m = 0; m < M; ++m)
+      acc = add_entry<kQuant>(acc, m, (int)row[m], lut_f, lut_q, sc, CB);
+  }
+  if constexpr (kQuant) acc += sc[M];
+  return acc;
+}
+
+// One task's table in shared memory: f32 (M, CB), or u8 (M, CB) followed
+// by the M scales and the bias sum.
+template <typename CodeT, bool kQuant, bool kVec16>
+__global__ void __launch_bounds__(kThreads)
+    pq_scan_kernel(const void* __restrict__ lut,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ bias,
+                   const CodeT* __restrict__ codes,
+                   const int* __restrict__ sizes, float* __restrict__ out,
+                   int C, int M, int CB) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = blockIdx.x;
+  const int mcb = M * CB;
+  float* lut_f = reinterpret_cast<float*>(smem);
+  uint8_t* lut_q = smem;
+  float* sc = reinterpret_cast<float*>(smem + ((mcb + 15) & ~15));
+  if constexpr (kQuant) {
+    const uint8_t* src = static_cast<const uint8_t*>(lut) + (size_t)t * mcb;
+    for (int i = threadIdx.x; i < mcb; i += kThreads) lut_q[i] = src[i];
+    for (int i = threadIdx.x; i < M; i += kThreads)
+      sc[i] = scale[(size_t)t * M + i];
+    if (threadIdx.x == 0) {
+      float b = 0.0f;
+      for (int m = 0; m < M; ++m) b += bias[(size_t)t * M + m];
+      sc[M] = b;
+    }
+  } else {
+    const float* src = static_cast<const float*>(lut) + (size_t)t * mcb;
+    for (int i = threadIdx.x; i < mcb; i += kThreads) lut_f[i] = src[i];
+  }
+  __syncthreads();
+
+  const int size = sizes == nullptr ? C : min(sizes[t], C);
+  const int c0 = blockIdx.y * kRowsPerBlock;
+  const int c1 = min(c0 + kRowsPerBlock, C);
+  for (int c = c0 + threadIdx.x; c < c1; c += kThreads) {
+    out[(size_t)t * C + c] =
+        c < size ? row_dist<CodeT, kQuant, kVec16>(
+                       codes + ((size_t)t * C + c) * M, lut_f, lut_q, sc, M,
+                       CB)
+                 : INFINITY;
+  }
+}
+
+size_t smem_bytes(bool quant, int M, int CB) {
+  const size_t mcb = (size_t)M * CB;
+  if (!quant) return mcb * sizeof(float);
+  return ((mcb + 15) & ~(size_t)15) + (M + 1) * sizeof(float);
+}
+
+template <typename CodeT, bool kQuant, bool kVec16>
+int launch_typed(const void* lut, const void* scale, const void* bias,
+                 const void* codes, const void* sizes, void* out, int T,
+                 int C, int M, int CB, void* stream) {
+  auto kernel = pq_scan_kernel<CodeT, kQuant, kVec16>;
+  const size_t smem = smem_bytes(kQuant, M, CB);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid(T, (C + kRowsPerBlock - 1) / kRowsPerBlock);
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      lut, (const float*)scale, (const float*)bias, (const CodeT*)codes,
+      (const int*)sizes, (float*)out, C, M, CB);
+  return (int)cudaGetLastError();
+}
+
+template <bool kQuant>
+int launch(const void* lut, const void* scale, const void* bias,
+           const void* codes, const void* sizes, void* out, int T, int C,
+           int M, int CB, int code_bytes, void* stream) {
+  if (T == 0 || C == 0) return (int)cudaSuccess;
+  if (code_bytes != 1 && code_bytes != 4)
+    return (int)cudaErrorInvalidValue;
+  if (code_bytes == 4)
+    return launch_typed<int32_t, kQuant, false>(lut, scale, bias, codes,
+                                                sizes, out, T, C, M, CB,
+                                                stream);
+  if (M == 16 && reinterpret_cast<uintptr_t>(codes) % 16 == 0)
+    return launch_typed<uint8_t, kQuant, true>(lut, scale, bias, codes,
+                                               sizes, out, T, C, M, CB,
+                                               stream);
+  return launch_typed<uint8_t, kQuant, false>(lut, scale, bias, codes, sizes,
+                                              out, T, C, M, CB, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+size_t pq_scan_smem_bytes(int quant, int M, int CB) {
+  return smem_bytes(quant != 0, M, CB);
+}
+
+// lut (T, M, CB) f32, codes (T, C, M) u8 (code_bytes=1) or i32 (4),
+// sizes (T,) i32 or NULL -> out (T, C) f32.  Returns cudaGetLastError().
+int pq_scan_f32(const void* lut, const void* codes, const void* sizes,
+                void* out, int T, int C, int M, int CB, int code_bytes,
+                void* stream) {
+  return launch<false>(lut, nullptr, nullptr, codes, sizes, out, T, C, M, CB,
+                       code_bytes, stream);
+}
+
+// lut_q (T, M, CB) u8, scale/bias (T, M) f32, codes, sizes as above.
+int pq_scan_u8(const void* lut_q, const void* scale, const void* bias,
+               const void* codes, const void* sizes, void* out, int T, int C,
+               int M, int CB, int code_bytes, void* stream) {
+  return launch<true>(lut_q, scale, bias, codes, sizes, out, T, C, M, CB,
+                      code_bytes, stream);
+}
+
+const char* pq_scan_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,0 +1,187 @@
+"""Public wrappers around the LC and DC kernels.
+
+On a CUDA tensor each wrapper launches its hand-written kernel (built
+from ``csrc/`` at first use) or raises; on a CPU tensor it runs the
+kernel's plain PyTorch version from :mod:`repro_torch.core.adc`.  There
+is no fallback from the kernel to the plain version.
+
+``launches`` counts kernel launches per wrapper (plain runs do not
+count), so a run can show which kernels its path went through.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.core.adc import (QuantizedLUT, check_strategy,
+                                  adc_distances, adc_distances_quantized,
+                                  build_lut_batch, quantize_lut)
+from repro_torch.core.pq import PQCodebook
+from repro_torch.kernels import _build
+
+launches = {"lut_build": 0, "lut_build_q": 0, "pq_scan_dc": 0,
+            "pq_scan_dc_q": 0}
+
+# Dynamic shared memory one block may use on an H100 (227 KB).
+_SMEM_LIMIT = 232448
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _check(t: torch.Tensor, what: str, dtypes, ndim: int,
+           device: torch.device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{what} must be a tensor, got {type(t).__name__}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what} dtype {t.dtype} not in {dtypes}")
+    if t.dim() != ndim:
+        raise ValueError(f"{what} must be {ndim}-D, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def _route(device: torch.device) -> bool:
+    """True: launch the kernel.  False: plain version (CPU tensors)."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain path for device {device}")
+
+
+def _stream(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``; the C launchers run on the
+    caller's current CUDA device, which the wrappers set to ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _ok(lib, err: int, fn: str, prefix: str) -> None:
+    if err != 0:
+        msg = getattr(lib, f"{prefix}_error_string")(err).decode()
+        raise RuntimeError(f"{fn} failed: CUDA error {err} ({msg})")
+
+
+def _smem(fn: str, need: int) -> None:
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"{fn}: one block needs {need} bytes of shared "
+                         f"memory, more than the {_SMEM_LIMIT} a block may "
+                         f"use")
+
+
+def _lut_inputs(residuals, codebooks, sqnorms):
+    dev = residuals.device
+    _check(residuals, "residuals", (torch.float32,), 2, dev)
+    _check(codebooks, "codebooks", (torch.float32,), 3, dev)
+    _check(sqnorms, "sqnorms", (torch.float32,), 2, dev)
+    t = residuals.shape[0]
+    m, cbn, dsub = codebooks.shape
+    if residuals.shape[1] != m * dsub or sqnorms.shape != (m, cbn):
+        raise ValueError(f"residuals {tuple(residuals.shape)}, codebooks "
+                         f"{tuple(codebooks.shape)}, sqnorms "
+                         f"{tuple(sqnorms.shape)} do not agree")
+    return dev, t, m, cbn, dsub
+
+
+def lut_build(residuals: torch.Tensor, codebooks: torch.Tensor,
+              sqnorms: torch.Tensor) -> torch.Tensor:
+    """LC: (T, D) residuals, codebooks (M, CB, dsub), sqnorms (M, CB), all
+    f32 -> (T, M, CB) f32 LUTs."""
+    dev, t, m, cbn, dsub = _lut_inputs(residuals, codebooks, sqnorms)
+    if not _route(dev):
+        return build_lut_batch(PQCodebook(codebooks, sqnorms), residuals)
+    lib = _build.library("lut_build")
+    _smem("lut_build", lib.lut_build_smem_bytes(0, cbn, dsub))
+    out = torch.empty((t, m, cbn), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.lut_build_f32(residuals.data_ptr(), codebooks.data_ptr(),
+                                sqnorms.data_ptr(), out.data_ptr(), t, m, cbn,
+                                dsub, _stream(dev))
+    _ok(lib, err, "lut_build", "lut_build")
+    launches["lut_build"] += 1
+    return out
+
+
+def lut_build_q(residuals: torch.Tensor, codebooks: torch.Tensor,
+                sqnorms: torch.Tensor) -> QuantizedLUT:
+    """LC with the fused quantize epilogue: (T, D) residuals ->
+    QuantizedLUT of (T, M, CB) u8 + (T, M) scale/bias.  On the card the
+    f32 table never leaves the kernel."""
+    dev, t, m, cbn, dsub = _lut_inputs(residuals, codebooks, sqnorms)
+    if not _route(dev):
+        return quantize_lut(build_lut_batch(PQCodebook(codebooks, sqnorms),
+                                            residuals))
+    lib = _build.library("lut_build")
+    _smem("lut_build_q", lib.lut_build_smem_bytes(1, cbn, dsub))
+    lut_q = torch.empty((t, m, cbn), dtype=torch.uint8, device=dev)
+    scale = torch.empty((t, m), dtype=torch.float32, device=dev)
+    bias = torch.empty((t, m), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.lut_build_u8(residuals.data_ptr(), codebooks.data_ptr(),
+                               sqnorms.data_ptr(), lut_q.data_ptr(),
+                               scale.data_ptr(), bias.data_ptr(), t, m, cbn,
+                               dsub, _stream(dev))
+    _ok(lib, err, "lut_build_q", "lut_build")
+    launches["lut_build_q"] += 1
+    return QuantizedLUT(lut_q, scale, bias)
+
+
+def pq_scan_dc(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
+               sizes: Optional[torch.Tensor] = None, *,
+               strategy: str = "gather") -> torch.Tensor:
+    """DC: (T, M, CB) table x (T, C, M) codes -> (T, C) f32; rows
+    ``>= sizes[t]`` are +inf (``sizes`` None: all rows valid).
+
+    ``lut`` is the f32 table or a :class:`QuantizedLUT` (uint8 path).
+    Codes are uint8 or int32.  ``strategy`` names a TPU dataflow and does
+    not change the result."""
+    check_strategy(strategy)
+    quantized = isinstance(lut, QuantizedLUT)
+    table = lut.lut_q if quantized else lut
+    dev = table.device
+    _check(table, "lut", (torch.uint8,) if quantized else (torch.float32,),
+           3, dev)
+    _check(codes, "codes", (torch.uint8, torch.int32), 3, dev)
+    t, c, m = codes.shape
+    cbn = table.shape[2]
+    if table.shape[:2] != (t, m):
+        raise ValueError(f"lut {tuple(table.shape)} does not match codes "
+                         f"{tuple(codes.shape)}")
+    if quantized:
+        for name, x in (("scale", lut.scale), ("bias", lut.bias)):
+            _check(x, name, (torch.float32,), 2, dev)
+            if x.shape != (t, m):
+                raise ValueError(f"{name} {tuple(x.shape)} != {(t, m)}")
+    if sizes is not None:
+        _check(sizes, "sizes", (torch.int32,), 1, dev)
+        if sizes.shape[0] != t:
+            raise ValueError(f"sizes {tuple(sizes.shape)} != ({t},)")
+    if not _route(dev):
+        if quantized:
+            return adc_distances_quantized(lut, codes, sizes, strategy)
+        return adc_distances(lut, codes, sizes, strategy)
+    lib = _build.library("pq_scan")
+    _smem("pq_scan_dc", lib.pq_scan_smem_bytes(int(quantized), m, cbn))
+    out = torch.empty((t, c), dtype=torch.float32, device=dev)
+    sizes_ptr = None if sizes is None else sizes.data_ptr()
+    code_bytes = codes.element_size()
+    with torch.cuda.device(dev):
+        if quantized:
+            err = lib.pq_scan_u8(table.data_ptr(), lut.scale.data_ptr(),
+                                 lut.bias.data_ptr(), codes.data_ptr(),
+                                 sizes_ptr, out.data_ptr(), t, c, m, cbn,
+                                 code_bytes, _stream(dev))
+        else:
+            err = lib.pq_scan_f32(table.data_ptr(), codes.data_ptr(),
+                                  sizes_ptr, out.data_ptr(), t, c, m, cbn,
+                                  code_bytes, _stream(dev))
+    name = "pq_scan_dc_q" if quantized else "pq_scan_dc"
+    _ok(lib, err, name, "pq_scan")
+    launches[name] += 1
+    return out

@@ -1,0 +1,180 @@
+"""Dynamic micro-batching for serving.
+
+Online ANNS traffic arrives as a stream of single queries, but the
+engine wants batches.  The batcher coalesces requests into padded
+micro-batches drawn from a small set of batch-size buckets, so the
+engine sees few distinct shapes.
+
+Flush policy (both knobs in :class:`MicroBatcher`):
+
+  * flush-on-full      — queue depth reached ``max_batch``;
+  * flush-on-deadline  — the oldest queued request has waited
+    ``max_wait_s`` (bounds tail latency under light load).
+
+All timestamps are passed in explicitly (``now``, seconds), so the
+batcher is deterministic under a virtual clock.  Queue operations are
+thread-safe (one lock around submit/poll/depth).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from collections import deque
+from typing import Deque, List, Optional
+
+import numpy as np
+
+
+class BucketPolicy:
+    """A small sorted set of allowed (padded) batch sizes.
+
+    ``bucket_for(n)`` returns the smallest bucket >= n (clamped to the
+    largest bucket).
+    """
+
+    def __init__(self, buckets):
+        bs = sorted({int(b) for b in buckets})
+        if not bs or bs[0] < 1:
+            raise ValueError(f"buckets must be positive ints, got {buckets}")
+        self.buckets = tuple(bs)
+
+    @property
+    def max_batch(self) -> int:
+        return self.buckets[-1]
+
+    def bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if b >= n:
+                return b
+        return self.buckets[-1]
+
+    def __repr__(self):
+        return f"BucketPolicy{self.buckets}"
+
+
+@dataclasses.dataclass
+class Request:
+    """One in-flight query.  Result fields are stamped at completion.
+
+    ``t_arrival -> t_flush`` is queue time, ``t_flush ->
+    t_service_start`` is batch time (waiting for the server), and
+    ``t_service_start -> t_done`` is engine time, all on the clock that
+    drove the request."""
+    req_id: int
+    query: np.ndarray            # (D,) float32
+    t_arrival: float
+    # stamped by the runtime when the batch it rode in completes:
+    dists: Optional[np.ndarray] = None    # (k,)
+    ids: Optional[np.ndarray] = None      # (k,)
+    t_done: Optional[float] = None
+    bucket: Optional[int] = None          # padded batch shape it rode in
+    t_flush: Optional[float] = None
+    t_service_start: Optional[float] = None
+
+    @property
+    def done(self) -> bool:
+        return self.ids is not None
+
+    @property
+    def latency_s(self) -> float:
+        if self.t_done is None:
+            raise RuntimeError(f"request {self.req_id} not served yet")
+        return self.t_done - self.t_arrival
+
+    def timing(self) -> dict:
+        """Lifecycle breakdown (seconds): queue / batch / engine / total."""
+        if self.t_done is None:
+            raise RuntimeError(f"request {self.req_id} not served yet")
+        t_flush = self.t_flush if self.t_flush is not None else self.t_arrival
+        t_svc = (self.t_service_start if self.t_service_start is not None
+                 else t_flush)
+        return {"queue_s": t_flush - self.t_arrival,
+                "batch_s": t_svc - t_flush,
+                "engine_s": self.t_done - t_svc,
+                "total_s": self.t_done - self.t_arrival}
+
+
+@dataclasses.dataclass
+class MicroBatch:
+    """A flushed, padded batch ready for the engine."""
+    requests: List[Request]      # the n_valid real requests, queue order
+    queries: np.ndarray          # (bucket, D); rows >= n_valid are zero pad
+    bucket: int
+    reason: str                  # "full" | "deadline" | "drain"
+    t_flush: float
+
+    @property
+    def n_valid(self) -> int:
+        return len(self.requests)
+
+
+class MicroBatcher:
+    """Request queue + bucketed flush policy (no engine knowledge).
+
+    One lock guards the queue; the flush decision
+    and the pop happen under the same lock, so two pollers can never
+    split one batch."""
+
+    def __init__(self, policy: BucketPolicy, max_wait_s: float = 2e-3,
+                 max_batch: Optional[int] = None):
+        self.policy = policy
+        self.max_wait_s = float(max_wait_s)
+        self.max_batch = int(max_batch or policy.max_batch)
+        if self.max_batch > policy.max_batch:
+            raise ValueError("max_batch exceeds largest bucket")
+        self._queue: Deque[Request] = deque()
+        self._lock = threading.Lock()
+        self._next_id = 0
+
+    # -- queue side --------------------------------------------------------
+    def submit(self, query: np.ndarray, now: float) -> Request:
+        with self._lock:
+            req = Request(self._next_id, np.asarray(query, np.float32),
+                          float(now))
+            self._next_id += 1
+            self._queue.append(req)
+            return req
+
+    @property
+    def depth(self) -> int:
+        with self._lock:
+            return len(self._queue)
+
+    def next_deadline(self) -> Optional[float]:
+        """Time at which the oldest request must flush."""
+        with self._lock:
+            return self._next_deadline_locked()
+
+    def _next_deadline_locked(self) -> Optional[float]:
+        if not self._queue:
+            return None
+        return self._queue[0].t_arrival + self.max_wait_s
+
+    # -- flush side --------------------------------------------------------
+    def _ready_locked(self, now: float) -> Optional[str]:
+        if not self._queue:
+            return None
+        if len(self._queue) >= self.max_batch:
+            return "full"
+        if now >= self._next_deadline_locked():
+            return "deadline"
+        return None
+
+    def poll(self, now: float, drain: bool = False) -> Optional[MicroBatch]:
+        """Flush one micro-batch if policy (or ``drain``) says so."""
+        with self._lock:
+            reason = self._ready_locked(now)
+            if reason is None:
+                if not (drain and self._queue):
+                    return None
+                reason = "drain"
+            take = min(len(self._queue), self.max_batch)
+            reqs = [self._queue.popleft() for _ in range(take)]
+            bucket = self.policy.bucket_for(take)
+        d = reqs[0].query.shape[0]
+        queries = np.zeros((bucket, d), np.float32)
+        for i, r in enumerate(reqs):
+            queries[i] = r.query
+            r.bucket = bucket
+        return MicroBatch(reqs, queries, bucket, reason, float(now))

@@ -1,0 +1,163 @@
+"""Port parity for the LC/DC kernels' contracts.
+
+On the CPU the port's wrappers run the kernels' plain versions; they are
+held to the reference's Pallas kernels (interpret mode) at the
+reference's kernel tolerance, rtol 1e-4 / atol 1e-3 (f32 sums in another
+order).  The kernels themselves are tested on the card in
+``test_torch_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.adc import quantize_lut as ref_quantize
+from repro.kernels import ops as jops
+
+from repro_torch.core.adc import QuantizedLUT, dequantize_lut, quantize_lut
+from repro_torch.kernels import ops, ref
+
+torch.set_num_threads(1)
+RTOL, ATOL = 1e-4, 1e-3
+
+
+def _mk(seed, t, m, cb, c, dsub, code_dtype=np.int32):
+    rng = np.random.default_rng(seed)
+    res = rng.normal(size=(t, m * dsub)).astype(np.float32)
+    books = rng.normal(size=(m, cb, dsub)).astype(np.float32)
+    sqn = (books * books).sum(-1)
+    codes = rng.integers(0, cb, size=(t, c, m)).astype(code_dtype)
+    sizes = rng.integers(1, c + 1, size=(t,)).astype(np.int32)
+    return res, books, sqn, codes, sizes
+
+
+def _t(*arrays, device="cpu"):
+    return [torch.from_numpy(np.array(a)).to(device) for a in arrays]
+
+
+LUT_SHAPES = [(7, 8, 64, 4), (32, 16, 256, 8), (130, 8, 256, 16),
+              (9, 32, 32, 2)]          # subset of tests/test_kernels.py
+
+
+@pytest.mark.parametrize("t,m,cb,dsub", LUT_SHAPES)
+def test_lut_build_matches_reference(t, m, cb, dsub):
+    res, books, sqn, *_ = _mk(0, t, m, cb, 4, dsub)
+    want = np.asarray(jops.lut_build(jnp.asarray(res), jnp.asarray(books),
+                                     jnp.asarray(sqn)))
+    got = ops.lut_build(*_t(res, books, sqn))
+    assert got.shape == (t, m, cb) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    oracle = ref.lut_build_ref(*_t(res.reshape(t, m, dsub), books, sqn))
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("t,m,cb,dsub", LUT_SHAPES)
+def test_quantize_lut_bit_equal_on_same_table(t, m, cb, dsub):
+    """On the same f32 table the port's quantization is the reference's,
+    bit for bit (true divisions, round half to even)."""
+    res, books, sqn, *_ = _mk(1, t, m, cb, 4, dsub)
+    table = np.asarray(jops.lut_build(jnp.asarray(res), jnp.asarray(books),
+                                      jnp.asarray(sqn)))
+    want = ref_quantize(jnp.asarray(table))
+    got = quantize_lut(torch.from_numpy(table.copy()))
+    np.testing.assert_array_equal(got.lut_q.numpy(), np.asarray(want.lut_q))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
+    np.testing.assert_array_equal(got.bias.numpy(), np.asarray(want.bias))
+
+
+def test_quantize_degenerate_subspace_roundtrips_exactly():
+    flat = torch.full((1, 4, 16), 3.25)
+    q = quantize_lut(flat)
+    assert (q.lut_q == 0).all() and (q.scale == 1).all()
+    np.testing.assert_array_equal(dequantize_lut(q).numpy(), flat.numpy())
+
+
+@pytest.mark.parametrize("t,m,cb,dsub", [(30, 16, 256, 8), (7, 8, 64, 4)])
+def test_lut_build_q_matches_reference_kernel(t, m, cb, dsub):
+    """The reference's own contract for the fused epilogue: |diff| <= 1
+    count, boundary flips only."""
+    res, books, sqn, *_ = _mk(2, t, m, cb, 4, dsub)
+    want = jops.lut_build_q(jnp.asarray(res), jnp.asarray(books),
+                            jnp.asarray(sqn))
+    got = ops.lut_build_q(*_t(res, books, sqn))
+    diff = got.lut_q.numpy().astype(np.int32) - np.asarray(want.lut_q,
+                                                           np.int32)
+    assert np.abs(diff).max() <= 1
+    assert (diff != 0).mean() < 1e-3
+    np.testing.assert_allclose(got.scale.numpy(), np.asarray(want.scale),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.bias.numpy(), np.asarray(want.bias),
+                               rtol=RTOL, atol=ATOL)
+
+
+SCAN_SHAPES = [(3, 8, 64, 300), (8, 16, 256, 512), (5, 8, 256, 1000),
+               (2, 32, 32, 64)]        # subset of tests/test_kernels.py
+
+
+@pytest.mark.parametrize("t,m,cb,c", SCAN_SHAPES)
+@pytest.mark.parametrize("code_dtype", [np.uint8, np.int32])
+def test_pq_scan_dc_matches_reference(t, m, cb, c, code_dtype):
+    res, books, sqn, codes, sizes = _mk(3, t, m, cb, c, 4, code_dtype)
+    lut = np.asarray(jops.lut_build(jnp.asarray(res), jnp.asarray(books),
+                                    jnp.asarray(sqn)))
+    want = np.asarray(jops.pq_scan_dc(jnp.asarray(lut), jnp.asarray(codes),
+                                      jnp.asarray(sizes), strategy="gather"))
+    tl, tc, ts = _t(lut, codes, sizes)
+    got = ops.pq_scan_dc(tl, tc, ts).numpy()
+    valid = np.arange(c)[None] < sizes[:, None]
+    np.testing.assert_allclose(got[valid], want[valid], rtol=RTOL, atol=ATOL)
+    assert np.isinf(got[~valid]).all() and np.isinf(want[~valid]).all()
+    # no sizes: every row valid, both strategies name one function
+    for strategy in ("gather", "onehot"):
+        full = ops.pq_scan_dc(tl, tc, None, strategy=strategy).numpy()
+        np.testing.assert_allclose(
+            full, ref.pq_scan_dc_ref(tl, tc).numpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("t,m,cb,c", SCAN_SHAPES[:3])
+@pytest.mark.parametrize("code_dtype", [np.uint8, np.int32])
+def test_pq_scan_dc_q_matches_reference(t, m, cb, c, code_dtype):
+    """uint8 DC on the same quantized tables: allclose, masked rows +inf."""
+    res, books, sqn, codes, sizes = _mk(4, t, m, cb, c, 4, code_dtype)
+    sizes[0] = 0
+    q = jops.lut_build_q(jnp.asarray(res), jnp.asarray(books),
+                         jnp.asarray(sqn))
+    want = np.asarray(jops.pq_scan_dc(q, jnp.asarray(codes),
+                                      jnp.asarray(sizes), strategy="gather"))
+    qt = QuantizedLUT(*_t(q.lut_q, q.scale, q.bias))
+    tc, ts = _t(codes, sizes)
+    got = ops.pq_scan_dc(qt, tc, ts).numpy()
+    valid = np.arange(c)[None] < sizes[:, None]
+    np.testing.assert_allclose(got[valid], want[valid], rtol=RTOL, atol=ATOL)
+    assert np.isinf(got[~valid]).all() and np.isinf(got[0]).all()
+
+
+def test_wrappers_reject_bad_inputs():
+    res, books, sqn, codes, sizes = _mk(5, 4, 4, 16, 32, 2)
+    r, b, s, c, z = _t(res, books, sqn, codes, sizes)
+    with pytest.raises(TypeError):
+        ops.lut_build(r.double(), b, s)
+    with pytest.raises(ValueError):
+        ops.lut_build(r[:, :-1], b, s)
+    with pytest.raises(ValueError):
+        ops.lut_build(r.T.contiguous().T, b, s)            # not contiguous
+    lut = ops.lut_build(r, b, s)
+    with pytest.raises(TypeError):
+        ops.pq_scan_dc(lut, c.long(), z)
+    with pytest.raises(TypeError):
+        ops.pq_scan_dc(lut, c, z.long())
+    with pytest.raises(ValueError):
+        ops.pq_scan_dc(lut, c, z[:2])
+    with pytest.raises(ValueError):
+        ops.pq_scan_dc(lut, c, z, strategy="bogus")
+
+
+def test_cpu_runs_do_not_count_as_launches():
+    ops.reset_launches()
+    res, books, sqn, codes, sizes = _mk(6, 4, 4, 16, 32, 2)
+    r, b, s, c, z = _t(res, books, sqn, codes, sizes)
+    ops.pq_scan_dc(ops.lut_build(r, b, s), c, z)
+    ops.pq_scan_dc(ops.lut_build_q(r, b, s), c, z)
+    assert all(v == 0 for v in ops.launches.values())
