@@ -7,17 +7,28 @@ Run from the root of a checkout, with no arguments:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version (ragged
-shapes first, then the main path's own inputs), and drives the port's
-main path once at the configuration below:
+shapes first, then each path's own inputs), and drives the port's two
+main paths once at the configuration below:
 
-    corpus (make_clustered_corpus) -> build_ivfpq + pad_clusters on the
-    card -> search_ivfpq(use_kernels=True), f32 and uint8 LUTs ->
-    LocalEngine behind ServingRuntime answering a Poisson query stream.
+    local:   corpus (make_clustered_corpus) -> build_ivfpq + pad_clusters
+             on the card -> search_ivfpq(use_kernels=True), f32 and uint8
+             LUTs -> LocalEngine behind ServingRuntime answering a
+             Poisson query stream;
+    sharded: the same index -> DistributedEngine (64 shards, clusters
+             split at 1,024 rows, the hottest duplicated within 10% of
+             the index's bytes, heat from CL of the 10,000 queries) ->
+             the 10,000 queries in 10 batches of 1,000, f32 and uint8
+             (RC, LC and the fused DC+TS kernel once a step over 65,536
+             tasks) -> ShardedEngine behind ServingRuntime, first on the
+             local run's Poisson trace, then with the LUT cache and the
+             online heat estimator on a Zipf trace.
 
-The launch counters of the four kernels are reset just before the main
-path and read just after it; each must have risen.  Recall@10 is taken
-against the port's exact_search.  The last lines printed are one
-``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
+The launch counters of the six kernels are reset just before each path
+and read just after it; every kernel of the path must have risen.
+Recall@10 is taken against the port's exact_search; the sharded results
+are held to the local path's on the same queries, and served results to
+a direct search.  The last lines printed are one ``{"kernels": [...]}``
+JSON line and ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the exit code is non-zero and the ``ok`` line
 is never printed; so is a run without CUDA or outside a checkout.
 
@@ -53,6 +64,7 @@ RTOL, ATOL = 1e-4, 1e-3        # the reference's kernel tolerance
 D, M, CB, K = 128, 16, 256, 10
 N_QUERIES, QUERY_CHUNK, NPROBE = 10_000, 256, 32
 N_RECALL, N_SERVE = 1_000, 400
+N_SHARDS, SPLIT_MAX, SHARD_BATCH, TASKS_PER_SHARD = 64, 1024, 1_000, 1024
 
 KERNELS = {   # wrapper counter -> (route source, TPU kernel it replaces)
     "lut_build": ("src/repro_torch/kernels/csrc/lut_build.cu",
@@ -63,7 +75,14 @@ KERNELS = {   # wrapper counter -> (route source, TPU kernel it replaces)
                    "src/repro/kernels/pq_scan.py:118"),
     "pq_scan_dc_q": ("src/repro_torch/kernels/csrc/pq_scan.cu",
                      "src/repro/kernels/pq_scan.py:151"),
+    "pq_scan_topk": ("src/repro_torch/kernels/csrc/pq_scan_topk.cu",
+                     "src/repro/kernels/pq_scan.py:214"),
+    "pq_scan_topk_q": ("src/repro_torch/kernels/csrc/pq_scan_topk.cu",
+                       "src/repro/kernels/pq_scan.py:290"),
 }
+LOCAL_KERNELS = ("lut_build", "lut_build_q", "pq_scan_dc", "pq_scan_dc_q")
+SHARDED_KERNELS = ("lut_build", "lut_build_q", "pq_scan_topk",
+                   "pq_scan_topk_q")
 
 
 class SmokeFailure(RuntimeError):
@@ -123,6 +142,23 @@ def same_neighbours(kd, ki, pd, pi, rtol, atol):
     return bad
 
 
+def tie_diff_rows(d1, i1, d2, i2, rtol, atol):
+    """Count rows whose id sets differ beyond ties at the k-th place: an
+    id found on one side only must sit at that side's k-th distance, and
+    the two k-th distances must agree.  (d, i): (Q, k) numpy arrays."""
+    bad = 0
+    k = i1.shape[1]
+    differ = np.nonzero((np.sort(i1, 1) != np.sort(i2, 1)).any(1))[0]
+    for q in differ:
+        a, b = set(i1[q].tolist()), set(i2[q].tolist())
+        ok = np.isclose(d1[q, k - 1], d2[q, k - 1], rtol=rtol, atol=atol)
+        for ids, d, only in ((i1[q], d1[q], a - b), (i2[q], d2[q], b - a)):
+            for j in np.nonzero(np.isin(ids, list(only)))[0]:
+                ok &= np.isclose(d[j], d[k - 1], rtol=rtol, atol=atol)
+        bad += int(not ok)
+    return bad
+
+
 # ---------------------------------------------------------------------------
 # Kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -179,6 +215,55 @@ def check_scan(ops, plain_f32, plain_u8, lut, q, codes, sizes, where: str):
     return errs
 
 
+def check_topk(ops, lut, codes, ids, sizes, k: int, where: str) -> float:
+    """E or F against its plain version (DC, then top-k_pad): distances
+    allclose with equal +inf masks, -1 ids exactly at +inf, per-task id
+    sets equal apart from ties at the k-th place.  Returns max |err|."""
+    from repro_torch.util import next_pow2
+    k_pad = next_pow2(max(k, 8))
+    gd, gi = ops.pq_scan_topk(lut, codes, ids, sizes, k)
+    pd, pi = ops.pq_scan_topk_plain(lut, codes, ids, sizes, k_pad)
+    torch.cuda.synchronize()
+    name = "pq_scan_topk_q" if isinstance(lut, tuple) else "pq_scan_topk"
+    gd, gi, pd, pi = (x.cpu().numpy() for x in (gd, gi, pd, pi))
+    inf = np.isinf(pd[:, :k])
+    check(np.array_equal(np.isinf(gd), inf), f"{name} {where} k={k}: +inf "
+                                             f"mask differs")
+    check(bool((gi[inf] == -1).all() and (gi[~inf] >= 0).all()),
+          f"{name} {where} k={k}: -1 ids not exactly at +inf")
+    err = float(np.abs(gd[~inf] - pd[:, :k][~inf]).max()) if (~inf).any() \
+        else 0.0
+    check(np.allclose(gd[~inf], pd[:, :k][~inf], rtol=RTOL, atol=ATOL),
+          f"{name} {where} k={k}: max |err| {err}")
+    bad = tie_diff_rows(gd, gi, pd[:, :k], pi[:, :k], RTOL, ATOL)
+    check(bad == 0, f"{name} {where} k={k}: ids differ on {bad} tasks "
+                    f"beyond k-th-place ties")
+    return err
+
+
+def ragged_topk_checks(ops, lut, q, codes, where: str, g) -> None:
+    """E and F at k = 1, 10, 100 on one ragged shape (sizes < C, a task
+    with sizes = 0), then with every row of a task scoring the same."""
+    t, c = codes.shape[0], codes.shape[1]
+    sizes = torch.randint(0, c, (t,), device="cuda", generator=g,
+                          dtype=torch.int32)
+    sizes[0] = 0
+    ids = torch.randperm(t * c, device="cuda", generator=g).int().view(t, c)
+    errs = {}
+    for k in (1, 10, 100):
+        for table in (lut, q):
+            e = check_topk(ops, table, codes, ids, sizes, k, where)
+            key = "pq_scan_topk_q" if isinstance(table, tuple) \
+                else "pq_scan_topk"
+            errs[key] = max(errs.get(key, 0.0), e)
+    same = codes[:, :1].expand_as(codes).contiguous()
+    for table in (lut, q):
+        check_topk(ops, table, same, ids, sizes, 10, where + " equal rows")
+    log(f"  {where}: pq_scan_topk max|err| {errs['pq_scan_topk']:.3e}, "
+        f"pq_scan_topk_q max|err| {errs['pq_scan_topk_q']:.3e} "
+        f"(k = 1, 10, 100; all-equal rows too)")
+
+
 def ragged_checks(ops, ref, adc):
     """Shapes that are not multiples of the blocks, a task with sizes=0,
     sizes < C, u8 and i32 codes."""
@@ -198,6 +283,7 @@ def ragged_checks(ops, ref, adc):
         lut, q, _, _ = check_lut(ops, ref, adc, res, books, sqn, where)
         check_scan(ops, adc.adc_distances, adc.adc_distances_quantized, lut,
                    q, codes, sizes, where)
+        ragged_topk_checks(ops, lut, q, codes, where, g)
 
 
 def main_shape_report(ops, ref, adc, res, books, sqn, codes, sizes,
@@ -298,6 +384,223 @@ def phase_breakdown(ops, index, clusters, q, dt: str) -> dict:
                                                  ids.reshape(cand), K),
     }
     return {name: event_ms(fn, reps=10) for name, fn in phases.items()}
+
+
+# ---------------------------------------------------------------------------
+# The sharded path
+# ---------------------------------------------------------------------------
+
+def sharded_path(ops, index, queries, local, rec_local, gt, pool, trace,
+                 n: int, seed: int):
+    """Drive DistributedEngine (f32 and uint8) over the 10,000 queries and
+    ShardedEngine behind ServingRuntime, cache off and on.  Checks every
+    result against the local path or a direct search.  Returns the two
+    engines, the inputs of each fused kernel's first launch, and each
+    engine's (wall s, steps, host s per phase) over the 10,000 queries."""
+    from repro_torch.core.adc import QuantizedLUT
+    from repro_torch.core.search import cluster_locate, recall_at_k
+    from repro_torch.core.sharded_search import (CL_BLOCK, DistributedEngine,
+                                                 EngineConfig)
+    from repro_torch.data import make_query_stream
+    from repro_torch.runtime import (HeatAwareAdmission, HotClusterLUTCache,
+                                     OnlineHeatEstimator, ServingConfig,
+                                     ServingRuntime, ShardedEngine)
+
+    captured = {}
+    launch = ops.pq_scan_topk
+
+    def capture(lut, codes, ids, sizes, k, **kw):
+        name = ("pq_scan_topk_q" if isinstance(lut, QuantizedLUT)
+                else "pq_scan_topk")
+        captured.setdefault(name, (lut, codes, ids, sizes, k))
+        return launch(lut, codes, ids, sizes, k, **kw)
+
+    ops.pq_scan_topk = capture           # records inputs, counts nothing
+    try:
+        t0 = time.perf_counter()
+        sample = torch.cat([
+            cluster_locate(queries[s:s + CL_BLOCK], index.centroids, NPROBE,
+                           block=CL_BLOCK)[0]
+            for s in range(0, len(queries), CL_BLOCK)]).cpu().numpy()
+        log(f"  heat: CL of the {len(queries)} queries, "
+            f"{time.perf_counter() - t0:.2f} s")
+        dup = int(0.10 * n * (M + 4))
+        engines = {}
+        for dt in ("f32", "uint8"):
+            cfg = EngineConfig(n_shards=N_SHARDS, nprobe=NPROBE, k=K,
+                               split_max=SPLIT_MAX, dup_budget_bytes=dup,
+                               tasks_per_shard=TASKS_PER_SHARD,
+                               lut_dtype=dt)
+            eng, secs = sync_time(lambda: DistributedEngine(index, cfg,
+                                                            sample))
+            lay, sx = eng.layout, eng.sindex
+            reps = sum(i.replica > 0 for i in lay.instances)
+            nbytes = sum(x.numel() * x.element_size()
+                         for x in (sx.codes, sx.ids, sx.sizes))
+            log(f"  DistributedEngine lut={dt}: {secs:.2f} s (host layout "
+                f"{eng.phase_s['layout']:.2f} s, materialize_shards "
+                f"{eng.phase_s['materialize']:.2f} s); {len(lay.instances)} "
+                f"instances ({reps} duplicates, budget {dup} B) on "
+                f"{N_SHARDS} shards x {sx.slots} slots x cpart {sx.cpart}, "
+                f"{nbytes / 2**20:.1f} MiB; predicted imbalance "
+                f"{lay.stats(eng.latency)['imbalance']:.4f}")
+            engines[dt] = eng
+
+        runs = {}
+        for dt, eng in engines.items():
+            eng.phase_s.clear()
+            outs, wall, rounds = [], 0.0, 0
+            for b in range(0, len(queries), SHARD_BATCH):
+                (d, i, info), secs = sync_time(
+                    lambda: eng.search(queries[b:b + SHARD_BATCH]))
+                outs.append((d, i))
+                wall += secs
+                rounds += info["rounds"]
+            d = np.concatenate([o[0] for o in outs])
+            i = np.concatenate([o[1] for o in outs])
+            check(d.shape == (len(queries), K) and np.isfinite(d).all()
+                  and (i >= 0).all(), f"sharded {dt}: bad results")
+            ld, li = (x.cpu().numpy() for x in local[dt])
+            check(np.allclose(d, ld, rtol=RTOL, atol=ATOL),
+                  f"sharded {dt}: distances differ from the local path")
+            bad = tie_diff_rows(d, i, ld, li, RTOL, ATOL)
+            check(bad == 0, f"sharded {dt}: ids differ from the local path "
+                            f"on {bad} queries beyond k-th-place ties")
+            rec = recall_at_k(torch.from_numpy(i[:N_RECALL]).cuda(), gt)
+            check(abs(rec - rec_local[dt]) <= 0.001,
+                  f"sharded {dt}: recall {rec} vs local {rec_local[dt]}")
+            ph = eng.phase_s
+            log(f"  sharded lut={dt}: {len(queries)} queries in "
+                f"{len(outs)} batches of {SHARD_BATCH}, {wall:.2f} s "
+                f"({len(queries) / wall:.1f} QPS), {rounds} steps; host s: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in ph.items())
+                + f"; distances equal to the local path's on "
+                f"{float(np.mean(d == ld)):.4f} of entries, ids agree "
+                f"(ties allowed), recall@{K} {rec:.4f} (local "
+                f"{rec_local[dt]:.4f})")
+            runs[dt] = (wall, rounds, dict(ph))
+
+        eng = engines["f32"]
+        eng.tasks_controller = eng.make_tasks_controller()
+        zipf = make_query_stream(pool, N_SERVE, qps=2000.0, skew=1.1,
+                                 seed=seed + 1)
+        for label, tr in (("no cache, Poisson trace", trace),
+                          ("LUT cache + heat, Zipf 1.1 trace", zipf)):
+            cache = None
+            if tr is zipf:
+                est = OnlineHeatEstimator(index.nlist, seed=eng.heat)
+                cache = HotClusterLUTCache(capacity=8192, lut_dtype="f32",
+                                           admission=HeatAwareAdmission(est))
+                eng.heat_estimator, eng.lut_cache = est, cache
+            rt = ServingRuntime(ShardedEngine(eng), ServingConfig(
+                buckets=(1, 2, 4, 8, 16, 32)))
+            rt.warmup(D)
+            eng.phase_s.clear()
+            reqs = rt.run_stream(tr)
+            served_s = dict(eng.phase_s)
+            check(all(r.done for r in reqs), f"sharded serving ({label}): "
+                                             f"unserved requests")
+            qs = np.stack([r.query for r in reqs])
+            sd = np.stack([r.dists for r in reqs])
+            si = np.stack([r.ids for r in reqs])
+            outs = {"on" if cache else "off": eng.search(qs)}
+            if cache is not None:
+                eng.lut_cache = None
+                outs["off"] = eng.search(qs)
+                eng.lut_cache = cache
+            for key, (dd, di, _) in outs.items():
+                check(np.array_equal(sd, dd), f"sharded serving ({label}): "
+                      f"served distances differ from a direct search with "
+                      f"the cache {key}")
+                bad = tie_diff_rows(sd, si, dd, di, 0.0, 0.0)
+                check(bad == 0, f"sharded serving ({label}): ids differ on "
+                                f"{bad} requests from a direct search with "
+                                f"the cache {key}")
+            m = rt.metrics()
+            hit = (f", LUT cache hit rate {cache.stats.hit_rate:.4f} "
+                   f"({cache.stats.hits} hits, {len(cache)} entries)"
+                   if cache is not None else "")
+            log(f"  ShardedEngine serving ({label}): {m['requests']} "
+                f"requests in {m['batches']} batches: p50 "
+                f"{m['p50_ms']:.3f} ms, p99 {m['p99_ms']:.3f} ms, QPS "
+                f"{m['qps']:.1f}, occupancy {m['avg_batch_occupancy']:.3f}"
+                f"{hit}; served == direct search, cache "
+                + ("on and off" if cache is not None else "off")
+                + "; engine host s over the stream: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in served_s.items()))
+        eng.lut_cache = eng.heat_estimator = eng.tasks_controller = None
+    finally:
+        ops.pq_scan_topk = launch
+    return engines, captured, runs
+
+
+def sharded_step_time(engines, runs, queries) -> None:
+    """Device time of one step of the first 1,000-query batch (RC, LC,
+    the codes gather and the fused kernel), CUDA events, beside the host
+    seconds the same batch's phases took."""
+    from repro_torch.core.sharded_search import run_shards_vmap
+    for dt, eng in engines.items():
+        qb = queries[:SHARD_BATCH]
+        sched = eng.schedule(eng.locate(qb))
+        eng.carry = []
+        qidx = torch.from_numpy(sched.query_idx).cuda()
+        sidx = torch.from_numpy(sched.slot_idx).cuda()
+        step_ms = event_ms(lambda: run_shards_vmap(
+            eng.sindex, qidx, sidx, qb, k=K, quantize=dt == "uint8"),
+            reps=5)
+        wall, rounds, _ = runs[dt]
+        busy = rounds * step_ms / 1e3
+        log(f"  sharded lut={dt}: one step ({int(sched.n_tasks.sum())} "
+            f"tasks of {sched.query_idx.size}) {step_ms:.3f} ms on the "
+            f"device (CUDA events); {rounds} steps ~{busy:.3f} s of the "
+            f"{wall:.2f} s run, idle share ~{max(0.0, 1 - busy / wall):.3f}")
+
+
+def fused_report(ops, captured, launches) -> list:
+    """E and F on the inputs of their first launch in the sharded path:
+    check, time, bound, plain time, and the unfused pair (C or D, then
+    torch.topk) as the yardstick; no single library call computes them."""
+    from repro_torch.core.topk import topk_smallest
+    from repro_torch.util import next_pow2
+    rows = []
+    for name in ("pq_scan_topk", "pq_scan_topk_q"):
+        lut, codes, ids, sizes, k = captured[name]
+        t, c = codes.shape[0], codes.shape[1]
+        k_pad = next_pow2(max(k, 8))
+        err = check_topk(ops, lut, codes, ids, sizes, k,
+                         f"sharded step T={t} C={c}")
+        quant = name.endswith("_q")
+        nonempty = int((sizes > 0).sum())
+        valid = int(sizes.clamp(max=c).sum())
+        # only the winners' ids are read: min(valid rows, k_pad) per task
+        winners = int(sizes.clamp(max=min(c, k_pad)).sum())
+        table = M * CB + 8 * M if quant else M * CB * 4
+        nbytes = (nonempty * table + valid * M * codes.element_size()
+                  + winners * 4 + t * (4 + 8 * k_pad))
+        nops = valid * M * (2 if quant else 1) + (nonempty * M if quant else 0)
+        ms = event_ms(lambda: ops.pq_scan_topk(lut, codes, ids, sizes, k),
+                      reps=20)
+        plain_ms = event_ms(lambda: ops.pq_scan_topk_plain(
+            lut, codes, ids, sizes, k_pad), reps=3, warm=1)
+        pair_ms = event_ms(lambda: topk_smallest(
+            ops.pq_scan_dc(lut, codes, sizes), ids, k_pad), reps=20)
+        b_ms, b_by = bound_ms(nbytes, nops)
+        src, replaces = KERNELS[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "unfused_pair_ms": pair_ms, "bytes": nbytes,
+                     "ops": nops,
+                     "shape": {"T": t, "M": M, "CB": CB, "C": c,
+                               "k_pad": k_pad, "nonempty_tasks": nonempty,
+                               "valid_rows": valid,
+                               "winner_rows": winners}})
+        log(f"  {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, plain "
+            f"{plain_ms:.4f} ms, unfused pair {pair_ms:.4f} ms, library "
+            f"none); T={t} ({nonempty} non-empty) C={c} k_pad={k_pad}, "
+            f"{valid} valid rows")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -485,8 +788,8 @@ def main() -> int:
         f"p50 {m['p50_ms']:.3f} ms, p99 {m['p99_ms']:.3f} ms, "
         f"QPS {m['qps']:.1f}, occupancy {m['avg_batch_occupancy']:.3f}")
     log(f"  peak device memory {peak / 2**30:.2f} GiB; launches {launches}")
-    for name in KERNELS:
-        check(launches[name] > 0, f"{name} never launched on the main path")
+    for name in LOCAL_KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the local path")
 
     # -- where a search's time goes (after the counts were read) ----------
     serve_batch = torch.from_numpy(pool[:32]).cuda()
@@ -505,7 +808,24 @@ def main() -> int:
             f"alone sum to {busy:.3f} ms: " + ", ".join(
                 f"{k} {v:.3f}" for k, v in ph.items()))
 
-    # -- 3b. the main path's own shapes: check, time, bound ---------------
+    # -- 5. the sharded path on the same index -----------------------------
+    log(f"sharded path: n_shards={N_SHARDS} split_max={SPLIT_MAX} "
+        f"tasks_per_shard={TASKS_PER_SHARD} nprobe={NPROBE} k={K}, "
+        f"{N_QUERIES} queries in batches of {SHARD_BATCH}")
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    engines, captured, runs = sharded_path(ops, index, queries, results, rec,
+                                           gt, pool, trace, n, args.seed)
+    sharded_launches = dict(ops.launches)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; launches {sharded_launches}")
+    for name in SHARDED_KERNELS:
+        check(sharded_launches[name] > 0,
+              f"{name} never launched on the sharded path")
+    sharded_step_time(engines, runs, queries)
+    total = {k: launches[k] + sharded_launches[k] for k in KERNELS}
+
+    # -- 3b. the main paths' own shapes: check, time, bound ---------------
     log("kernels vs plain, main-path shapes (first query chunk):")
     q0 = queries[:QUERY_CHUNK]
     probes, _ = cluster_locate(q0, index.centroids, NPROBE,
@@ -516,7 +836,9 @@ def main() -> int:
                              index.codebook.codebooks,
                              index.codebook.sqnorms,
                              clusters.codes.index_select(0, flat),
-                             clusters.sizes.index_select(0, flat), launches)
+                             clusters.sizes.index_select(0, flat), total)
+    log("fused kernels vs plain, the sharded path's first launch:")
+    rows += fused_report(ops, captured, total)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""IVF-PQ core: k-means, PQ/OPQ, index build, ADC and the search pipeline."""
+"""IVF-PQ core: k-means, PQ/OPQ, index build, ADC, the search pipeline,
+and the sharded engine (perf model, layout, scheduler, sharded search)."""
 
 from repro_torch.core.kmeans import (kmeans, kmeans_multi, l2_sq,
                                      assign_chunked)
@@ -14,6 +15,14 @@ from repro_torch.core.topk import topk_smallest, merge_topk
 from repro_torch.core.search import (SearchParams, search_ivfpq,
                                      exact_search, recall_at_k,
                                      cluster_locate)
+from repro_torch.core.perf_model import (IndexParams, HardwareProfile,
+                                         UPMEM_PROFILE, TaskLatencyModel,
+                                         make_task_latency_model)
+from repro_torch.core.layout import Layout, build_layout, estimate_heat
+from repro_torch.core.scheduler import ShardSchedule, schedule_batch
+from repro_torch.core.sharded_search import (DistributedEngine, EngineConfig,
+                                             ShardedIndex, materialize_shards,
+                                             merge_host)
 
 __all__ = [
     "kmeans", "kmeans_multi", "l2_sq", "assign_chunked",
@@ -27,4 +36,10 @@ __all__ = [
     "topk_smallest", "merge_topk",
     "SearchParams", "search_ivfpq", "exact_search", "recall_at_k",
     "cluster_locate",
+    "IndexParams", "HardwareProfile", "UPMEM_PROFILE", "TaskLatencyModel",
+    "make_task_latency_model",
+    "Layout", "build_layout", "estimate_heat",
+    "ShardSchedule", "schedule_batch",
+    "DistributedEngine", "EngineConfig", "ShardedIndex",
+    "materialize_shards", "merge_host",
 ]

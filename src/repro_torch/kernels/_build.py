@@ -4,8 +4,9 @@
 Each source under ``csrc/`` becomes one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds).  Libraries
 land in ``build/repro_torch_kernels/`` at the root of the checkout,
-named by a hash of the source and the flags, so an edited source builds
-anew and an unchanged one is reused.  Nothing here runs at import time.
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source builds anew and an unchanged one is
+reused.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("lut_build", "pq_scan")
+SOURCES = ("lut_build", "pq_scan", "pq_scan_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +41,14 @@ SIGNATURES = {
         "pq_scan_u8": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "pq_scan_smem_bytes": ([_I, _I, _I], _S),
         "pq_scan_error_string": ([_I], ctypes.c_char_p),
+    },
+    "pq_scan_topk": {
+        "pq_scan_topk_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P], _I),
+        "pq_scan_topk_u8": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _P], _I),
+        "pq_scan_topk_smem_bytes": ([_I, _I, _I], _S),
+        "pq_scan_topk_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
@@ -62,6 +71,7 @@ def nvcc_path() -> str:
 
 def target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

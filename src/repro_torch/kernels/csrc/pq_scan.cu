@@ -25,49 +25,21 @@
 //     memory, summed in order m = 0..M-1;
 //   * rows past the task's size are not read: they are written +inf.
 //
-// The kernels allocate nothing and never synchronise.
+// The staging and the row distance live in pq_row.cuh, shared with the
+// fused DC+TS kernels (pq_scan_topk.cu).  The kernels allocate nothing and
+// never synchronise.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "pq_row.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = 1024;
 
-template <bool kQuant>
-__device__ __forceinline__ float add_entry(float acc, int m, int code,
-                                           const float* lut_f,
-                                           const uint8_t* lut_q,
-                                           const float* sc, int CB) {
-  if constexpr (kQuant) return fmaf(sc[m], (float)lut_q[m * CB + code], acc);
-  return acc + lut_f[m * CB + code];
-}
-
-// Distance of one code row, summed in order m = 0..M-1.
-template <typename CodeT, bool kQuant, bool kVec16>
-__device__ __forceinline__ float row_dist(const CodeT* row, const float* lut_f,
-                                          const uint8_t* lut_q,
-                                          const float* sc, int M, int CB) {
-  float acc = 0.0f;
-  if constexpr (kVec16) {
-    const uint4 v = *reinterpret_cast<const uint4*>(row);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int m = 0; m < 16; ++m)
-      acc = add_entry<kQuant>(acc, m, (w[m >> 2] >> (8 * (m & 3))) & 0xff,
-                              lut_f, lut_q, sc, CB);
-  } else {
-    for (int m = 0; m < M; ++m)
-      acc = add_entry<kQuant>(acc, m, (int)row[m], lut_f, lut_q, sc, CB);
-  }
-  if constexpr (kQuant) acc += sc[M];
-  return acc;
-}
-
-// One task's table in shared memory: f32 (M, CB), or u8 (M, CB) followed
-// by the M scales and the bias sum.
 template <typename CodeT, bool kQuant, bool kVec16>
 __global__ void __launch_bounds__(kThreads)
     pq_scan_kernel(const void* __restrict__ lut,
@@ -78,42 +50,23 @@ __global__ void __launch_bounds__(kThreads)
                    int C, int M, int CB) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = blockIdx.x;
-  const int mcb = M * CB;
-  float* lut_f = reinterpret_cast<float*>(smem);
-  uint8_t* lut_q = smem;
-  float* sc = reinterpret_cast<float*>(smem + ((mcb + 15) & ~15));
-  if constexpr (kQuant) {
-    const uint8_t* src = static_cast<const uint8_t*>(lut) + (size_t)t * mcb;
-    for (int i = threadIdx.x; i < mcb; i += kThreads) lut_q[i] = src[i];
-    for (int i = threadIdx.x; i < M; i += kThreads)
-      sc[i] = scale[(size_t)t * M + i];
-    if (threadIdx.x == 0) {
-      float b = 0.0f;
-      for (int m = 0; m < M; ++m) b += bias[(size_t)t * M + m];
-      sc[M] = b;
-    }
-  } else {
-    const float* src = static_cast<const float*>(lut) + (size_t)t * mcb;
-    for (int i = threadIdx.x; i < mcb; i += kThreads) lut_f[i] = src[i];
-  }
-  __syncthreads();
+  pqrow::stage_table<kQuant, kThreads>(lut, scale, bias, t, M, CB, smem);
+  const pqrow::Table tab = pqrow::table_view(smem, M, CB);
 
   const int size = sizes == nullptr ? C : min(sizes[t], C);
   const int c0 = blockIdx.y * kRowsPerBlock;
   const int c1 = min(c0 + kRowsPerBlock, C);
   for (int c = c0 + threadIdx.x; c < c1; c += kThreads) {
     out[(size_t)t * C + c] =
-        c < size ? row_dist<CodeT, kQuant, kVec16>(
-                       codes + ((size_t)t * C + c) * M, lut_f, lut_q, sc, M,
-                       CB)
+        c < size ? pqrow::row_dist<CodeT, kQuant, kVec16>(
+                       codes + ((size_t)t * C + c) * M, tab.lut_f,
+                       tab.lut_q, tab.sc, M, CB)
                  : INFINITY;
   }
 }
 
 size_t smem_bytes(bool quant, int M, int CB) {
-  const size_t mcb = (size_t)M * CB;
-  if (!quant) return mcb * sizeof(float);
-  return ((mcb + 15) & ~(size_t)15) + (M + 1) * sizeof(float);
+  return pqrow::table_smem_bytes(quant, M, CB);
 }
 
 template <typename CodeT, bool kQuant, bool kVec16>

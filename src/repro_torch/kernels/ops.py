@@ -1,4 +1,4 @@
-"""Public wrappers around the LC and DC kernels.
+"""Public wrappers around the LC, DC and fused DC+TS kernels.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (built
 from ``csrc/`` at first use) or raises; on a CPU tensor it runs the
@@ -19,13 +19,18 @@ from repro_torch.core.adc import (QuantizedLUT, check_strategy,
                                   adc_distances, adc_distances_quantized,
                                   build_lut_batch, quantize_lut)
 from repro_torch.core.pq import PQCodebook
+from repro_torch.core.topk import topk_smallest
 from repro_torch.kernels import _build
+from repro_torch.util import next_pow2
 
 launches = {"lut_build": 0, "lut_build_q": 0, "pq_scan_dc": 0,
-            "pq_scan_dc_q": 0}
+            "pq_scan_dc_q": 0, "pq_scan_topk": 0, "pq_scan_topk_q": 0}
 
 # Dynamic shared memory one block may use on an H100 (227 KB).
 _SMEM_LIMIT = 232448
+# Largest k_pad the fused DC+TS kernels take (kMaxKPad in
+# csrc/pq_scan_topk.cu); the wrapper holds both routes to it.
+MAX_K_PAD = 256
 
 
 def reset_launches() -> None:
@@ -132,16 +137,9 @@ def lut_build_q(residuals: torch.Tensor, codebooks: torch.Tensor,
     return QuantizedLUT(lut_q, scale, bias)
 
 
-def pq_scan_dc(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
-               sizes: Optional[torch.Tensor] = None, *,
-               strategy: str = "gather") -> torch.Tensor:
-    """DC: (T, M, CB) table x (T, C, M) codes -> (T, C) f32; rows
-    ``>= sizes[t]`` are +inf (``sizes`` None: all rows valid).
-
-    ``lut`` is the f32 table or a :class:`QuantizedLUT` (uint8 path).
-    Codes are uint8 or int32.  ``strategy`` names a TPU dataflow and does
-    not change the result."""
-    check_strategy(strategy)
+def _scan_inputs(lut, codes, sizes):
+    """Check a scan's table, codes and sizes; returns (quantized, table,
+    device, T, C, M, CB)."""
     quantized = isinstance(lut, QuantizedLUT)
     table = lut.lut_q if quantized else lut
     dev = table.device
@@ -162,6 +160,20 @@ def pq_scan_dc(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
         _check(sizes, "sizes", (torch.int32,), 1, dev)
         if sizes.shape[0] != t:
             raise ValueError(f"sizes {tuple(sizes.shape)} != ({t},)")
+    return quantized, table, dev, t, c, m, cbn
+
+
+def pq_scan_dc(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
+               sizes: Optional[torch.Tensor] = None, *,
+               strategy: str = "gather") -> torch.Tensor:
+    """DC: (T, M, CB) table x (T, C, M) codes -> (T, C) f32; rows
+    ``>= sizes[t]`` are +inf (``sizes`` None: all rows valid).
+
+    ``lut`` is the f32 table or a :class:`QuantizedLUT` (uint8 path).
+    Codes are uint8 or int32.  ``strategy`` names a TPU dataflow and does
+    not change the result."""
+    check_strategy(strategy)
+    quantized, table, dev, t, c, m, cbn = _scan_inputs(lut, codes, sizes)
     if not _route(dev):
         if quantized:
             return adc_distances_quantized(lut, codes, sizes, strategy)
@@ -185,3 +197,76 @@ def pq_scan_dc(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
     _ok(lib, err, name, "pq_scan")
     launches[name] += 1
     return out
+
+
+def pq_scan_topk_plain(lut: Union[torch.Tensor, QuantizedLUT],
+                       codes: torch.Tensor, ids: torch.Tensor,
+                       sizes: torch.Tensor, k_pad: int):
+    """The fused kernels' plain version: DC (``adc_distances`` or
+    ``adc_distances_quantized``), masked ids, then ``topk_smallest``.
+    Returns (T, k_pad) ascending distances and ids, (+inf, -1) past the
+    valid rows, C < k_pad included."""
+    if isinstance(lut, QuantizedLUT):
+        d = adc_distances_quantized(lut, codes, sizes)
+    else:
+        d = adc_distances(lut, codes, sizes)
+    valid = (torch.arange(d.shape[1], device=d.device)[None, :]
+             < sizes[:, None])
+    ids = ids.masked_fill(~valid, -1)
+    short = k_pad - d.shape[1]
+    if short > 0:
+        d = torch.nn.functional.pad(d, (0, short), value=float("inf"))
+        ids = torch.nn.functional.pad(ids, (0, short), value=-1)
+    return topk_smallest(d, ids, k_pad)
+
+
+def pq_scan_topk(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
+                 ids: torch.Tensor, sizes: torch.Tensor, k: int, *,
+                 strategy: str = "gather"):
+    """Fused DC+TS: (T, M, CB) table x (T, C, M) codes -> the k smallest
+    distances per task, ascending, and their ids: ((T, k) f32, (T, k)
+    i32).  Rows ``>= sizes[t]`` never compete; slots past the valid rows
+    are (+inf, -1).
+
+    As the reference's wrapper: ``k_pad = next_pow2(max(k, 8))`` winners
+    are selected and the outputs are sliced to ``k``; ``k_pad`` may not
+    exceed :data:`MAX_K_PAD`.  ``lut`` is the f32 table or a
+    :class:`QuantizedLUT`; codes uint8 or int32; ids and sizes int32.
+    On the card ties are broken by row, so the output is deterministic."""
+    check_strategy(strategy)
+    quantized, table, dev, t, c, m, cbn = _scan_inputs(lut, codes, sizes)
+    if sizes is None:
+        raise ValueError("pq_scan_topk needs sizes")
+    _check(ids, "ids", (torch.int32,), 2, dev)
+    if ids.shape != (t, c):
+        raise ValueError(f"ids {tuple(ids.shape)} != {(t, c)}")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    k_pad = next_pow2(max(k, 8))
+    if k_pad > MAX_K_PAD:
+        raise ValueError(f"pq_scan_topk: k={k} needs k_pad={k_pad}, above "
+                         f"the kernels' {MAX_K_PAD}")
+    if not _route(dev):
+        bd, bi = pq_scan_topk_plain(lut, codes, ids, sizes, k_pad)
+        return bd[:, :k], bi[:, :k]
+    lib = _build.library("pq_scan_topk")
+    _smem("pq_scan_topk", lib.pq_scan_topk_smem_bytes(int(quantized), m, cbn))
+    out_d = torch.empty((t, k_pad), dtype=torch.float32, device=dev)
+    out_i = torch.empty((t, k_pad), dtype=torch.int32, device=dev)
+    code_bytes = codes.element_size()
+    with torch.cuda.device(dev):
+        if quantized:
+            err = lib.pq_scan_topk_u8(
+                table.data_ptr(), lut.scale.data_ptr(), lut.bias.data_ptr(),
+                codes.data_ptr(), ids.data_ptr(), sizes.data_ptr(),
+                out_d.data_ptr(), out_i.data_ptr(), t, c, m, cbn, code_bytes,
+                k_pad, _stream(dev))
+        else:
+            err = lib.pq_scan_topk_f32(
+                table.data_ptr(), codes.data_ptr(), ids.data_ptr(),
+                sizes.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), t, c,
+                m, cbn, code_bytes, k_pad, _stream(dev))
+    name = "pq_scan_topk_q" if quantized else "pq_scan_topk"
+    _ok(lib, err, name, "pq_scan_topk")
+    launches[name] += 1
+    return out_d[:, :k], out_i[:, :k]

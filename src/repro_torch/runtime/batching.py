@@ -14,6 +14,11 @@ Flush policy (both knobs in :class:`MicroBatcher`):
 All timestamps are passed in explicitly (``now``, seconds), so the
 batcher is deterministic under a virtual clock.  Queue operations are
 thread-safe (one lock around submit/poll/depth).
+
+:class:`TasksPerShardController` picks the sharded engine's static
+``(n_shards, tasks_per_shard)`` task-table width per batch size: too
+wide and small batches pay for padding tasks, too narrow and large
+batches overflow into drain rounds.
 """
 
 from __future__ import annotations
@@ -21,9 +26,11 @@ from __future__ import annotations
 import dataclasses
 import threading
 from collections import deque
-from typing import Deque, List, Optional
+from typing import Deque, Dict, List, Optional
 
 import numpy as np
+
+from repro_torch.util import next_pow2 as _pow2_ceil
 
 
 class BucketPolicy:
@@ -178,3 +185,96 @@ class MicroBatcher:
             queries[i] = r.query
             r.bucket = bucket
         return MicroBatch(reqs, queries, bucket, reason, float(now))
+
+
+class TasksPerShardController:
+    """Pick the sharded engine's static task-table width per batch bucket.
+
+    Prediction: a batch of ``b`` queries generates about
+    ``b * tasks_per_query`` (q, instance) tasks (``tasks_per_query`` =
+    nprobe x expected split parts per probed cluster, heat-weighted —
+    replicas do not add tasks, the scheduler picks one).  LPT-greedy
+    balancing spreads them near-evenly, so the per-shard width is that
+    total over ``n_shards`` times a ``headroom`` factor for residual
+    imbalance, rounded up to a power of two.
+
+    Perf-model cap: with ``mean_task_s`` (Eq. 15 latency of an average
+    task) and ``max_shard_time_s`` set, the width is additionally capped
+    at the number of tasks a shard can serve inside the latency target —
+    overflow is then deliberate deferral, the paper's inter-batch filter.
+
+    Adaptation: ``observe(b, n_deferred)`` doubles a bucket's width
+    multiplier whenever its schedule hit the hard cap, so a mispredicted
+    fan-out (e.g. heat drift concentrating probes) self-corrects after
+    one batch.
+
+    ``tasks_for`` is clamped to ``[floor, cap]``; ``cap`` should be the
+    engine's static ``tasks_per_shard`` so tuning never produces a wider
+    table than the untuned default.
+    """
+
+    def __init__(self, n_shards: int, tasks_per_query: float, *,
+                 headroom: float = 1.5, floor: int = 16, cap: int = 1024,
+                 mean_task_s: Optional[float] = None,
+                 max_shard_time_s: Optional[float] = None):
+        if n_shards < 1:
+            raise ValueError("n_shards must be >= 1")
+        if tasks_per_query <= 0:
+            raise ValueError("tasks_per_query must be positive")
+        self.n_shards = int(n_shards)
+        self.tasks_per_query = float(tasks_per_query)
+        self.headroom = float(headroom)
+        self.floor = int(floor)
+        self.cap = int(cap)
+        self.mean_task_s = mean_task_s
+        self.max_shard_time_s = max_shard_time_s
+        self._boost: Dict[int, float] = {}    # bucket -> multiplier
+        self.overflows = 0
+
+    def tasks_for(self, batch_size: int) -> int:
+        """Static table width for a ``batch_size``-query batch."""
+        b = max(int(batch_size), 1)
+        want = b * self.tasks_per_query * self.headroom / self.n_shards
+        want *= self._boost.get(b, 1.0)
+        width = _pow2_ceil(-(-want // 1))
+        if self.mean_task_s and self.max_shard_time_s:
+            budget = max(int(self.max_shard_time_s / self.mean_task_s), 1)
+            width = min(width, _pow2_ceil(budget))
+        return max(self.floor, min(width, self.cap))
+
+    def observe(self, batch_size: int, n_deferred: int) -> None:
+        """Feedback after scheduling: a hard-cap overflow (deferred tasks
+        with the table full) doubles this bucket's width next time.  A
+        boost that cannot change the width (static cap or perf-budget cap
+        already binding) is not applied, so the multiplier stays bounded
+        and ``overflows`` counts only effective adaptations."""
+        if n_deferred <= 0:
+            return
+        b = max(int(batch_size), 1)
+        before = self.tasks_for(b)
+        if before >= self.cap:
+            return                            # already at the static cap
+        prev = self._boost.get(b, 1.0)
+        self._boost[b] = prev * 2.0
+        if self.tasks_for(b) == before:       # another cap binds: inert
+            self._boost[b] = prev
+            return
+        self.overflows += 1
+
+    def retune(self, tasks_per_query: float,
+               mean_task_s: Optional[float] = None) -> None:
+        """Re-price the prediction after a re-layout changed split parts
+        (tasks_per_query) or task sizing (mean_task_s).  Learned overflow
+        boosts are kept — they still encode observed under-prediction."""
+        if tasks_per_query <= 0:
+            raise ValueError("tasks_per_query must be positive")
+        self.tasks_per_query = float(tasks_per_query)
+        if mean_task_s is not None:
+            self.mean_task_s = mean_task_s
+
+    def summary(self) -> dict:
+        """Widths currently chosen for the buckets seen so far."""
+        buckets = sorted(self._boost) or []
+        return {"overflows": self.overflows,
+                "cap": self.cap,
+                "boosted": {b: self.tasks_for(b) for b in buckets}}

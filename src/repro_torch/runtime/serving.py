@@ -4,6 +4,8 @@
     into padded micro-batches, flushing on deadline or on a full batch;
   * :class:`LocalEngine` runs the single-device five-phase pipeline
     (``core.search.search_ivfpq``) over an all-resident index;
+  * :class:`ShardedEngine` serves ``core.sharded_search.DistributedEngine``
+    (layout-sharded clusters, scheduled scans, optional LUT cache);
   * :class:`ServingRuntime` offers a submit/step online API plus a
     virtual-clock stream simulator with latency/throughput
     instrumentation (p50/p99, queue depth, batch occupancy).
@@ -14,8 +16,8 @@ which includes the device work: results come back to the host).
 
 Invariant: every engine op is row-wise per query, so a request's result
 does not depend on the micro-batch it rode in; de-padded served results
-match a direct ``search_ivfpq`` call.  (On the card that needs CL to run
-on a fixed block shape, see ``core.search._search_chunk``.)
+match a direct search.  (On the card that needs CL to run on a fixed
+block shape, see ``core.search._search_chunk``.)
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from repro_torch.core.ivf import IVFPQIndex, PaddedClusters
 from repro_torch.core.search import SearchParams, search_ivfpq
 from repro_torch.runtime.batching import (BucketPolicy, MicroBatch,
                                           MicroBatcher, Request)
+from repro_torch.runtime.cache import HotClusterLUTCache
 
 
 class SearchEngine(Protocol):
@@ -92,6 +95,53 @@ class LocalEngine:
 
     def serving_info(self) -> dict:
         return {"engine": "local", "device": str(self.device)}
+
+
+class ShardedEngine:
+    """``core.sharded_search.DistributedEngine`` behind the protocol.
+
+    ``search(flush=True)`` drains deferred tasks, so each batch returns
+    complete results; the per-query merge makes rows independent of batch
+    composition, which is what the de-padding invariant needs.
+
+    The serving collaborators live on the wrapped engine; this adapter
+    forwards them (``lut_cache`` as a settable property so warmup's
+    throwaway-cache swap reaches the engine, ``n_valid`` so padding rows
+    stay out of the cache and the heat estimator).
+    """
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.k = engine.cfg.k
+
+    @property
+    def lut_cache(self):
+        return self.engine.lut_cache
+
+    @lut_cache.setter
+    def lut_cache(self, cache):
+        self.engine.lut_cache = cache
+
+    @property
+    def nprobe(self) -> int:
+        return self.engine.cfg.nprobe
+
+    def precompile_lc(self, max_rows: int) -> None:
+        self.engine.precompile_lc(max_rows)
+
+    def serving_info(self) -> dict:
+        return self.engine.serving_info()
+
+    def search_batch(self, queries: np.ndarray,
+                     n_valid: Optional[int] = None,
+                     budget_s: Optional[float] = None,
+                     tenants: Optional[np.ndarray] = None,
+                     terms: Optional[np.ndarray] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        d, i, _info = self.engine.search(np.asarray(queries, np.float32),
+                                         n_valid=n_valid, budget_s=budget_s,
+                                         tenants=tenants, terms=terms)
+        return np.asarray(d), np.asarray(i)
 
 
 # ---------------------------------------------------------------------------
@@ -221,10 +271,27 @@ class ServingRuntime:
     def warmup(self, d: int) -> None:
         """Run every bucket shape once (all-padding, ``n_valid=0``) so
         the first real batch per bucket is not charged first-use costs
-        (kernel build and load, cuBLAS handle and workspace)."""
-        for b in self.batcher.policy.buckets:
-            self.engine.search_batch(np.zeros((b, d), np.float32),
-                                     n_valid=0)
+        (kernel build and load, cuBLAS handle and workspace).  Warmup
+        batches never touch the cache or the heat estimator: a throwaway
+        LUT cache (same granularity and dtype) stands in for the real one
+        meanwhile, and the cached path's miss-batch LC shapes are run
+        once too."""
+        cache = getattr(self.engine, "lut_cache", None)
+        if cache is not None:
+            self.engine.lut_cache = HotClusterLUTCache(
+                capacity=len(self.batcher.policy.buckets) * 64,
+                granularity=cache.granularity,
+                lut_dtype=cache.lut_dtype)
+        try:
+            for b in self.batcher.policy.buckets:
+                self.engine.search_batch(np.zeros((b, d), np.float32),
+                                         n_valid=0)
+            if cache is not None:
+                self.engine.precompile_lc(self.batcher.policy.max_batch
+                                          * self.engine.nprobe)
+        finally:
+            if cache is not None:
+                self.engine.lut_cache = cache
 
     # -- online API --------------------------------------------------------
     def submit(self, query: np.ndarray, now: float) -> Request:
@@ -309,6 +376,11 @@ class ServingRuntime:
     # -- metrics -----------------------------------------------------------
     def metrics(self) -> dict:
         out = self.stats.summary()
+        cache = getattr(self.engine, "lut_cache", None)
+        if cache is not None:
+            out["lut_cache"] = dict(cache.stats.as_dict(),
+                                    entries=len(cache),
+                                    granularity=cache.granularity)
         info = getattr(self.engine, "serving_info", None)
         if info is not None:
             out["engine"] = info()

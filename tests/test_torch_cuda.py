@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (SearchParams, build_ivfpq, pad_clusters,
-                              recall_at_k, search_ivfpq)
+from repro_torch.core import (SearchParams, build_ivfpq, cluster_locate,
+                              pad_clusters, recall_at_k, search_ivfpq)
 from repro_torch.core.adc import (adc_distances, adc_distances_quantized,
                                   quantize_lut)
 from repro_torch.data import make_clustered_corpus
@@ -83,6 +83,89 @@ def test_scan_kernels_match_plain(cuda, t, m, cb, c, code_dtype, quantized):
     assert torch.isinf(got[0]).all()
 
 
+def _topk_inputs(seed, t, c, code_dtype, quantized, device, m=16, cb=256):
+    r, b, s, codes, sizes = _mk(seed, t, m, cb, c, 8, code_dtype, device)
+    sizes = torch.minimum(sizes, torch.full_like(sizes, max(c - 1, 0)))
+    sizes[-1] = min(c, 3)                       # fewer rows than k_pad
+    sizes[0] = 0
+    ids = torch.randperm(t * c, device=device).int().view(t, c)
+    lut = ops.lut_build_q(r, b, s) if quantized else ops.lut_build(r, b, s)
+    return lut, codes, ids, sizes
+
+
+def _assert_topk_close(gd, gi, pd, pi, k):
+    """Kernel (T, k) against the plain version's (T, k_pad) columns:
+    distances allclose with equal +inf masks, ids -1 exactly at +inf, id
+    sets equal per task apart from a tie at the k-th place."""
+    gd, gi, pd, pi = (x.cpu().numpy() for x in (gd, gi, pd, pi))
+    inf = np.isinf(pd[:, :k])
+    np.testing.assert_array_equal(np.isinf(gd), inf)
+    np.testing.assert_allclose(gd[~inf], pd[:, :k][~inf], rtol=RTOL,
+                               atol=ATOL)
+    assert (gi[inf] == -1).all() and (gi[~inf] >= 0).all()
+    differ = np.nonzero((np.sort(gi, 1) != np.sort(pi[:, :k], 1)).any(1))[0]
+    for t in differ:
+        kth = pd[t, k - 1]
+        assert k < pd.shape[1] and np.isclose(kth, pd[t, k], rtol=RTOL,
+                                              atol=ATOL), t
+        sure = {i for i, d in zip(pi[t, :k], pd[t, :k])
+                if d < kth - (ATOL + RTOL * abs(kth))}
+        assert sure <= set(gi[t].tolist()), t
+
+
+@pytest.mark.parametrize("t,c", [(1, 1), (37, 1029), (300, 77),
+                                 (5000, 2050)])
+@pytest.mark.parametrize("code_dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_fused_scan_topk_kernels_match_plain(cuda, t, c, code_dtype,
+                                             quantized, k):
+    lut, codes, ids, sizes = _topk_inputs(10, t, c, code_dtype, quantized,
+                                          cuda)
+    name = "pq_scan_topk_q" if quantized else "pq_scan_topk"
+    ops.reset_launches()
+    gd, gi = ops.pq_scan_topk(lut, codes, ids, sizes, k)
+    again = ops.pq_scan_topk(lut, codes, ids, sizes, k)
+    torch.cuda.synchronize()
+    assert ops.launches[name] == 2
+    assert torch.equal(gd, again[0]) and torch.equal(gi, again[1])
+    k_pad = max(8, 1 << (k - 1).bit_length())
+    pd, pi = ops.pq_scan_topk_plain(lut, codes, ids, sizes, k_pad)
+    _assert_topk_close(gd, gi, pd, pi, k)
+    # the unfused DC kernel scores every row with the same float
+    dc = ops.pq_scan_dc(lut, codes, sizes)
+    want = torch.sort(dc, dim=1).values[:, :k]
+    if want.shape[1] < k:
+        want = torch.nn.functional.pad(want, (0, k - want.shape[1]),
+                                       value=float("inf"))
+    assert torch.equal(gd, want)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_fused_scan_topk_breaks_ties_by_row(cuda, quantized):
+    """Every row of a task has the same codes, so the same distance: the
+    winners are the first k valid rows, in row order, on every run."""
+    lut, codes, ids, sizes = _topk_inputs(11, 64, 700, np.uint8, quantized,
+                                          cuda)
+    codes = codes[:, :1].expand_as(codes).contiguous()
+    sizes[1:] = torch.arange(1, 64, device=cuda, dtype=torch.int32) * 11
+    gd, gi = ops.pq_scan_topk(lut, codes, ids, sizes, 10)
+    torch.cuda.synchronize()
+    for t in range(1, 64):
+        n = min(10, int(sizes[t]))
+        assert torch.equal(gi[t, :n], ids[t, :n])
+        assert bool((gd[t, :n] == gd[t, 0]).all())
+        assert bool((gi[t, n:] == -1).all())
+
+
+def test_fused_scan_topk_refuses_large_k(cuda):
+    lut, codes, ids, sizes = _topk_inputs(12, 4, 300, np.uint8, False, cuda)
+    assert ops.pq_scan_topk(lut, codes, ids, sizes, ops.MAX_K_PAD)[0].shape \
+        == (4, ops.MAX_K_PAD)
+    with pytest.raises(ValueError):
+        ops.pq_scan_topk(lut, codes, ids, sizes, ops.MAX_K_PAD + 1)
+
+
 def test_kernels_refuse_cpu_mixed_inputs(cuda):
     r, b, s, codes, sizes = _mk(9, 4, 4, 16, 32, 2, np.uint8, cuda)
     with pytest.raises(ValueError):
@@ -90,6 +173,9 @@ def test_kernels_refuse_cpu_mixed_inputs(cuda):
     lut = ops.lut_build(r, b, s)
     with pytest.raises(ValueError):
         ops.pq_scan_dc(lut, codes.cpu(), sizes)
+    ids = torch.zeros(codes.shape[:2], dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ops.pq_scan_topk(lut, codes, ids, sizes, 4)
 
 
 @pytest.mark.parametrize("lut_dtype", ["f32", "uint8"])
@@ -113,3 +199,43 @@ def test_search_goes_through_kernels(cuda, lut_dtype):
                - recall_at_k(pi, ds.groundtruth)) <= 0.01
     if lut_dtype == "f32":
         torch.testing.assert_close(kd, pd, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("lut_dtype", ["f32", "uint8"])
+def test_sharded_search_goes_through_fused_kernels(cuda, lut_dtype):
+    """DistributedEngine on the card launches LC and the fused DC+TS
+    kernels from both steps; results equal the local kernel search (id
+    sets, ties allowed) and cache on equals cache off bit for bit."""
+    from repro_torch.core.sharded_search import DistributedEngine, EngineConfig
+    from repro_torch.runtime import HotClusterLUTCache
+    ds = make_clustered_corpus(0, 8000, 32, n_queries=64, n_components=32,
+                               k_gt=10, device=cuda)
+    idx = build_ivfpq(torch.Generator().manual_seed(0), ds.points, nlist=64,
+                      m=16, cb=256, kmeans_iters=6, pq_iters=6, device=cuda)
+    cl = pad_clusters(idx)
+    q = ds.queries.float()
+    cfg = EngineConfig(n_shards=8, nprobe=8, k=10, tasks_per_shard=256,
+                       split_max=64, dup_budget_bytes=1 << 17,
+                       lut_dtype=lut_dtype)
+    probes = cluster_locate(q, idx.centroids, 8)[0].cpu().numpy()
+    eng = DistributedEngine(idx, cfg, probes)
+    cache = HotClusterLUTCache(capacity=4096, lut_dtype=lut_dtype)
+    cached = DistributedEngine(idx, cfg, probes, lut_cache=cache)
+    ops.reset_launches()
+    d, i, _ = eng.search(q)
+    lc, fused = (("lut_build_q", "pq_scan_topk_q") if lut_dtype == "uint8"
+                 else ("lut_build", "pq_scan_topk"))
+    assert ops.launches[lc] >= 1 and ops.launches[fused] >= 1
+    n = ops.launches[fused]
+    for _ in range(2):                            # all misses, then all hits
+        cd, ci, _ = cached.search(q)
+        np.testing.assert_array_equal(cd, d)
+        np.testing.assert_array_equal(ci, i)
+    assert ops.launches[fused] > n and cache.stats.hits == 64 * 8
+    ld, li = search_ivfpq(idx, cl, q, SearchParams(
+        nprobe=8, k=11, use_kernels=True, lut_dtype=lut_dtype))
+    ld, li = ld.cpu().numpy(), li.cpu().numpy()
+    np.testing.assert_allclose(d, ld[:, :10], rtol=RTOL, atol=ATOL)
+    for row in range(64):
+        if set(i[row].tolist()) != set(li[row, :10].tolist()):
+            assert np.isclose(ld[row, 9], ld[row, 10], rtol=RTOL, atol=ATOL)

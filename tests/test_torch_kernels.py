@@ -1,4 +1,4 @@
-"""Port parity for the LC/DC kernels' contracts.
+"""Port parity for the LC, DC and fused DC+TS kernels' contracts.
 
 On the CPU the port's wrappers run the kernels' plain versions; they are
 held to the reference's Pallas kernels (interpret mode) at the
@@ -134,6 +134,88 @@ def test_pq_scan_dc_q_matches_reference(t, m, cb, c, code_dtype):
     assert np.isinf(got[~valid]).all() and np.isinf(got[0]).all()
 
 
+TOPK_SHAPES = SCAN_SHAPES + [(4, 8, 64, 5)]      # C < k_pad: short tasks
+
+
+def _topk_inputs(seed, t, m, cb, c, code_dtype):
+    res, books, sqn, codes, sizes = _mk(seed, t, m, cb, c, 4, code_dtype)
+    rng = np.random.default_rng(seed + 100)
+    ids = rng.integers(0, 1 << 20, size=(t, c)).astype(np.int32)
+    sizes[0] = 0                                  # a zero-valid task
+    return res, books, sqn, codes, ids, sizes
+
+
+def _assert_topk_matches(gd, gi, wd, wi):
+    """Distances allclose with equal +inf masks; ids equal as per-task
+    sets, and -1 exactly where the distance is +inf."""
+    inf = np.isinf(wd)
+    np.testing.assert_array_equal(np.isinf(gd), inf)
+    np.testing.assert_allclose(gd[~inf], wd[~inf], rtol=RTOL, atol=ATOL)
+    assert (gi[inf] == -1).all() and (gi[~inf] >= 0).all()
+    for t in range(gi.shape[0]):
+        assert set(gi[t].tolist()) == set(wi[t].tolist())
+
+
+@pytest.mark.parametrize("t,m,cb,c", TOPK_SHAPES)
+@pytest.mark.parametrize("code_dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("k", [1, 10])
+def test_pq_scan_topk_matches_reference(t, m, cb, c, code_dtype, k):
+    """Fused DC+TS (f32 table) against the reference's Pallas kernel in
+    interpret mode, zero-valid tasks and C < k_pad included."""
+    res, books, sqn, codes, ids, sizes = _topk_inputs(10, t, m, cb, c,
+                                                      code_dtype)
+    lut = np.asarray(jops.lut_build(jnp.asarray(res), jnp.asarray(books),
+                                    jnp.asarray(sqn)))
+    wd, wi = jops.pq_scan_topk(jnp.asarray(lut), jnp.asarray(codes),
+                               jnp.asarray(ids), jnp.asarray(sizes), k,
+                               strategy="gather")
+    gd, gi = ops.pq_scan_topk(*_t(lut, codes, ids, sizes), k)
+    assert gd.shape == (t, k) and gi.dtype == torch.int32
+    _assert_topk_matches(gd.numpy(), gi.numpy(), np.asarray(wd),
+                         np.asarray(wi))
+    if c >= 16:                                   # the oracle needs C >= k_pad
+        od, oi = ref.pq_scan_topk_ref(*_t(lut, codes, ids, sizes), 16)
+        _assert_topk_matches(gd.numpy(), gi.numpy(), od[:, :k].numpy(),
+                             oi[:, :k].numpy())
+
+
+@pytest.mark.parametrize("t,m,cb,c", TOPK_SHAPES[:3])
+@pytest.mark.parametrize("code_dtype", [np.uint8, np.int32])
+def test_pq_scan_topk_q_matches_reference(t, m, cb, c, code_dtype):
+    """Fused DC+TS on the same quantized tables (uint8 path)."""
+    res, books, sqn, codes, ids, sizes = _topk_inputs(11, t, m, cb, c,
+                                                      code_dtype)
+    q = jops.lut_build_q(jnp.asarray(res), jnp.asarray(books),
+                         jnp.asarray(sqn))
+    wd, wi = jops.pq_scan_topk(q, jnp.asarray(codes), jnp.asarray(ids),
+                               jnp.asarray(sizes), 10, strategy="gather")
+    qt = QuantizedLUT(*_t(q.lut_q, q.scale, q.bias))
+    gd, gi = ops.pq_scan_topk(qt, *_t(codes, ids, sizes), 10)
+    _assert_topk_matches(gd.numpy(), gi.numpy(), np.asarray(wd),
+                         np.asarray(wi))
+
+
+def test_pq_scan_topk_rejects_bad_inputs():
+    res, books, sqn, codes, ids, sizes = _topk_inputs(12, 4, 4, 16, 32,
+                                                      np.uint8)
+    lut = ops.lut_build(*_t(res, books, sqn))
+    c, i, z = _t(codes, ids, sizes)
+    assert ops.pq_scan_topk(lut, c, i, z, ops.MAX_K_PAD)[0].shape == (
+        4, ops.MAX_K_PAD)
+    with pytest.raises(ValueError):
+        ops.pq_scan_topk(lut, c, i, z, ops.MAX_K_PAD + 1)
+    with pytest.raises(ValueError):
+        ops.pq_scan_topk(lut, c, i, z, 0)
+    with pytest.raises(ValueError):
+        ops.pq_scan_topk(lut, c, i[:, :-1].contiguous(), z, 4)
+    with pytest.raises(TypeError):
+        ops.pq_scan_topk(lut, c, i.long(), z, 4)
+    with pytest.raises(ValueError):
+        ops.pq_scan_topk(lut, c, i, None, 4)
+    with pytest.raises(ValueError):
+        ops.pq_scan_topk(lut, c, i, z, 4, strategy="bogus")
+
+
 def test_wrappers_reject_bad_inputs():
     res, books, sqn, codes, sizes = _mk(5, 4, 4, 16, 32, 2)
     r, b, s, c, z = _t(res, books, sqn, codes, sizes)
@@ -160,4 +242,6 @@ def test_cpu_runs_do_not_count_as_launches():
     r, b, s, c, z = _t(res, books, sqn, codes, sizes)
     ops.pq_scan_dc(ops.lut_build(r, b, s), c, z)
     ops.pq_scan_dc(ops.lut_build_q(r, b, s), c, z)
+    ids = torch.arange(c.shape[0] * c.shape[1], dtype=torch.int32)
+    ops.pq_scan_topk(ops.lut_build(r, b, s), c, ids.view(c.shape[:2]), z, 3)
     assert all(v == 0 for v in ops.launches.values())
