@@ -19,7 +19,8 @@ main paths once at the configuration below:
              the index's bytes, heat from CL of the 10,000 queries) ->
              the 10,000 queries in 10 batches of 1,000, f32 and uint8
              (RC, LC and the fused DC+TS kernel once a step over 65,536
-             tasks) -> ShardedEngine behind ServingRuntime, first on the
+             tasks, the kernel reading each task's codes by slot) ->
+             ShardedEngine behind ServingRuntime, first on the
              local run's Poisson trace, then with the LUT cache and the
              online heat estimator on a Zipf trace.
 
@@ -28,7 +29,9 @@ and read just after it; every kernel of the path must have risen.
 Recall@10 is taken against the port's exact_search; the sharded results
 are held to the local path's on the same queries, and served results to
 a direct search.  The last lines printed are one ``{"kernels": [...]}``
-JSON line and ``{"ok": true, "device": {...}}``.
+JSON line and ``{"ok": true, "device": {...}}``.  E's and F's first
+sharded launches are also written to ``build/sharded_launch.pt``, which
+``tools/torch_fused_topk_bench.py`` replays.
 Any failed check raises, so the exit code is non-zero and the ``ok`` line
 is never printed; so is a run without CUDA or outside a checkout.
 
@@ -57,6 +60,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+LAUNCH_FILE = ROOT / "build" / "sharded_launch.pt"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 RTOL, ATOL = 1e-4, 1e-3        # the reference's kernel tolerance
@@ -163,32 +167,47 @@ def tie_diff_rows(d1, i1, d2, i2, rtol, atol):
 # Kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_lut(ops, ref, adc, res, books, sqn, where: str):
+def check_lut(ops, ref, adc, res, books, sqn, where: str,
+              chunk: int = 0):
     """A against its plain version (the same expansion form) and the
     subtraction-form oracle; B against quantize_lut of A's output (the
-    reference's contract: <= 1 count) and of the plain f32 table.
+    reference's contract: <= 1 count) and of the plain f32 table.  One
+    launch each over all rows, compared ``chunk`` rows at a time (0: all
+    at once; the oracle holds a (rows, M, CB, dsub) difference tensor).
     Returns (A, B, A's max |err| vs plain, B's max count diff vs plain)."""
     from repro_torch.core.pq import PQCodebook
     t = res.shape[0]
+    chunk = chunk or t
     lut = ops.lut_build(res, books, sqn)
     q = ops.lut_build_q(res, books, sqn)
-    plain = adc.build_lut_batch(PQCodebook(books, sqn), res)
-    oracle = ref.lut_build_ref(res.view(t, books.shape[0], -1), books, sqn)
-    torch.cuda.synchronize()
-    err = float((lut - plain).abs().max())
-    check(torch.allclose(lut, plain, rtol=RTOL, atol=ATOL)
-          and torch.allclose(lut, oracle, rtol=RTOL, atol=ATOL),
-          f"lut_build {where}: max |err| {err} vs plain, "
-          f"{float((lut - oracle).abs().max())} vs oracle")
-    counts = []
-    for name, table in (("A's output", lut), ("the plain table", plain)):
-        hq = adc.quantize_lut(table)
-        diff = (q.lut_q.int() - hq.lut_q.int()).abs()
-        check(int(diff.max()) <= 1 and torch.allclose(
-                  q.scale, hq.scale, rtol=RTOL, atol=ATOL)
-              and torch.allclose(q.bias, hq.bias, rtol=RTOL, atol=ATOL),
-              f"lut_build_q {where}: differs from quantize_lut({name})")
-        counts.append((int(diff.max()), int((diff != 0).sum())))
+    cbk = PQCodebook(books, sqn)
+    err, err_oracle = 0.0, 0.0
+    counts = [[0, 0], [0, 0]]       # (max diff, entries off by one count)
+    for a in range(0, t, chunk):
+        r, got = res[a:a + chunk], lut[a:a + chunk]
+        got_q = adc.QuantizedLUT(*(x[a:a + chunk] for x in q))
+        plain = adc.build_lut_batch(cbk, r)
+        oracle = ref.lut_build_ref(r.view(r.shape[0], books.shape[0], -1),
+                                   books, sqn)
+        torch.cuda.synchronize()
+        err = max(err, float((got - plain).abs().max()))
+        err_oracle = max(err_oracle, float((got - oracle).abs().max()))
+        check(torch.allclose(got, plain, rtol=RTOL, atol=ATOL)
+              and torch.allclose(got, oracle, rtol=RTOL, atol=ATOL),
+              f"lut_build {where}, rows {a}+: max |err| {err} vs plain, "
+              f"{err_oracle} vs oracle")
+        for j, (name, table) in enumerate((("A's output", got),
+                                           ("the plain table", plain))):
+            hq = adc.quantize_lut(table)
+            diff = (got_q.lut_q.int() - hq.lut_q.int()).abs()
+            check(int(diff.max()) <= 1 and torch.allclose(
+                      got_q.scale, hq.scale, rtol=RTOL, atol=ATOL)
+                  and torch.allclose(got_q.bias, hq.bias, rtol=RTOL,
+                                     atol=ATOL),
+                  f"lut_build_q {where}, rows {a}+: differs from "
+                  f"quantize_lut({name})")
+            counts[j][0] = max(counts[j][0], int(diff.max()))
+            counts[j][1] += int((diff != 0).sum())
     log(f"  {where}: lut_build max|err| {err:.3e} vs plain; lut_build_q "
         f"differs by 1 count on {counts[0][1]} of {q.lut_q.numel()} entries "
         f"vs quantize_lut(A), on {counts[1][1]} vs the plain version")
@@ -215,53 +234,86 @@ def check_scan(ops, plain_f32, plain_u8, lut, q, codes, sizes, where: str):
     return errs
 
 
-def check_topk(ops, lut, codes, ids, sizes, k: int, where: str) -> float:
+def check_topk(ops, lut, codes, ids, sizes, k: int, where: str,
+               slots=None) -> float:
     """E or F against its plain version (DC, then top-k_pad): distances
     allclose with equal +inf masks, -1 ids exactly at +inf, per-task id
-    sets equal apart from ties at the k-th place.  Returns max |err|."""
+    sets equal apart from ties at the k-th place.  Then, bit for bit, the
+    first k entries of the (distance, row) sort of C's or D's output on
+    the same (gathered) inputs and, with ``slots``, the dense launch on
+    the gathered inputs.  Returns max |err| against the plain version."""
     from repro_torch.util import next_pow2
     k_pad = next_pow2(max(k, 8))
-    gd, gi = ops.pq_scan_topk(lut, codes, ids, sizes, k)
-    pd, pi = ops.pq_scan_topk_plain(lut, codes, ids, sizes, k_pad)
+    gd, gi = ops.pq_scan_topk(lut, codes, ids, sizes, k, slots=slots)
+    pd, pi = ops.pq_scan_topk_plain(lut, codes, ids, sizes, k_pad,
+                                    slots=slots)
+    dense = ((codes, ids, sizes) if slots is None
+             else ops.gather_slots(codes, ids, sizes, slots))
+    dc = ops.pq_scan_dc(lut, dense[0], dense[2])
+    sd, row = torch.sort(dc, dim=1, stable=True)
+    sd, row = sd[:, :k], row[:, :k]
+    si = torch.where(torch.isinf(sd), -1, dense[1].gather(1, row))
     torch.cuda.synchronize()
     name = "pq_scan_topk_q" if isinstance(lut, tuple) else "pq_scan_topk"
+    what = f"{name} {where} k={k}" + ("" if slots is None else " (slots)")
+    n = sd.shape[1]
+    check(torch.equal(gd[:, :n], sd) and torch.equal(gi[:, :n], si)
+          and bool(torch.isinf(gd[:, n:]).all())
+          and bool((gi[:, n:] == -1).all()),
+          f"{what}: differs from the (distance, row) sort of the DC "
+          f"kernel's output")
+    if slots is not None:
+        dd, di = ops.pq_scan_topk(lut, *dense, k)
+        check(torch.equal(gd, dd) and torch.equal(gi, di),
+              f"{what}: differs from the dense launch on gathered inputs")
     gd, gi, pd, pi = (x.cpu().numpy() for x in (gd, gi, pd, pi))
     inf = np.isinf(pd[:, :k])
-    check(np.array_equal(np.isinf(gd), inf), f"{name} {where} k={k}: +inf "
-                                             f"mask differs")
+    check(np.array_equal(np.isinf(gd), inf), f"{what}: +inf mask differs")
     check(bool((gi[inf] == -1).all() and (gi[~inf] >= 0).all()),
-          f"{name} {where} k={k}: -1 ids not exactly at +inf")
+          f"{what}: -1 ids not exactly at +inf")
     err = float(np.abs(gd[~inf] - pd[:, :k][~inf]).max()) if (~inf).any() \
         else 0.0
     check(np.allclose(gd[~inf], pd[:, :k][~inf], rtol=RTOL, atol=ATOL),
-          f"{name} {where} k={k}: max |err| {err}")
+          f"{what}: max |err| {err}")
     bad = tie_diff_rows(gd, gi, pd[:, :k], pi[:, :k], RTOL, ATOL)
-    check(bad == 0, f"{name} {where} k={k}: ids differ on {bad} tasks "
-                    f"beyond k-th-place ties")
+    check(bad == 0, f"{what}: ids differ on {bad} tasks beyond k-th-place "
+                    f"ties")
     return err
 
 
 def ragged_topk_checks(ops, lut, q, codes, where: str, g) -> None:
     """E and F at k = 1, 10, 100 on one ragged shape (sizes < C, a task
-    with sizes = 0), then with every row of a task scoring the same."""
+    with sizes = 0), dense and in the slot form (the T tasks read code
+    slots that repeat, -1 and one past the last among them), then with
+    every row of a task scoring the same."""
     t, c = codes.shape[0], codes.shape[1]
     sizes = torch.randint(0, c, (t,), device="cuda", generator=g,
                           dtype=torch.int32)
     sizes[0] = 0
     ids = torch.randperm(t * c, device="cuda", generator=g).int().view(t, c)
+    slots = torch.randint(-1, t, (t,), device="cuda", generator=g,
+                          dtype=torch.int32)
+    slots[0] = -1
+    slots[-1] = slots[t // 2]
+    if t > 2:
+        slots[1] = t                                # out of range: no task
     errs = {}
     for k in (1, 10, 100):
         for table in (lut, q):
-            e = check_topk(ops, table, codes, ids, sizes, k, where)
             key = "pq_scan_topk_q" if isinstance(table, tuple) \
                 else "pq_scan_topk"
-            errs[key] = max(errs.get(key, 0.0), e)
+            for sl in (None, slots):
+                e = check_topk(ops, table, codes, ids, sizes, k, where, sl)
+                errs[key] = max(errs.get(key, 0.0), e)
     same = codes[:, :1].expand_as(codes).contiguous()
     for table in (lut, q):
-        check_topk(ops, table, same, ids, sizes, 10, where + " equal rows")
+        for sl in (None, slots):
+            check_topk(ops, table, same, ids, sizes, 10, where + " equal rows",
+                       sl)
     log(f"  {where}: pq_scan_topk max|err| {errs['pq_scan_topk']:.3e}, "
         f"pq_scan_topk_q max|err| {errs['pq_scan_topk_q']:.3e} "
-        f"(k = 1, 10, 100; all-equal rows too)")
+        f"(k = 1, 10, 100, dense and by slot; all-equal rows too; equal "
+        f"to the sorted DC output bit for bit)")
 
 
 def ragged_checks(ops, ref, adc):
@@ -350,6 +402,35 @@ def main_shape_report(ops, ref, adc, res, books, sqn, codes, sizes,
     return out
 
 
+def lut_build_at_sharded_step(ops, ref, adc, captured) -> dict:
+    """A on the inputs of its first launch in the sharded path (the step's
+    S x T residuals): check, time, bound, plain time and torch.cdist."""
+    from repro_torch.core.pq import PQCodebook
+    res, books, sqn = captured["lut_build"]
+    t, dsub = res.shape[0], books.shape[2]
+    _, _, err, _ = check_lut(ops, ref, adc, res, books, sqn,
+                             f"sharded step T={t}",
+                             chunk=QUERY_CHUNK * NPROBE)
+    cbk = PQCodebook(books, sqn)
+    res3 = res.view(t, M, dsub)
+    nbytes = (t * M * dsub * 4 + M * CB * dsub * 4 + M * CB * 4
+              + t * M * CB * 4)
+    nops = t * M * CB * (2 * dsub + 4) + t * M * 2 * dsub
+    ms = event_ms(lambda: ops.lut_build(res, books, sqn), reps=20)
+    plain_ms = event_ms(lambda: adc.build_lut_batch(cbk, res), reps=5,
+                        warm=1)
+    lib_ms = event_ms(lambda: torch.cdist(res3.transpose(0, 1),
+                                          books).square_(), reps=20)
+    b_ms, b_by = bound_ms(nbytes, nops)
+    log(f"  lut_build at the sharded step: {ms:.4f} ms (bound {b_ms:.4f} "
+        f"ms by {b_by}, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms); "
+        f"T={t}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err,
+            "bytes": nbytes, "ops": nops,
+            "shape": {"T": t, "M": M, "CB": CB, "dsub": dsub}}
+
+
 def phase_breakdown(ops, index, clusters, q, dt: str) -> dict:
     """Device time of each phase of one query chunk, each phase timed
     alone with CUDA events on the chunk's own intermediates (the steps of
@@ -407,15 +488,27 @@ def sharded_path(ops, index, queries, local, rec_local, gt, pool, trace,
                                      ServingRuntime, ShardedEngine)
 
     captured = {}
-    launch = ops.pq_scan_topk
+    launch, lc_launch, lcq_launch = (ops.pq_scan_topk, ops.lut_build,
+                                     ops.lut_build_q)
 
     def capture(lut, codes, ids, sizes, k, **kw):
         name = ("pq_scan_topk_q" if isinstance(lut, QuantizedLUT)
                 else "pq_scan_topk")
-        captured.setdefault(name, (lut, codes, ids, sizes, k))
+        captured.setdefault(name, (lut, codes, ids, sizes, k,
+                                   kw.get("slots")))
         return launch(lut, codes, ids, sizes, k, **kw)
 
-    ops.pq_scan_topk = capture           # records inputs, counts nothing
+    def capture_lc(residuals, codebooks, sqnorms):
+        captured.setdefault("lut_build", (residuals, codebooks, sqnorms))
+        return lc_launch(residuals, codebooks, sqnorms)
+
+    def capture_lcq(residuals, codebooks, sqnorms):
+        captured.setdefault("lut_build_q", (residuals, codebooks, sqnorms))
+        return lcq_launch(residuals, codebooks, sqnorms)
+
+    # record each kernel's first inputs; the wrapped launches count as ever
+    ops.pq_scan_topk, ops.lut_build, ops.lut_build_q = (capture, capture_lc,
+                                                        capture_lcq)
     try:
         t0 = time.perf_counter()
         sample = torch.cat([
@@ -530,14 +623,15 @@ def sharded_path(ops, index, queries, local, rec_local, gt, pool, trace,
                 + ", ".join(f"{k} {v:.3f}" for k, v in served_s.items()))
         eng.lut_cache = eng.heat_estimator = eng.tasks_controller = None
     finally:
-        ops.pq_scan_topk = launch
+        ops.pq_scan_topk, ops.lut_build, ops.lut_build_q = (launch, lc_launch,
+                                                            lcq_launch)
     return engines, captured, runs
 
 
 def sharded_step_time(engines, runs, queries) -> None:
-    """Device time of one step of the first 1,000-query batch (RC, LC,
-    the codes gather and the fused kernel), CUDA events, beside the host
-    seconds the same batch's phases took."""
+    """Device time of one step of the first 1,000-query batch (RC, LC and
+    the fused kernel reading the codes by slot), CUDA events, beside the
+    host seconds the same batch's phases took."""
     from repro_torch.core.sharded_search import run_shards_vmap
     for dt, eng in engines.items():
         qb = queries[:SHARD_BATCH]
@@ -556,50 +650,126 @@ def sharded_step_time(engines, runs, queries) -> None:
             f"{wall:.2f} s run, idle share ~{max(0.0, 1 - busy / wall):.3f}")
 
 
+def save_launch(ops, captured) -> None:
+    """Write E's and F's first sharded launches to LAUNCH_FILE, for
+    tools/torch_fused_topk_bench.py to replay: the residuals of the LC
+    launch of the same step (the tool rebuilds the tables from them; here
+    they are checked to come out bit for bit as the step's), the slots,
+    and the rows of the slots the tasks read (the shard tensors are ~7
+    GiB, mostly slots no task of this step reads)."""
+    out = {}
+    for name, lc_name, lc in (("pq_scan_topk", "lut_build", ops.lut_build),
+                              ("pq_scan_topk_q", "lut_build_q",
+                               ops.lut_build_q)):
+        lut, codes, ids, sizes, k, slots = captured[name]
+        res, books, sqn = captured[lc_name]
+        again = lc(res, books, sqn)
+        pairs = zip(lut, again) if isinstance(lut, tuple) else [(lut, again)]
+        check(all(torch.equal(a, b) for a, b in pairs),
+              f"{lc_name}: the step's tables do not come back from its "
+              f"residuals bit for bit")
+        s = slots.long()
+        used = torch.unique(s[(s >= 0) & (s < codes.shape[0])])
+        out[name] = {"k": k, "P": codes.shape[0], "slots": slots.cpu(),
+                     "residuals": res.cpu(), "books": books.cpu(),
+                     "sqn": sqn.cpu(), "used": used.cpu(),
+                     "codes": codes[used].cpu(), "ids": ids[used].cpu(),
+                     "sizes": sizes[used].cpu()}
+    LAUNCH_FILE.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(out, LAUNCH_FILE)
+    log(f"  E's and F's launches saved to {LAUNCH_FILE.relative_to(ROOT)} "
+        f"({LAUNCH_FILE.stat().st_size / 2**20:.1f} MiB)")
+
+
+def fused_bytes_ops(codes, sizes, k_pad: int, quant: bool, slots=None):
+    """E/F's bound inputs: bytes (non-empty tasks' tables, the codes of
+    the valid rows, winners' ids, slots, sizes and outputs) and
+    operations, with the shape counts they come from.  Dense form (no
+    ``slots``): every task's rows are read.  Slot form: tasks that share a
+    slot read its rows in place, so each distinct slot's valid rows and
+    size count once; tables, winners and outputs stay per task."""
+    p, c = codes.shape[0], codes.shape[1]
+    if slots is None:
+        rows = sizes.clamp(0, c)
+        read, index_bytes = rows, 4 * p
+    else:
+        s = slots.long()
+        ok = (s >= 0) & (s < p)
+        rows = torch.where(ok, sizes[s.clamp(0, p - 1)], 0).clamp(0, c)
+        read = sizes[torch.unique(s[ok])].clamp(0, c)
+        index_bytes = 4 * s.shape[0] + 4 * read.shape[0]
+    t = rows.shape[0]
+    nonempty = int((rows > 0).sum())
+    valid = int(rows.sum())
+    code_rows = int(read.sum())
+    # only the winners' ids are read: min(valid rows, k_pad) per task
+    winners = int(rows.clamp(max=k_pad).sum())
+    table = M * CB + 8 * M if quant else M * CB * 4
+    nbytes = (nonempty * table + code_rows * M * codes.element_size()
+              + winners * 4 + index_bytes + t * 8 * k_pad)
+    nops = valid * M * (2 if quant else 1) + (nonempty * M if quant else 0)
+    return nbytes, nops, {"T": t, "M": M, "CB": CB, "C": c, "k_pad": k_pad,
+                          "nonempty_tasks": nonempty, "valid_rows": valid,
+                          "code_rows_read": code_rows,
+                          "slots_read": int(read.shape[0]),
+                          "winner_rows": winners}
+
+
 def fused_report(ops, captured, launches) -> list:
-    """E and F on the inputs of their first launch in the sharded path:
-    check, time, bound, plain time, and the unfused pair (C or D, then
-    torch.topk) as the yardstick; no single library call computes them."""
+    """E and F on the inputs of their first launch in the sharded path,
+    in both forms: by slot, as the step launches them, and dense on the
+    gathered inputs (the form of the TPU kernel and of the earlier
+    measurements), each beside its own bound.  Check, time, bound, plain
+    time, the gather the step no longer makes, and the unfused pair (C or
+    D, then torch.topk, on the gathered inputs) as the yardstick; no
+    single library call computes them."""
     from repro_torch.core.topk import topk_smallest
     from repro_torch.util import next_pow2
     rows = []
     for name in ("pq_scan_topk", "pq_scan_topk_q"):
-        lut, codes, ids, sizes, k = captured[name]
-        t, c = codes.shape[0], codes.shape[1]
+        lut, codes, ids, sizes, k, slots = captured[name]
+        check(slots is not None, f"{name}: the step did not pass slots")
+        t, c = slots.shape[0], codes.shape[1]
         k_pad = next_pow2(max(k, 8))
-        err = check_topk(ops, lut, codes, ids, sizes, k,
-                         f"sharded step T={t} C={c}")
+        where = f"sharded step T={t} C={c}"
+        err = check_topk(ops, lut, codes, ids, sizes, k, where, slots)
+        gathered = ops.gather_slots(codes, ids, sizes, slots)
+        err = max(err, check_topk(ops, lut, *gathered, k, where))
         quant = name.endswith("_q")
-        nonempty = int((sizes > 0).sum())
-        valid = int(sizes.clamp(max=c).sum())
-        # only the winners' ids are read: min(valid rows, k_pad) per task
-        winners = int(sizes.clamp(max=min(c, k_pad)).sum())
-        table = M * CB + 8 * M if quant else M * CB * 4
-        nbytes = (nonempty * table + valid * M * codes.element_size()
-                  + winners * 4 + t * (4 + 8 * k_pad))
-        nops = valid * M * (2 if quant else 1) + (nonempty * M if quant else 0)
-        ms = event_ms(lambda: ops.pq_scan_topk(lut, codes, ids, sizes, k),
-                      reps=20)
+        nbytes, nops, shape = fused_bytes_ops(codes, sizes, k_pad, quant,
+                                              slots)
+        dense_bytes, _, _ = fused_bytes_ops(gathered[0], gathered[2], k_pad,
+                                            quant)
+        ms = event_ms(lambda: ops.pq_scan_topk(lut, codes, ids, sizes, k,
+                                               slots=slots), reps=20)
+        dense_ms = event_ms(lambda: ops.pq_scan_topk(lut, *gathered, k),
+                            reps=20)
+        gather_ms = event_ms(lambda: ops.gather_slots(codes, ids, sizes,
+                                                      slots), reps=5)
         plain_ms = event_ms(lambda: ops.pq_scan_topk_plain(
-            lut, codes, ids, sizes, k_pad), reps=3, warm=1)
+            lut, codes, ids, sizes, k_pad, slots=slots), reps=3, warm=1)
         pair_ms = event_ms(lambda: topk_smallest(
-            ops.pq_scan_dc(lut, codes, sizes), ids, k_pad), reps=20)
+            ops.pq_scan_dc(lut, gathered[0], gathered[2]), gathered[1],
+            k_pad), reps=20)
         b_ms, b_by = bound_ms(nbytes, nops)
+        dense_b_ms, _ = bound_ms(dense_bytes, nops)
         src, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                     "unfused_pair_ms": pair_ms, "bytes": nbytes,
-                     "ops": nops,
-                     "shape": {"T": t, "M": M, "CB": CB, "C": c,
-                               "k_pad": k_pad, "nonempty_tasks": nonempty,
-                               "valid_rows": valid,
-                               "winner_rows": winners}})
-        log(f"  {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, plain "
-            f"{plain_ms:.4f} ms, unfused pair {pair_ms:.4f} ms, library "
-            f"none); T={t} ({nonempty} non-empty) C={c} k_pad={k_pad}, "
-            f"{valid} valid rows")
+                     "dense_ms": dense_ms, "dense_bound_ms": dense_b_ms,
+                     "gather_ms": gather_ms, "unfused_pair_ms": pair_ms,
+                     "bytes": nbytes, "dense_bytes": dense_bytes,
+                     "ops": nops, "shape": shape})
+        log(f"  {name}: {ms:.4f} ms by slot (bound {b_ms:.4f} ms by {b_by}, "
+            f"{ms / b_ms:.2f}x), {dense_ms:.4f} ms dense on gathered inputs "
+            f"(bound {dense_b_ms:.4f} ms, {dense_ms / dense_b_ms:.2f}x); "
+            f"plain {plain_ms:.4f} ms, unfused pair {pair_ms:.4f} ms, the "
+            f"gather {gather_ms:.4f} ms, library none; T={t} "
+            f"({shape['nonempty_tasks']} non-empty) C={c} k_pad={k_pad}, "
+            f"{shape['valid_rows']} valid rows, {shape['code_rows_read']} "
+            f"of them in {shape['slots_read']} distinct slots")
     return rows
 
 
@@ -837,8 +1007,12 @@ def main() -> int:
                              index.codebook.sqnorms,
                              clusters.codes.index_select(0, flat),
                              clusters.sizes.index_select(0, flat), total)
-    log("fused kernels vs plain, the sharded path's first launch:")
+    log("kernels vs plain, the sharded path's first launches:")
+    a_row = next(r for r in rows if r["name"] == "lut_build")
+    a_row["at_sharded_step"] = lut_build_at_sharded_step(ops, ref, adc,
+                                                         captured)
     rows += fused_report(ops, captured, total)
+    save_launch(ops, captured)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

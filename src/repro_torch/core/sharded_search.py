@@ -16,8 +16,10 @@ The reference runs its per-shard function under ``vmap`` over S.  Here
 shard ``s`` becomes row ``s * slots + slot`` of the flattened
 (S*slots, cpart, M) code tensor, so RC, LC (``lut_build`` or
 ``lut_build_q``) and the fused DC+TS kernel (``pq_scan_topk``) launch
-once per step instead of once per shard.  Padding tasks (``qidx == -1``)
-keep ``sizes = 0`` and come out as (+inf, -1).  The steps always call
+once per step instead of once per shard.  The fused kernel reads each
+task's codes and ids from its row of that tensor in place (its
+``slots=``), so a step copies no codes.  Padding tasks (``qidx == -1``)
+get slot -1, size 0, and come out as (+inf, -1).  The steps always call
 ``repro_torch.kernels.ops``, which launches the kernels on the card and
 runs their plain versions on CPU tensors, so ``EngineConfig`` has no
 ``use_kernels`` switch.
@@ -162,11 +164,10 @@ def _flat_slots(sidx: torch.Tensor, slots: int) -> torch.Tensor:
     return torch.where(sidx >= 0, sidx + base, -1).reshape(-1)
 
 
-def _gather_tasks(codes, ids, sizes, si, valid):
-    task_codes = codes.index_select(0, si)                    # (T, cpart, M)
-    task_ids = ids.index_select(0, si)                        # (T, cpart)
-    task_sizes = sizes.index_select(0, si).masked_fill(~valid, 0)
-    return task_codes, task_ids, task_sizes
+def _task_slots(si: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(T,) int32 code slot of each task, -1 for a task that is not valid:
+    the fused kernel reads each task's codes and ids in place."""
+    return torch.where(valid, si, -1).to(torch.int32)
 
 
 def _shard_tasks_fn(codes, ids, sizes, cluster_of, qidx, sidx, queries,
@@ -181,7 +182,8 @@ def _shard_tasks_fn(codes, ids, sizes, cluster_of, qidx, sidx, queries,
     LC runs through ``kernels.ops.lut_build`` (``lut_build_q`` for
     ``quantize``, the uint8 path) and DC+TS through the fused
     ``ops.pq_scan_topk``: the CUDA kernels on the card, their plain
-    versions on CPU tensors."""
+    versions on CPU tensors.  DC+TS reads each task's codes and ids from
+    its slot in place (``slots=``); nothing is gathered."""
     from repro_torch.kernels import ops as kops
     valid = qidx >= 0
     qi = qidx.clamp(0, queries.shape[0] - 1).long()
@@ -192,25 +194,28 @@ def _shard_tasks_fn(codes, ids, sizes, cluster_of, qidx, sidx, queries,
     if rotation is not None:
         ieee_f32_matmul()
         residual = residual @ rotation
-    task_codes, task_ids, task_sizes = _gather_tasks(codes, ids, sizes, si,
-                                                     valid)
     residual = residual.contiguous()
     lc = kops.lut_build_q if quantize else kops.lut_build
     lut = lc(residual, codebook.codebooks, codebook.sqnorms)      # LC
-    bd, bi = kops.pq_scan_topk(lut, task_codes, task_ids, task_sizes, k,
-                               strategy=strategy)                 # DC + TS
+    bd, bi = kops.pq_scan_topk(lut, codes, ids, sizes, k, strategy=strategy,
+                               slots=_task_slots(si, valid))      # DC + TS
     return bd, bi.masked_fill(~torch.isfinite(bd), -1)
 
 
 def _fused_scan_topk(lut, task_codes, task_ids, task_sizes, k: int,
-                     block: int = 512):
+                     block: int = 512, *, slots: Optional[torch.Tensor] = None):
     """Streaming DC+TS in plain PyTorch: scan C in blocks, carrying the
     (T, k) running winners -- the dataflow of the fused kernels.  ``lut``
-    is the f32 (T, M, CB) table or a (T,)-batched QuantizedLUT.
+    is the f32 (T, M, CB) table or a (T,)-batched QuantizedLUT; ``slots``
+    as ``ops.pq_scan_topk``'s (codes, ids and sizes are then P slots).
 
     No step selects it: the steps call ``ops.pq_scan_topk``.  It is the
     reference's function of the same name, kept as a blockwise oracle
     for the fused kernels' contract (ragged blocks, empty tasks)."""
+    if slots is not None:
+        from repro_torch.kernels import ops as kops
+        task_codes, task_ids, task_sizes = kops.gather_slots(
+            task_codes, task_ids, task_sizes, slots)
     scan_fn = (scan_codes_quantized if isinstance(lut, QuantizedLUT)
                else scan_codes)
     t, c, _ = task_codes.shape
@@ -283,10 +288,8 @@ def _shard_tasks_lut_fn(codes, ids, sizes, qidx, sidx, lidx, lut_bank, *,
         lut = QuantizedLUT(*(a.index_select(0, li) for a in lut_bank))
     else:
         lut = lut_bank.index_select(0, li)                    # (T, M, CB)
-    task_codes, task_ids, task_sizes = _gather_tasks(codes, ids, sizes, si,
-                                                     valid)
-    bd, bi = kops.pq_scan_topk(lut, task_codes, task_ids, task_sizes, k,
-                               strategy=strategy)                 # DC + TS
+    bd, bi = kops.pq_scan_topk(lut, codes, ids, sizes, k, strategy=strategy,
+                               slots=_task_slots(si, valid))      # DC + TS
     return bd, bi.masked_fill(~torch.isfinite(bd), -1)
 
 

@@ -43,11 +43,11 @@ SIGNATURES = {
         "pq_scan_error_string": ([_I], ctypes.c_char_p),
     },
     "pq_scan_topk": {
-        "pq_scan_topk_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _P], _I),
-        "pq_scan_topk_u8": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _P], _I),
-        "pq_scan_topk_smem_bytes": ([_I, _I, _I], _S),
+        "pq_scan_topk_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _P], _I),
+        "pq_scan_topk_u8": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _P], _I),
+        "pq_scan_topk_smem_bytes": ([_I, _I, _I, _I], _S),
         "pq_scan_topk_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -1,9 +1,11 @@
 // One PQ code row against one task's lookup table, shared by the DC
 // kernels (pq_scan.cu) and the fused DC+TS kernels (pq_scan_topk.cu).
 //
-// Both stage a task's table in shared memory with stage_table and score a
-// row with row_dist, summing the terms in order m = 0..M-1, so the fused
-// and the unfused scans give the same float for every row.
+// Both score a row by summing its terms in order m = 0..M-1 (row_sum,
+// then the u8 path's bias sum), so the fused and the unfused scans give
+// the same float for every row.  The DC kernels stage a task's table with
+// stage_table; the fused kernels copy theirs in with stage_table_async,
+// which other blocks' scans overlap.
 //
 // Shared-memory layout of one staged table: f32 (M, CB), or u8 (M, CB)
 // padded to 16 bytes and followed by the M scales, the bias sum and the
@@ -23,33 +25,66 @@ inline size_t table_smem_bytes(bool quant, int M, int CB) {
   return ((mcb + 15) & ~(size_t)15) + (2 * M + 1) * sizeof(float);
 }
 
-template <bool kQuant>
+// An u8 table entry as a float, exactly (the bits of 2^23 + q, minus
+// 2^23): two full-rate instructions in place of a conversion.
+__device__ __forceinline__ float u8_float(uint32_t q) {
+  return __uint_as_float(0x4b000000u | q) - 8388608.0f;
+}
+
+template <bool kQuant, typename Scales>
 __device__ __forceinline__ float add_entry(float acc, int m, int code,
                                            const float* lut_f,
                                            const uint8_t* lut_q,
-                                           const float* sc, int CB) {
-  if constexpr (kQuant) return fmaf(sc[m], (float)lut_q[m * CB + code], acc);
+                                           const Scales& sc, int CB) {
+  if constexpr (kQuant)
+    return fmaf(sc[m], u8_float(lut_q[m * CB + code]), acc);
   return acc + lut_f[m * CB + code];
 }
 
-// Distance of one code row, summed in order m = 0..M-1.  kVec16: M == 16
-// u8 codes read as one 16-byte load (the row must be 16-byte aligned).
+// The M=16 u8 codes of one row, loaded as one 16-byte word, against the
+// table: the terms summed in order m = 0..15, without the u8 bias sum.
+// `sc` is the staged scales or a copy of them in registers; kCB > 0 fixes
+// CB at compile time (the table offsets become immediates).
+template <bool kQuant, int kCB = 0, typename Scales>
+__device__ __forceinline__ float row_sum_vec16(uint4 v, const float* lut_f,
+                                               const uint8_t* lut_q,
+                                               const Scales& sc, int CB) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  const int cb = kCB > 0 ? kCB : CB;
+  float acc = 0.0f;
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    const int code = __byte_perm(w[m >> 2], 0, 0x4440 + (m & 3));  // byte m
+    acc = add_entry<kQuant>(acc, m, code, lut_f, lut_q, sc, cb);
+  }
+  return acc;
+}
+
+// One code row of any M and code type: the terms summed in order m =
+// 0..M-1, without the u8 bias sum.
+template <typename CodeT, bool kQuant>
+__device__ __forceinline__ float row_sum(const CodeT* row, const float* lut_f,
+                                         const uint8_t* lut_q,
+                                         const float* sc, int M, int CB) {
+  float acc = 0.0f;
+  for (int m = 0; m < M; ++m)
+    acc = add_entry<kQuant>(acc, m, (int)row[m], lut_f, lut_q, sc, CB);
+  return acc;
+}
+
+// Distance of one code row, summed in order m = 0..M-1, plus the bias sum
+// sc[M] on the u8 path.  kVec16: M == 16 u8 codes read as one 16-byte load
+// (the row must be 16-byte aligned).
 template <typename CodeT, bool kQuant, bool kVec16>
 __device__ __forceinline__ float row_dist(const CodeT* row, const float* lut_f,
                                           const uint8_t* lut_q,
                                           const float* sc, int M, int CB) {
-  float acc = 0.0f;
-  if constexpr (kVec16) {
-    const uint4 v = *reinterpret_cast<const uint4*>(row);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int m = 0; m < 16; ++m)
-      acc = add_entry<kQuant>(acc, m, (w[m >> 2] >> (8 * (m & 3))) & 0xff,
-                              lut_f, lut_q, sc, CB);
-  } else {
-    for (int m = 0; m < M; ++m)
-      acc = add_entry<kQuant>(acc, m, (int)row[m], lut_f, lut_q, sc, CB);
-  }
+  float acc;
+  if constexpr (kVec16)
+    acc = row_sum_vec16<kQuant>(*reinterpret_cast<const uint4*>(row), lut_f,
+                                lut_q, sc, CB);
+  else
+    acc = row_sum<CodeT, kQuant>(row, lut_f, lut_q, sc, M, CB);
   if constexpr (kQuant) acc += sc[M];
   return acc;
 }
@@ -73,6 +108,14 @@ __device__ __forceinline__ void copy_in(T* dst, const T* src, int n) {
   }
 }
 
+// The u8 path's bias sum from a staged table's biases, in order m =
+// 0..M-1: the value stage_table writes to sc[M].
+__device__ __forceinline__ float bias_sum(const float* sc, int M) {
+  float b = 0.0f;
+  for (int m = 0; m < M; ++m) b += sc[M + 1 + m];
+  return b;
+}
+
 // Copy task t's table into shared memory with the whole block; ends with
 // a barrier.  The bias sum sc[M] is taken in order m = 0..M-1 by one
 // thread, from biases staged in shared memory first.
@@ -91,17 +134,81 @@ __device__ __forceinline__ void stage_table(const void* lut,
       sc[M + 1 + i] = bias[(size_t)t * M + i];
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      float b = 0.0f;
-      for (int m = 0; m < M; ++m) b += sc[M + 1 + m];
-      sc[M] = b;
-    }
+    if (threadIdx.x == 0) sc[M] = bias_sum(sc, M);
   } else {
     copy_in<float, kThreads>(reinterpret_cast<float*>(smem),
                              static_cast<const float*>(lut) + (size_t)t * mcb,
                              mcb);
   }
   __syncthreads();
+}
+
+// Asynchronous copies from device memory into shared memory (cp.async):
+// issued by each thread, awaited by cp_async_wait_all (all of this
+// thread's copies), visible to the block after a barrier that follows it.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Issue the copy of `bytes` bytes with the whole block: 16 bytes a copy
+// where the size and both addresses allow it, else 4 bytes a copy, else
+// (a byte-sized table) plain loads and stores, which a barrier makes
+// visible like the rest.
+template <int kThreads>
+__device__ __forceinline__ void copy_in_async(unsigned char* dst,
+                                              const unsigned char* src,
+                                              size_t bytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src) |
+                      reinterpret_cast<uintptr_t>(dst) | bytes;
+  if (a % 16 == 0) {
+    for (size_t i = threadIdx.x * 16; i < bytes; i += kThreads * 16)
+      cp_async16(dst + i, src + i);
+  } else if (a % 4 == 0) {
+    for (size_t i = threadIdx.x * 4; i < bytes; i += kThreads * 4)
+      cp_async4(dst + i, src + i);
+  } else {
+    for (size_t i = threadIdx.x; i < bytes; i += kThreads) dst[i] = src[i];
+  }
+}
+
+// Issue the copy of task t's table into shared memory (the layout of
+// stage_table) without waiting for it.  The bias sum sc[M] is not
+// written: once the copy has landed, the caller sums the biases
+// sc[M+1..2M] in order m = 0..M-1 itself (bias_sum).
+template <bool kQuant, int kThreads>
+__device__ __forceinline__ void stage_table_async(const void* lut,
+                                                  const float* scale,
+                                                  const float* bias, int t,
+                                                  int M, int CB,
+                                                  unsigned char* smem) {
+  const size_t mcb = (size_t)M * CB;
+  if constexpr (kQuant) {
+    float* sc = reinterpret_cast<float*>(smem + ((mcb + 15) & ~(size_t)15));
+    copy_in_async<kThreads>(
+        smem, static_cast<const uint8_t*>(lut) + (size_t)t * mcb, mcb);
+    for (int i = threadIdx.x; i < M; i += kThreads) {
+      cp_async4(sc + i, scale + (size_t)t * M + i);
+      cp_async4(sc + M + 1 + i, bias + (size_t)t * M + i);
+    }
+  } else {
+    copy_in_async<kThreads>(
+        smem,
+        reinterpret_cast<const unsigned char*>(static_cast<const float*>(lut) +
+                                               (size_t)t * mcb),
+        mcb * sizeof(float));
+  }
 }
 
 // Views of a staged table: the f32 entries, the u8 entries, the scales

@@ -4,65 +4,103 @@
 // `pq_scan_topk_q_pallas` (src/repro/kernels/pq_scan.py), the per-shard
 // scan of the sharded engine:
 //
-//     d[t, c]  = the row distance of pq_scan.cu (f32 or u8 table)
-//     out[t]   = the k_pad smallest (d[t, c], c) over rows c < sizes[t],
-//                ascending, as (distance, ids[t, c]); slots past the
+//     s        = slots[t]   (slots == NULL: s = t, the TPU's dense form)
+//     d[t, c]  = the row distance of pq_scan.cu (f32 or u8 table lut[t])
+//                for the code row codes[s, c]
+//     out[t]   = the k_pad smallest (d[t, c], c) over rows c < sizes[s],
+//                ascending, as (distance, ids[s, c]); slots past the
 //                valid rows are (+inf, -1).
 //
+// Slots: codes (P, C, M), ids (P, C) and sizes (P,) are the shard tensors
+// as they lie on the card, and task t reads the rows of slot slots[t]
+// where they are; a slot outside [0, P) (-1: no task) has size 0.  The
+// sharded engine's step passes its task table here, so no copy of the
+// tasks' codes or ids is made.  A zero-size task writes k_pad x (+inf,
+// -1) and reads no table.
+//
 // The (T, C) distance matrix never reaches device memory.  Ties are
-// broken by row, so the output is a function of the inputs alone: no
-// atomics, and the order of the candidates in shared memory comes from a
-// block-wide prefix count, not from scheduling.
+// broken by row: a candidate is the 64-bit key (order-preserving bits of
+// its distance, row), keys are unique, and the selection is exact, so the
+// output is a function of the inputs alone.
 //
 // What bounds it on an H100: bytes.  The function reads each non-empty
 // task's table (M*CB*4 bytes f32; M*CB + 8*M u8), the codes of the valid
-// rows, the ids of the winners only (min(sizes[t], k_pad) a task), every
-// task's size, and writes T * k_pad * 8 bytes:
+// rows of the slots it reads (once a slot, however many tasks share it;
+// in the dense form every task's own), the ids of the winners only
+// (min(size, k_pad) a task), the slots and sizes, and writes
+// T * k_pad * 8 bytes:
 //
-//     T_nonempty * M*CB*b_lut + valid_rows * M*code_bytes
-//         + winner_rows * 4 + T * (4 + 8*k_pad)
+//     T_nonempty * table_bytes + slot_rows * M*code_bytes
+//         + winner_rows * 4 + (T + slots_read) * 4 + T * 8*k_pad
 //
-// (the kernel looks an id up only once its row has won).  The selection
-// costs a few compare-exchanges per surviving row, far below the card's
-// integer rate.  The design:
+// At the sharded step (k_pad = 16, 16 KB f32 tables, ~680 rows a task,
+// tasks sharing slots) the f32 tables are most of those bytes.  What
+// keeps a kernel from that bound is work a task pays whatever its size:
+// the first merges of each warp's list, merging the warps' lists,
+// barriers, and the latency of staging a table.  The design keeps those
+// small:
 //
-//   * one block of 256 threads per task; a zero-size task writes k_pad x
-//     (+inf, -1) and exits without reading its table;
-//   * the task's table is staged in shared memory once (pq_row.cuh, the
-//     same staging and row distance as pq_scan.cu, so both scans give the
-//     same float for a row), and the block walks the valid rows 256 at a
-//     time: one row per thread, one 16-byte code load per row at M = 16
-//     u8 (the loop inside the block replaces the TPU's sequential C grid
-//     axis);
-//   * a row is a 64-bit key (order-preserving bits of its distance, row)
-//     and survives only below the current k_pad-th key; survivors are
-//     appended to a shared buffer at offsets given by a warp ballot plus
-//     a count across the 8 warps, so their order does not depend on
-//     scheduling;
-//   * once more than 256 survivors are pending, the winners and the
-//     pending keys are bitonic-sorted together in shared memory (at most
-//     512 keys), the k_pad-th key becomes the new threshold, and the
-//     round's rows are filtered again against it; one last sort at the
-//     end.  After the first sort the threshold rejects most rows, so the
-//     sorts stay few.
+//   * a persistent grid (as many blocks as fit on the card at once,
+//     looked up on the first launch on a device) walks the tasks, block
+//     b taking b, b + grid, ...; a block writes the empty tasks it meets
+//     and stages no table for them;
+//   * a block is few warps (kThreadsF32 = 64, kThreadsU8 = 32), so a warp
+//     sees half or all of a task's rows and the warps' lists merge in at
+//     most one round.  The table is copied into shared memory with
+//     cp.async (pq_row.cuh stage_table_async) as soon as every warp is
+//     past the previous task's scan; a block holds 17 KB (f32) or 4.2 KB
+//     (u8), so up to 13 or 32 blocks share an SM and one block's copy
+//     overlaps the others' scans (a second buffer, to overlap it inside
+//     the block, fits fewer blocks and was slower on the H100: PERF.md
+//     lists what was tried);
+//   * lane = row, 32 rows a warp a round: a row is one 16-byte code load
+//     at M = 16 u8 (the next round's load in flight while this one is
+//     scored) and M lookups out of shared memory summed in order m =
+//     0..M-1 (pq_row.cuh: the same float as pq_scan.cu's);
+//   * each warp keeps its own running top list in registers, L = max(32,
+//     k_pad) keys, k_pad/32 a lane, sorted in the order i = j*32 + lane.
+//     A row is kept only below the list's k_pad-th key, which a shuffle
+//     broadcasts.  Up to kInsertMax kept rows are inserted one by one (a
+//     shuffle shift); more are sorted across the warp and merged in with
+//     a bitonic merge over __shfl_xor_sync.  No block barrier runs inside
+//     the scan;
+//   * the warps' lists are merged pairwise through shared memory
+//     (reversed-min + bitonic merge), and warp 0 writes the k_pad winners
+//     and looks their ids up.
 //
 // k_pad is a power of two in [8, 256].  The kernels allocate nothing and
-// never synchronise.
+// never synchronise with the host.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "pq_row.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+// Threads of a block (one task at a time, 32 rows a warp a round) for
+// f32 and u8 tables.  Chosen on an H100 with tools/torch_fused_topk_bench.py
+// --variant, which replays the sharded path's first launch (PERF.md):
+// fewer warps a task cost less selection and merging.
+constexpr int kThreadsF32 = 64;
+constexpr int kThreadsU8 = 32;
 constexpr int kMaxKPad = 256;
-constexpr int kPending = kThreads;      // pending survivors that force a sort
-constexpr int kSortCap = kMaxKPad + kPending;   // keys in the shared buffer
+constexpr int kMaxDevices = 64;   // devices whose grid size is remembered
+// Kept rows in a round up to which they are inserted one at a time; more
+// are sorted across the warp and merged.
+constexpr int kInsertMax = 16;
+constexpr unsigned kAll = 0xffffffffu;
 constexpr unsigned long long kNone = 0xff800000ffffffffull;  // (+inf, none)
+
+typedef unsigned long long u64;
+
+template <bool kQuant>
+__host__ __device__ constexpr int threads_of() {
+  return kQuant ? kThreadsU8 : kThreadsF32;
+}
 
 __device__ __forceinline__ uint32_t ordered_bits(float d) {
   const uint32_t u = __float_as_uint(d);
@@ -73,196 +111,372 @@ __device__ __forceinline__ float from_ordered(uint32_t o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
 
-// Sort keys[0, n) ascending, n a power of two; ends with a barrier.
-__device__ void bitonic_sort(unsigned long long* keys, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
+__device__ __forceinline__ u64 kmin(u64 a, u64 b) { return a < b ? a : b; }
+__device__ __forceinline__ u64 kmax(u64 a, u64 b) { return a < b ? b : a; }
+
+// One key a lane, sorted ascending across the warp (bitonic, 15 steps).
+__device__ __forceinline__ u64 warp_sort32(u64 x, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += kThreads) {
-        const int p = i ^ j;
-        if (p > i) {
-          const unsigned long long a = keys[i], b = keys[p];
-          if ((a > b) == ((i & k) == 0)) {
-            keys[i] = b;
-            keys[p] = a;
-          }
-        }
+      const u64 y = __shfl_xor_sync(kAll, x, j);
+      const bool low = (lane & j) == 0, up = (lane & k) == 0;
+      x = low == up ? kmin(x, y) : kmax(x, y);
+    }
+  }
+  return x;
+}
+
+// Sort a bitonic sequence of L = 32 * KPL keys held as i = j*32 + lane:
+// half-cleaners at distances L/2 .. 32 inside a lane, 16 .. 1 across.
+template <int KPL>
+__device__ __forceinline__ void bitonic_merge(u64 (&v)[KPL], int lane) {
+#pragma unroll
+  for (int jd = KPL / 2; jd > 0; jd >>= 1) {
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      if ((j & jd) == 0) {
+        const u64 a = v[j], b = v[j + jd];
+        v[j] = kmin(a, b);
+        v[j + jd] = kmax(a, b);
       }
-      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const u64 y = __shfl_xor_sync(kAll, v[j], d);
+      v[j] = (lane & d) ? kmax(v[j], y) : kmin(v[j], y);
     }
   }
 }
 
-// Fold the cnt candidates in keys[kp, kp + cnt) into the sorted winners
-// keys[0, kp): after it keys[0, kp) holds the kp smallest keys, sorted.
-__device__ void merge(unsigned long long* keys, int kp, int cnt) {
-  __syncthreads();                       // the candidates' stores land
-  const int used = kp + cnt;
-  const int n = 1 << (32 - __clz(used - 1));
-  for (int i = used + threadIdx.x; i < n; i += kThreads) keys[i] = kNone;
-  __syncthreads();
-  bitonic_sort(keys, n);
+// Fold 32 candidates (one a lane, kNone where none) into the sorted list:
+// after it the list holds the L smallest of both, sorted.  The candidates
+// are sorted, reversed and min-ed into the list's last 32 keys, which
+// leaves a bitonic sequence.
+template <int KPL>
+__device__ __forceinline__ void merge32(u64 (&v)[KPL], u64 cand, int lane) {
+  cand = warp_sort32(cand, lane);
+  v[KPL - 1] = kmin(v[KPL - 1], __shfl_sync(kAll, cand, 31 - lane));
+  bitonic_merge<KPL>(v, lane);
 }
 
-// This thread's offset among the block's kept keys, in (warp, lane)
-// order, and their total.  All threads call it; it ends after a barrier.
-// The merge's barriers separate a round's second call from its first.
-__device__ __forceinline__ int block_offset(bool keep, int* wc, int lane,
-                                            int warp, int* total) {
-  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-  if (lane == 0) wc[warp] = __popc(ballot);
-  __syncthreads();
-  int before = 0, all = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    const int n = wc[w];
-    before += w < warp ? n : 0;
-    all += n;
+// Insert one key (not kNone) into the sorted list; the largest key drops.
+template <int KPL>
+__device__ __forceinline__ void insert1(u64 (&v)[KPL], u64 x, int lane) {
+  u64 prev[KPL];
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const u64 up = __shfl_up_sync(kAll, v[j], 1);
+    const u64 last = j > 0 ? __shfl_sync(kAll, v[j > 0 ? j - 1 : 0], 31) : 0;
+    prev[j] = lane > 0 ? up : last;
   }
-  *total = all;
-  return before + __popc(ballot & ((1u << lane) - 1u));
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const bool first = j == 0 && lane == 0;
+    v[j] = v[j] < x ? v[j] : (first || prev[j] < x ? x : prev[j]);
+  }
+}
+
+// The k_pad-th smallest key of the list (k_pad <= 32 when KPL == 1, else
+// k_pad == 32 * KPL), on every lane.
+template <int KPL>
+__device__ __forceinline__ u64 kth(const u64 (&v)[KPL], int kp) {
+  if constexpr (KPL == 1) return __shfl_sync(kAll, v[0], kp - 1);
+  return __shfl_sync(kAll, v[KPL - 1], 31);
+}
+
+// Task t's slot and its number of valid rows (0: no slot or no rows).
+__device__ __forceinline__ int task_rows(const int* slots, const int* sizes,
+                                         int t, int P, int C, int* slot) {
+  const int s = slots == nullptr ? t : slots[t];
+  *slot = s;
+  return (s >= 0 && s < P) ? max(0, min(sizes[s], C)) : 0;
+}
+
+// From task t on, in steps of the grid, the first task with rows (T if
+// none); the empty tasks passed over are written as (+inf, -1).  Every
+// thread of the block calls it with the same arguments.
+template <int kThreads>
+__device__ __forceinline__ int next_task(int t, int T, const int* slots,
+                                         const int* sizes, int P, int C,
+                                         int kp, float* out_d, int* out_i,
+                                         int* slot, int* rows) {
+  for (; t < T; t += gridDim.x) {
+    *rows = task_rows(slots, sizes, t, P, C, slot);
+    if (*rows > 0) return t;
+    for (int j = threadIdx.x; j < kp; j += kThreads) {
+      out_d[(size_t)t * kp + j] = INFINITY;
+      out_i[(size_t)t * kp + j] = -1;
+    }
+  }
+  return t;
 }
 
 size_t table_bytes(bool quant, int M, int CB) {
   return (pqrow::table_smem_bytes(quant, M, CB) + 15) & ~(size_t)15;
 }
 
-size_t smem_bytes(bool quant, int M, int CB) {
-  return table_bytes(quant, M, CB) + kSortCap * sizeof(unsigned long long) +
-         2 * kWarps * sizeof(int);
+int keys_per_lane(int kp) { return kp <= 32 ? 1 : kp / 32; }
+
+// The table and, with more than one warp, the warps' lists.
+size_t smem_bytes(bool quant, int M, int CB, int kp) {
+  const int warps = (quant ? kThreadsU8 : kThreadsF32) / 32;
+  return table_bytes(quant, M, CB) +
+         (warps > 1 ? (size_t)warps * 32 * keys_per_lane(kp) * sizeof(u64)
+                    : 0);
 }
 
-template <typename CodeT, bool kQuant, bool kVec16>
-__global__ void __launch_bounds__(kThreads)
+template <int KPL, typename CodeT, bool kQuant, bool kVec16>
+__global__ void __launch_bounds__(threads_of<kQuant>())
     pq_scan_topk_kernel(const void* __restrict__ lut,
                         const float* __restrict__ scale,
                         const float* __restrict__ bias,
                         const CodeT* __restrict__ codes,
                         const int* __restrict__ ids,
                         const int* __restrict__ sizes,
+                        const int* __restrict__ slots,
                         float* __restrict__ out_d, int* __restrict__ out_i,
-                        int C, int M, int CB, int kp, int tbytes) {
+                        int T, int P, int C, int M, int CB, int kp,
+                        int tbytes) {
+  constexpr int kThreads = threads_of<kQuant>();
+  constexpr int kWarps = kThreads / 32;
+  constexpr int L = 32 * KPL;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int size = max(0, min(sizes[t], C));
-  float* od = out_d + (size_t)t * kp;
-  int* oi = out_i + (size_t)t * kp;
-  if (size == 0) {
-    for (int j = tid; j < kp; j += kThreads) {
-      od[j] = INFINITY;
-      oi[j] = -1;
-    }
-    return;
-  }
-  unsigned long long* keys =
-      reinterpret_cast<unsigned long long*>(smem + tbytes);
-  int* wcount = reinterpret_cast<int*>(keys + kSortCap);  // [2][kWarps]
-  for (int j = tid; j < kp; j += kThreads) keys[j] = kNone;
-  pqrow::stage_table<kQuant, kThreads>(lut, scale, bias, t, M, CB, smem);
-  const pqrow::Table tab = pqrow::table_view(smem, M, CB);
+  u64* lists = reinterpret_cast<u64*>(smem + tbytes);   // [kWarps][L]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  const int lane = tid & 31, warp = tid >> 5;
-  unsigned long long thr = kNone;       // the current kp-th key
-  int cnt = 0;                          // pending keys in keys[kp, kp + cnt)
-  for (int c0 = 0, r = 0; c0 < size; c0 += kThreads, ++r) {
-    const int c = c0 + tid;
-    unsigned long long key = kNone;
-    if (c < size) {
-      const float d = pqrow::row_dist<CodeT, kQuant, kVec16>(
-          codes + ((size_t)t * C + c) * M, tab.lut_f, tab.lut_q, tab.sc, M,
-          CB);
-      key = ((unsigned long long)ordered_bits(d) << 32) | (uint32_t)c;
+  int slot, rows;
+  int t = next_task<kThreads>(blockIdx.x, T, slots, sizes, P, C, kp, out_d,
+                              out_i, &slot, &rows);
+  if (t < T)
+    pqrow::stage_table_async<kQuant, kThreads>(lut, scale, bias, t, M, CB,
+                                               smem);
+  while (t < T) {
+    pqrow::cp_async_wait_all();        // this thread's copies of task t
+    __syncthreads();                   // ... and everyone's
+    const pqrow::Table tab = pqrow::table_view(smem, M, CB);
+    float bsum = 0.0f;
+    float scl[16];
+    if constexpr (kQuant) {
+      bsum = pqrow::bias_sum(tab.sc, M);
+      if constexpr (kVec16) {
+#pragma unroll
+        for (int m = 0; m < 16; ++m) scl[m] = tab.sc[m];
+      }
     }
-    int* wc = wcount + (r & 1) * kWarps;   // double-buffered counts
-    bool keep = key < thr;
-    int total;
-    int at = block_offset(keep, wc, lane, warp, &total);
-    if (cnt + total > kPending) {         // uniform across the block
-      merge(keys, kp, cnt);
-      thr = keys[kp - 1];
-      cnt = 0;
-      keep = key < thr;
-      at = block_offset(keep, wc, lane, warp, &total);
+
+    // -- scan: each warp keeps its own top list ------------------------
+    u64 v[KPL];
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) v[j] = kNone;
+    u64 thr = kNone;                   // the warp's k_pad-th key
+    const CodeT* base = codes + (size_t)slot * C * M;
+    const uint4* base16 = reinterpret_cast<const uint4*>(base);
+    uint4 next = {};                   // vec16: this lane's next row
+    if constexpr (kVec16)
+      if (warp * 32 + lane < rows) next = __ldg(base16 + warp * 32 + lane);
+    for (int c0 = warp * 32; c0 < rows; c0 += kThreads) {
+      const int c = c0 + lane;
+      u64 key = kNone;
+      if constexpr (kVec16) {
+        const uint4 w = next;
+        if (c + kThreads < rows) next = __ldg(base16 + c + kThreads);
+        if (c < rows) {
+          float d;
+          if constexpr (kQuant)
+            d = pqrow::row_sum_vec16<kQuant, 256>(w, tab.lut_f, tab.lut_q,
+                                                  scl, CB) + bsum;
+          else
+            d = pqrow::row_sum_vec16<kQuant, 256>(w, tab.lut_f, tab.lut_q,
+                                                  tab.sc, CB);
+          key = ((u64)ordered_bits(d) << 32) | (uint32_t)c;
+        }
+      } else if (c < rows) {
+        float d = pqrow::row_sum<CodeT, kQuant>(base + (size_t)c * M,
+                                                tab.lut_f, tab.lut_q, tab.sc,
+                                                M, CB);
+        if constexpr (kQuant) d += bsum;
+        key = ((u64)ordered_bits(d) << 32) | (uint32_t)c;
+      }
+      const bool keep = key < thr;
+      unsigned kept = __ballot_sync(kAll, keep);
+      if (kept == 0) continue;
+      if (__popc(kept) <= kInsertMax) {
+        do {
+          const int src = __ffs(kept) - 1;
+          kept &= kept - 1;
+          insert1<KPL>(v, __shfl_sync(kAll, key, src), lane);
+        } while (kept);
+      } else {
+        merge32<KPL>(v, keep ? key : kNone, lane);
+      }
+      thr = kth<KPL>(v, kp);
     }
-    if (keep) keys[kp + cnt + at] = key;
-    cnt += total;
-  }
-  if (cnt > 0) merge(keys, kp, cnt);
-  for (int j = tid; j < kp; j += kThreads) {
-    const unsigned long long key = keys[j];
-    const uint32_t row = (uint32_t)key;
-    const bool none = row == 0xffffffffu;
-    od[j] = none ? INFINITY : from_ordered((uint32_t)(key >> 32));
-    oi[j] = none ? -1 : ids[(size_t)t * C + row];
+
+    // -- merge the warps' lists pairwise through shared memory ---------
+#pragma unroll
+    for (int half = kWarps / 2; half > 0; half >>= 1) {
+      if (warp >= half && warp < 2 * half) {
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) lists[warp * L + j * 32 + lane] = v[j];
+      }
+      __syncthreads();
+      if (warp < half) {
+        const u64* other = lists + (warp + half) * L;
+#pragma unroll
+        for (int j = 0; j < KPL; ++j)
+          v[j] = kmin(v[j], other[L - 1 - (j * 32 + lane)]);
+        bitonic_merge<KPL>(v, lane);
+      }
+    }
+    // Every warp is past its scan (the merge barriers, or alone, here):
+    // the block's next task's table may land while warp 0 writes.
+    int slot1, rows1;
+    const int t1 = next_task<kThreads>(t + gridDim.x, T, slots, sizes, P, C,
+                                       kp, out_d, out_i, &slot1, &rows1);
+    if (t1 < T)
+      pqrow::stage_table_async<kQuant, kThreads>(lut, scale, bias, t1, M, CB,
+                                                 smem);
+    if (warp == 0) {
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const int i = j * 32 + lane;
+        if (i < kp) {
+          const uint32_t row = (uint32_t)v[j];
+          const bool none = row == 0xffffffffu;
+          out_d[(size_t)t * kp + i] =
+              none ? INFINITY : from_ordered((uint32_t)(v[j] >> 32));
+          out_i[(size_t)t * kp + i] = none ? -1 : ids[(size_t)slot * C + row];
+        }
+      }
+    }
+    t = t1, slot = slot1, rows = rows1;
   }
 }
 
-template <typename CodeT, bool kQuant, bool kVec16>
+template <int KPL, typename CodeT, bool kQuant, bool kVec16>
 int launch_typed(const void* lut, const void* scale, const void* bias,
                  const void* codes, const void* ids, const void* sizes,
-                 void* out_d, void* out_i, int T, int C, int M, int CB,
-                 int kp, void* stream) {
-  auto kernel = pq_scan_topk_kernel<CodeT, kQuant, kVec16>;
-  const size_t smem = smem_bytes(kQuant, M, CB);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+                 const void* slots, void* out_d, void* out_i, int T, int P,
+                 int C, int M, int CB, int kp, void* stream) {
+  auto kernel = pq_scan_topk_kernel<KPL, CodeT, kQuant, kVec16>;
+  const size_t smem = smem_bytes(kQuant, M, CB, kp);
+  // The blocks of this instance that fit on the card at once, looked up on
+  // the first launch per device and shared-memory size: (smem << 32) |
+  // blocks, 0 until then.
+  static std::atomic<unsigned long long> resident[kMaxDevices];
+  cudaError_t e;
+  int dev = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  const unsigned long long seen =
+      dev < kMaxDevices ? resident[dev].load(std::memory_order_relaxed) : 0;
+  int blocks = (int)(seen & 0xffffffffull);
+  if (seen == 0 || (seen >> 32) != smem) {
+    if (smem > 48 * 1024 &&
+        (e = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+      return (int)e;
+    int sms = 0, per_sm = 0;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, threads_of<kQuant>(), smem)) != cudaSuccess)
+      return (int)e;
+    if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+    blocks = sms * per_sm;
+    if (dev < kMaxDevices)
+      resident[dev].store(((unsigned long long)smem << 32) | (unsigned)blocks,
+                          std::memory_order_relaxed);
   }
-  kernel<<<T, kThreads, smem, (cudaStream_t)stream>>>(
+  const int grid = T < blocks ? T : blocks;
+  kernel<<<grid, threads_of<kQuant>(), smem, (cudaStream_t)stream>>>(
       lut, (const float*)scale, (const float*)bias, (const CodeT*)codes,
-      (const int*)ids, (const int*)sizes, (float*)out_d, (int*)out_i, C, M,
-      CB, kp, (int)table_bytes(kQuant, M, CB));
+      (const int*)ids, (const int*)sizes, (const int*)slots, (float*)out_d,
+      (int*)out_i, T, P, C, M, CB, kp, (int)table_bytes(kQuant, M, CB));
   return (int)cudaGetLastError();
+}
+
+template <int KPL, bool kQuant>
+int launch_codes(const void* lut, const void* scale, const void* bias,
+                 const void* codes, const void* ids, const void* sizes,
+                 const void* slots, void* out_d, void* out_i, int T, int P,
+                 int C, int M, int CB, int code_bytes, int kp, void* stream) {
+  if (code_bytes == 4)
+    return launch_typed<KPL, int32_t, kQuant, false>(
+        lut, scale, bias, codes, ids, sizes, slots, out_d, out_i, T, P, C, M,
+        CB, kp, stream);
+  if (M == 16 && CB == 256 && reinterpret_cast<uintptr_t>(codes) % 16 == 0)
+    return launch_typed<KPL, uint8_t, kQuant, true>(
+        lut, scale, bias, codes, ids, sizes, slots, out_d, out_i, T, P, C, M,
+        CB, kp, stream);
+  return launch_typed<KPL, uint8_t, kQuant, false>(
+      lut, scale, bias, codes, ids, sizes, slots, out_d, out_i, T, P, C, M,
+      CB, kp, stream);
 }
 
 template <bool kQuant>
 int launch(const void* lut, const void* scale, const void* bias,
-           const void* codes, const void* ids, const void* sizes, void* out_d,
-           void* out_i, int T, int C, int M, int CB, int code_bytes, int kp,
-           void* stream) {
+           const void* codes, const void* ids, const void* sizes,
+           const void* slots, void* out_d, void* out_i, int T, int P, int C,
+           int M, int CB, int code_bytes, int kp, void* stream) {
   if (kp < 8 || kp > kMaxKPad || (kp & (kp - 1)) != 0 || sizes == nullptr ||
-      (code_bytes != 1 && code_bytes != 4))
+      (code_bytes != 1 && code_bytes != 4) || (slots == nullptr && P != T))
     return (int)cudaErrorInvalidValue;
   if (T == 0) return (int)cudaSuccess;
-  if (code_bytes == 4)
-    return launch_typed<int32_t, kQuant, false>(lut, scale, bias, codes, ids,
-                                                sizes, out_d, out_i, T, C, M,
-                                                CB, kp, stream);
-  if (M == 16 && reinterpret_cast<uintptr_t>(codes) % 16 == 0)
-    return launch_typed<uint8_t, kQuant, true>(lut, scale, bias, codes, ids,
-                                               sizes, out_d, out_i, T, C, M,
-                                               CB, kp, stream);
-  return launch_typed<uint8_t, kQuant, false>(lut, scale, bias, codes, ids,
-                                              sizes, out_d, out_i, T, C, M,
-                                              CB, kp, stream);
+  switch (keys_per_lane(kp)) {
+    case 1:
+      return launch_codes<1, kQuant>(lut, scale, bias, codes, ids, sizes,
+                                     slots, out_d, out_i, T, P, C, M, CB,
+                                     code_bytes, kp, stream);
+    case 2:
+      return launch_codes<2, kQuant>(lut, scale, bias, codes, ids, sizes,
+                                     slots, out_d, out_i, T, P, C, M, CB,
+                                     code_bytes, kp, stream);
+    case 4:
+      return launch_codes<4, kQuant>(lut, scale, bias, codes, ids, sizes,
+                                     slots, out_d, out_i, T, P, C, M, CB,
+                                     code_bytes, kp, stream);
+    default:
+      return launch_codes<8, kQuant>(lut, scale, bias, codes, ids, sizes,
+                                     slots, out_d, out_i, T, P, C, M, CB,
+                                     code_bytes, kp, stream);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t pq_scan_topk_smem_bytes(int quant, int M, int CB) {
-  return smem_bytes(quant != 0, M, CB);
+size_t pq_scan_topk_smem_bytes(int quant, int M, int CB, int k_pad) {
+  return smem_bytes(quant != 0, M, CB, k_pad);
 }
 
-// lut (T, M, CB) f32, codes (T, C, M) u8 (code_bytes=1) or i32 (4),
-// ids (T, C) i32, sizes (T,) i32 -> out_d (T, k_pad) f32 ascending,
-// out_i (T, k_pad) i32.  Returns cudaGetLastError().
+// lut (T, M, CB) f32; codes (P, C, M) u8 (code_bytes=1) or i32 (4), ids
+// (P, C) i32, sizes (P,) i32; slots (T,) i32, or NULL with P == T (task t
+// reads slot t) -> out_d (T, k_pad) f32 ascending, out_i (T, k_pad) i32.
+// Returns cudaGetLastError().
 int pq_scan_topk_f32(const void* lut, const void* codes, const void* ids,
-                     const void* sizes, void* out_d, void* out_i, int T,
-                     int C, int M, int CB, int code_bytes, int k_pad,
-                     void* stream) {
-  return launch<false>(lut, nullptr, nullptr, codes, ids, sizes, out_d,
-                       out_i, T, C, M, CB, code_bytes, k_pad, stream);
+                     const void* sizes, const void* slots, void* out_d,
+                     void* out_i, int T, int P, int C, int M, int CB,
+                     int code_bytes, int k_pad, void* stream) {
+  return launch<false>(lut, nullptr, nullptr, codes, ids, sizes, slots,
+                       out_d, out_i, T, P, C, M, CB, code_bytes, k_pad,
+                       stream);
 }
 
 // lut_q (T, M, CB) u8, scale/bias (T, M) f32, the rest as above.
 int pq_scan_topk_u8(const void* lut_q, const void* scale, const void* bias,
                     const void* codes, const void* ids, const void* sizes,
-                    void* out_d, void* out_i, int T, int C, int M, int CB,
-                    int code_bytes, int k_pad, void* stream) {
-  return launch<true>(lut_q, scale, bias, codes, ids, sizes, out_d, out_i, T,
-                      C, M, CB, code_bytes, k_pad, stream);
+                    const void* slots, void* out_d, void* out_i, int T, int P,
+                    int C, int M, int CB, int code_bytes, int k_pad,
+                    void* stream) {
+  return launch<true>(lut_q, scale, bias, codes, ids, sizes, slots, out_d,
+                      out_i, T, P, C, M, CB, code_bytes, k_pad, stream);
 }
 
 const char* pq_scan_topk_error_string(int err) {

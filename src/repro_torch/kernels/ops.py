@@ -137,20 +137,25 @@ def lut_build_q(residuals: torch.Tensor, codebooks: torch.Tensor,
     return QuantizedLUT(lut_q, scale, bias)
 
 
-def _scan_inputs(lut, codes, sizes):
-    """Check a scan's table, codes and sizes; returns (quantized, table,
-    device, T, C, M, CB)."""
+def _scan_inputs(lut, codes, sizes, slots=None):
+    """Check a scan's table, codes, sizes and slots; returns (quantized,
+    table, device, T, P, C, M, CB): T tasks (tables), P code slots (T
+    without ``slots``)."""
     quantized = isinstance(lut, QuantizedLUT)
     table = lut.lut_q if quantized else lut
     dev = table.device
     _check(table, "lut", (torch.uint8,) if quantized else (torch.float32,),
            3, dev)
     _check(codes, "codes", (torch.uint8, torch.int32), 3, dev)
-    t, c, m = codes.shape
+    p, c, m = codes.shape
+    t = p
+    if slots is not None:
+        _check(slots, "slots", (torch.int32,), 1, dev)
+        t = slots.shape[0]
     cbn = table.shape[2]
     if table.shape[:2] != (t, m):
-        raise ValueError(f"lut {tuple(table.shape)} does not match codes "
-                         f"{tuple(codes.shape)}")
+        raise ValueError(f"lut {tuple(table.shape)} does not match {t} "
+                         f"tasks of codes {tuple(codes.shape)}")
     if quantized:
         for name, x in (("scale", lut.scale), ("bias", lut.bias)):
             _check(x, name, (torch.float32,), 2, dev)
@@ -158,9 +163,9 @@ def _scan_inputs(lut, codes, sizes):
                 raise ValueError(f"{name} {tuple(x.shape)} != {(t, m)}")
     if sizes is not None:
         _check(sizes, "sizes", (torch.int32,), 1, dev)
-        if sizes.shape[0] != t:
-            raise ValueError(f"sizes {tuple(sizes.shape)} != ({t},)")
-    return quantized, table, dev, t, c, m, cbn
+        if sizes.shape[0] != p:
+            raise ValueError(f"sizes {tuple(sizes.shape)} != ({p},)")
+    return quantized, table, dev, t, p, c, m, cbn
 
 
 def pq_scan_dc(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
@@ -173,7 +178,8 @@ def pq_scan_dc(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
     Codes are uint8 or int32.  ``strategy`` names a TPU dataflow and does
     not change the result."""
     check_strategy(strategy)
-    quantized, table, dev, t, c, m, cbn = _scan_inputs(lut, codes, sizes)
+    quantized, table, dev, t, _, c, m, cbn = _scan_inputs(lut, codes,
+                                                          sizes)
     if not _route(dev):
         if quantized:
             return adc_distances_quantized(lut, codes, sizes, strategy)
@@ -199,13 +205,30 @@ def pq_scan_dc(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
     return out
 
 
+def gather_slots(codes: torch.Tensor, ids: torch.Tensor,
+                 sizes: torch.Tensor, slots: torch.Tensor):
+    """The dense inputs of a slot-form fused call: task t's codes, ids and
+    size are those of slot ``slots[t]`` of the (P, ...) tensors, and a
+    slot outside [0, P) (-1: no task) has size 0, as on the card.  A
+    copy; the kernels read the slots in place."""
+    s = slots.long()
+    valid = (s >= 0) & (s < codes.shape[0])
+    si = torch.where(valid, s, 0)
+    return (codes.index_select(0, si), ids.index_select(0, si),
+            sizes.index_select(0, si).masked_fill(~valid, 0))
+
+
 def pq_scan_topk_plain(lut: Union[torch.Tensor, QuantizedLUT],
                        codes: torch.Tensor, ids: torch.Tensor,
-                       sizes: torch.Tensor, k_pad: int):
+                       sizes: torch.Tensor, k_pad: int, *,
+                       slots: Optional[torch.Tensor] = None):
     """The fused kernels' plain version: DC (``adc_distances`` or
     ``adc_distances_quantized``), masked ids, then ``topk_smallest``.
     Returns (T, k_pad) ascending distances and ids, (+inf, -1) past the
-    valid rows, C < k_pad included."""
+    valid rows, C < k_pad included.  ``slots``: as :func:`pq_scan_topk`,
+    through :func:`gather_slots`."""
+    if slots is not None:
+        codes, ids, sizes = gather_slots(codes, ids, sizes, slots)
     if isinstance(lut, QuantizedLUT):
         d = adc_distances_quantized(lut, codes, sizes)
     else:
@@ -222,11 +245,18 @@ def pq_scan_topk_plain(lut: Union[torch.Tensor, QuantizedLUT],
 
 def pq_scan_topk(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
                  ids: torch.Tensor, sizes: torch.Tensor, k: int, *,
-                 strategy: str = "gather"):
+                 strategy: str = "gather",
+                 slots: Optional[torch.Tensor] = None):
     """Fused DC+TS: (T, M, CB) table x (T, C, M) codes -> the k smallest
     distances per task, ascending, and their ids: ((T, k) f32, (T, k)
     i32).  Rows ``>= sizes[t]`` never compete; slots past the valid rows
     are (+inf, -1).
+
+    ``slots`` ((T,) int32): codes (P, C, M), ids (P, C) and sizes (P,)
+    are P code slots, and task t reads slot ``slots[t]`` in place (-1, or
+    any slot outside [0, P): no task, size 0).  Without it, P = T and task t
+    reads slot t.  The result is that of the dense call on
+    :func:`gather_slots`' copy.
 
     As the reference's wrapper: ``k_pad = next_pow2(max(k, 8))`` winners
     are selected and the outputs are sliced to ``k``; ``k_pad`` may not
@@ -234,12 +264,13 @@ def pq_scan_topk(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
     :class:`QuantizedLUT`; codes uint8 or int32; ids and sizes int32.
     On the card ties are broken by row, so the output is deterministic."""
     check_strategy(strategy)
-    quantized, table, dev, t, c, m, cbn = _scan_inputs(lut, codes, sizes)
+    quantized, table, dev, t, p, c, m, cbn = _scan_inputs(lut, codes, sizes,
+                                                          slots)
     if sizes is None:
         raise ValueError("pq_scan_topk needs sizes")
     _check(ids, "ids", (torch.int32,), 2, dev)
-    if ids.shape != (t, c):
-        raise ValueError(f"ids {tuple(ids.shape)} != {(t, c)}")
+    if ids.shape != (p, c):
+        raise ValueError(f"ids {tuple(ids.shape)} != {(p, c)}")
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     k_pad = next_pow2(max(k, 8))
@@ -247,25 +278,29 @@ def pq_scan_topk(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
         raise ValueError(f"pq_scan_topk: k={k} needs k_pad={k_pad}, above "
                          f"the kernels' {MAX_K_PAD}")
     if not _route(dev):
-        bd, bi = pq_scan_topk_plain(lut, codes, ids, sizes, k_pad)
+        bd, bi = pq_scan_topk_plain(lut, codes, ids, sizes, k_pad,
+                                    slots=slots)
         return bd[:, :k], bi[:, :k]
     lib = _build.library("pq_scan_topk")
-    _smem("pq_scan_topk", lib.pq_scan_topk_smem_bytes(int(quantized), m, cbn))
+    _smem("pq_scan_topk",
+          lib.pq_scan_topk_smem_bytes(int(quantized), m, cbn, k_pad))
     out_d = torch.empty((t, k_pad), dtype=torch.float32, device=dev)
     out_i = torch.empty((t, k_pad), dtype=torch.int32, device=dev)
     code_bytes = codes.element_size()
+    slots_ptr = None if slots is None else slots.data_ptr()
     with torch.cuda.device(dev):
         if quantized:
             err = lib.pq_scan_topk_u8(
                 table.data_ptr(), lut.scale.data_ptr(), lut.bias.data_ptr(),
-                codes.data_ptr(), ids.data_ptr(), sizes.data_ptr(),
-                out_d.data_ptr(), out_i.data_ptr(), t, c, m, cbn, code_bytes,
-                k_pad, _stream(dev))
+                codes.data_ptr(), ids.data_ptr(), sizes.data_ptr(), slots_ptr,
+                out_d.data_ptr(), out_i.data_ptr(), t, p, c, m, cbn,
+                code_bytes, k_pad, _stream(dev))
         else:
             err = lib.pq_scan_topk_f32(
                 table.data_ptr(), codes.data_ptr(), ids.data_ptr(),
-                sizes.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), t, c,
-                m, cbn, code_bytes, k_pad, _stream(dev))
+                sizes.data_ptr(), slots_ptr, out_d.data_ptr(),
+                out_i.data_ptr(), t, p, c, m, cbn, code_bytes, k_pad,
+                _stream(dev))
     name = "pq_scan_topk_q" if quantized else "pq_scan_topk"
     _ok(lib, err, name, "pq_scan_topk")
     launches[name] += 1

@@ -158,6 +158,112 @@ def test_fused_scan_topk_breaks_ties_by_row(cuda, quantized):
         assert bool((gi[t, n:] == -1).all())
 
 
+def _slot_topk_inputs(seed, p, t, c, code_dtype, quantized, device, m=16,
+                      cb=256):
+    """P code slots (ragged sizes, an empty one) and T tasks whose slots
+    repeat and include -1 and (T > 4) one past the last slot."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    lut, codes, ids, sizes = _topk_inputs(seed, p, c, code_dtype, quantized,
+                                          device, m, cb)
+    r = torch.randn(t, m * 8, device=device, generator=g)
+    b = torch.randn(m, cb, 8, device=device, generator=g)
+    lut = (ops.lut_build_q if quantized else ops.lut_build)(
+        r, b, (b * b).sum(-1))
+    slots = torch.randint(0, p, (t,), device=device, generator=g,
+                          dtype=torch.int32)
+    slots[0] = -1
+    slots[1] = slots[2]
+    slots[3] = 0                                   # slot 0 has no rows
+    if t > 4:
+        slots[4] = p                               # out of range: no task
+    return lut, codes, ids, sizes, slots
+
+
+def _lexsort_dc(lut, codes, ids, sizes, k_pad):
+    """The k_pad first entries of a sort by (distance, row) of the DC
+    kernel's output, ids looked up, (+inf, -1) past the valid rows."""
+    dc = ops.pq_scan_dc(lut, codes, sizes)
+    d, row = torch.sort(dc, dim=1, stable=True)
+    d, row = d[:, :k_pad], row[:, :k_pad]
+    i = torch.where(torch.isinf(d), -1, ids.gather(1, row))
+    short = k_pad - d.shape[1]
+    if short > 0:
+        d = torch.nn.functional.pad(d, (0, short), value=float("inf"))
+        i = torch.nn.functional.pad(i, (0, short), value=-1)
+    return d, i
+
+
+@pytest.mark.parametrize("p,t,c", [(5, 4, 700), (37, 300, 1029),
+                                   (400, 20000, 300), (3000, 70000, 64)])
+@pytest.mark.parametrize("code_dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_fused_scan_topk_slots_match_plain(cuda, p, t, c, code_dtype,
+                                           quantized, k):
+    """The slot form against its plain version (ties allowed) and, bit for
+    bit, against the dense kernel on the gathered inputs; two launches
+    are equal.  T runs from below the persistent grid to far above it."""
+    lut, codes, ids, sizes, slots = _slot_topk_inputs(
+        30, p, t, c, code_dtype, quantized, cuda)
+    name = "pq_scan_topk_q" if quantized else "pq_scan_topk"
+    ops.reset_launches()
+    gd, gi = ops.pq_scan_topk(lut, codes, ids, sizes, k, slots=slots)
+    again = ops.pq_scan_topk(lut, codes, ids, sizes, k, slots=slots)
+    dense = ops.gather_slots(codes, ids, sizes, slots)
+    dd, di = ops.pq_scan_topk(lut, *dense, k)
+    torch.cuda.synchronize()
+    assert ops.launches[name] == 3
+    assert torch.equal(gd, again[0]) and torch.equal(gi, again[1])
+    assert torch.equal(gd, dd) and torch.equal(gi, di)
+    assert torch.isinf(gd[0]).all() and bool((gi[0] == -1).all())
+    assert torch.isinf(gd[3]).all() and bool((gi[3] == -1).all())
+    if t > 4:
+        assert torch.isinf(gd[4]).all() and bool((gi[4] == -1).all())
+    k_pad = max(8, 1 << (k - 1).bit_length())
+    pd, pi = ops.pq_scan_topk_plain(lut, codes, ids, sizes, k_pad,
+                                    slots=slots)
+    _assert_topk_close(gd, gi, pd, pi, k)
+
+
+@pytest.mark.parametrize("k_pad", [8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("code_dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_fused_scan_topk_equals_sorted_dc(cuda, k_pad, code_dtype,
+                                          quantized):
+    """Every k_pad from 8 to 256, both forms: the output is the (distance,
+    row) sort of the DC kernel's (C's or D's) output, bit for bit."""
+    lut, codes, ids, sizes, slots = _slot_topk_inputs(
+        31, 300, 2000, 1100, code_dtype, quantized, cuda)
+    dense = ops.gather_slots(codes, ids, sizes, slots)
+    wd, wi = _lexsort_dc(lut, *dense, k_pad)
+    for got in (ops.pq_scan_topk(lut, codes, ids, sizes, k_pad, slots=slots),
+                ops.pq_scan_topk(lut, *dense, k_pad)):
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], wd) and torch.equal(got[1], wi)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_fused_scan_topk_all_empty_tasks(cuda, quantized):
+    """No task has rows (-1 slots, or dense sizes of 0): every output is
+    (+inf, -1), and the launches count."""
+    lut, codes, ids, sizes, slots = _slot_topk_inputs(
+        32, 50, 5000, 300, np.uint8, quantized, cuda)
+    name = "pq_scan_topk_q" if quantized else "pq_scan_topk"
+    ops.reset_launches()
+    outs = [ops.pq_scan_topk(lut, codes, ids, sizes, 10,
+                             slots=torch.full_like(slots, -1)),
+            ops.pq_scan_topk(lut, codes, ids, torch.zeros_like(sizes), 10,
+                             slots=slots)]
+    dense = ops.gather_slots(codes, ids, sizes, slots)
+    outs.append(ops.pq_scan_topk(lut, dense[0], dense[1],
+                                 torch.zeros_like(dense[2]), 10))
+    torch.cuda.synchronize()
+    assert ops.launches[name] == 3
+    for d, i in outs:
+        assert d.shape == (5000, 10) and torch.isinf(d).all()
+        assert bool((i == -1).all())
+
+
 def test_fused_scan_topk_refuses_large_k(cuda):
     lut, codes, ids, sizes = _topk_inputs(12, 4, 300, np.uint8, False, cuda)
     assert ops.pq_scan_topk(lut, codes, ids, sizes, ops.MAX_K_PAD)[0].shape \

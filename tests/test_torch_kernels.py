@@ -216,6 +216,101 @@ def test_pq_scan_topk_rejects_bad_inputs():
         ops.pq_scan_topk(lut, c, i, z, 4, strategy="bogus")
 
 
+def _slot_inputs(seed, p, t, m, cb, c, code_dtype):
+    """P code slots with ragged sizes (one empty), and T tasks whose slots
+    repeat and include -1 (no task)."""
+    rng = np.random.default_rng(seed)
+    res = rng.normal(size=(t, m * 4)).astype(np.float32)
+    books = rng.normal(size=(m, cb, 4)).astype(np.float32)
+    sqn = (books * books).sum(-1)
+    codes = rng.integers(0, cb, size=(p, c, m)).astype(code_dtype)
+    ids = rng.integers(0, 1 << 20, size=(p, c)).astype(np.int32)
+    sizes = rng.integers(1, c + 1, size=(p,)).astype(np.int32)
+    sizes[1] = 0
+    slots = rng.integers(0, p, size=(t,)).astype(np.int32)
+    slots[0] = -1
+    slots[3] = slots[2]
+    slots[4] = 1                                   # the empty slot
+    slots[5] = p                                   # out of range: no task
+    return res, books, sqn, codes, ids, sizes, slots
+
+
+def _assert_topk_tie_close(gd, gi, wd, wi):
+    """Distances allclose with equal +inf masks, -1 ids exactly at +inf,
+    and per-task id sets equal up to ties at the k-th place: an id found
+    on one side only sits at that side's k-th distance."""
+    inf = np.isinf(wd)
+    np.testing.assert_array_equal(np.isinf(gd), inf)
+    np.testing.assert_allclose(gd[~inf], wd[~inf], rtol=RTOL, atol=ATOL)
+    assert (gi[inf] == -1).all() and (gi[~inf] >= 0).all()
+    k = gi.shape[1]
+    for t in range(gi.shape[0]):
+        a, b = set(gi[t].tolist()), set(wi[t].tolist())
+        for ids, d, only in ((gi[t], gd[t], a - b), (wi[t], wd[t], b - a)):
+            for j in np.nonzero(np.isin(ids, list(only)))[0]:
+                assert np.isclose(d[j], d[k - 1], rtol=RTOL, atol=ATOL), t
+
+
+@pytest.mark.parametrize("code_dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_pq_scan_topk_slots_match_reference(code_dtype, quantized, k):
+    """The slot form (task t reads code slot slots[t] in place) against
+    the reference's Pallas kernel (interpret mode) on codes[slots], and
+    bit for bit against the port's dense call and the blockwise oracle on
+    the gathered inputs: -1, out-of-range and repeated slots, ragged and
+    empty sizes."""
+    from repro_torch.core.sharded_search import _fused_scan_topk
+    p, t, m, cb, c = 5, 12, 8, 64, 300
+    res, books, sqn, codes, ids, sizes, slots = _slot_inputs(
+        20 + k, p, t, m, cb, c, code_dtype)
+    valid = (slots >= 0) & (slots < p)
+    s = np.where(valid, slots, 0)
+    dense = (codes[s], ids[s], np.where(valid, sizes[s], 0).astype(np.int32))
+    if quantized:
+        jlut = jops.lut_build_q(jnp.asarray(res), jnp.asarray(books),
+                                jnp.asarray(sqn))
+        table = QuantizedLUT(*_t(jlut.lut_q, jlut.scale, jlut.bias))
+    else:
+        jlut = jnp.asarray(np.asarray(jops.lut_build(
+            jnp.asarray(res), jnp.asarray(books), jnp.asarray(sqn))))
+        table = _t(jlut)[0]
+    wd, wi = jops.pq_scan_topk(jlut, *map(jnp.asarray, dense), k,
+                               strategy="gather")
+    ts = torch.from_numpy(slots)
+    gd, gi = ops.pq_scan_topk(table, *_t(codes, ids, sizes), k, slots=ts)
+    assert gd.shape == (t, k) and gi.dtype == torch.int32
+    _assert_topk_tie_close(gd.numpy(), gi.numpy(), np.asarray(wd),
+                           np.asarray(wi))
+    assert torch.isinf(gd[0]).all() and bool((gi[0] == -1).all())
+    assert torch.isinf(gd[4]).all() and bool((gi[4] == -1).all())
+    assert torch.isinf(gd[5]).all() and bool((gi[5] == -1).all())
+    dd, di = ops.pq_scan_topk(table, *_t(*dense), k)
+    assert torch.equal(gd, dd) and torch.equal(gi, di)
+    od, oi = _fused_scan_topk(table, *_t(codes, ids, sizes), k, block=37,
+                              slots=ts)
+    oi = oi.masked_fill(torch.isinf(od), -1)       # as the steps mask it
+    _assert_topk_tie_close(od.numpy(), oi.numpy(), dd.numpy(), di.numpy())
+
+
+def test_pq_scan_topk_slots_reject_bad_inputs():
+    res, books, sqn, codes, ids, sizes, slots = _slot_inputs(
+        13, 4, 6, 4, 16, 32, np.uint8)
+    lut = ops.lut_build(*_t(res, books, sqn))
+    c, i, z, sl = _t(codes, ids, sizes, slots)
+    assert ops.pq_scan_topk(lut, c, i, z, 3, slots=sl)[0].shape == (6, 3)
+    with pytest.raises(TypeError):
+        ops.pq_scan_topk(lut, c, i, z, 3, slots=sl.long())
+    with pytest.raises(ValueError):                # one table per task
+        ops.pq_scan_topk(lut, c, i, z, 3, slots=sl[:-1].contiguous())
+    with pytest.raises(ValueError):                # sizes: one per slot
+        ops.pq_scan_topk(lut, c, i, z[:-1].contiguous(), 3, slots=sl)
+    with pytest.raises(ValueError):                # ids: (P, C)
+        ops.pq_scan_topk(lut, c, i[:-1].contiguous(), z, 3, slots=sl)
+    with pytest.raises(ValueError):                # dense form: P == T
+        ops.pq_scan_topk(lut, c, i, z, 3)
+
+
 def test_wrappers_reject_bad_inputs():
     res, books, sqn, codes, sizes = _mk(5, 4, 4, 16, 32, 2)
     r, b, s, c, z = _t(res, books, sqn, codes, sizes)
