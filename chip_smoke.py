@@ -6,9 +6,11 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc``, holds each kernel against its plain PyTorch version (ragged
-shapes first, then each path's own inputs), and drives the port's two
-main paths once at the configuration below:
+``nvcc`` (logging each kernel instance's registers and spills; an LC
+instance that spills fails the run), holds each kernel against its plain
+PyTorch version (ragged shapes first, LC at every instance of its
+launcher, then each path's own inputs), and drives the port's two main
+paths once at the configuration below:
 
     local:   corpus (make_clustered_corpus) -> build_ivfpq + pad_clusters
              on the card -> search_ivfpq(use_kernels=True), f32 and uint8
@@ -29,9 +31,12 @@ and read just after it; every kernel of the path must have risen.
 Recall@10 is taken against the port's exact_search; the sharded results
 are held to the local path's on the same queries, and served results to
 a direct search.  The last lines printed are one ``{"kernels": [...]}``
-JSON line and ``{"ok": true, "device": {...}}``.  E's and F's first
-sharded launches are also written to ``build/sharded_launch.pt``, which
-``tools/torch_fused_topk_bench.py`` replays.
+JSON line and ``{"ok": true, "device": {...}}``; A's and B's rows carry
+their times at the sharded step's first LC launches too.  E's and F's
+first sharded launches, with their LC inputs and those of the local
+path's first chunk, are written to ``build/sharded_launch.pt``, which
+``tools/torch_fused_topk_bench.py`` and ``tools/torch_lut_build_bench.py``
+replay.
 Any failed check raises, so the exit code is non-zero and the ``ok`` line
 is never printed; so is a run without CUDA or outside a checkout.
 
@@ -49,6 +54,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -110,12 +116,22 @@ def sync_time(fn):
     return out, time.perf_counter() - t0
 
 
-def event_ms(fn, reps: int, warm: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` warm calls (CUDA events)."""
+def event_ms(fn, reps: int, warm: int = 2, queued: bool = False) -> float:
+    """Mean time of ``fn`` over ``reps`` warm calls by CUDA events.
+    ``queued``: the calls are enqueued behind a device-side sleep that
+    outlasts their host dispatch (1.5x the warm calls' host time, at
+    most 0.2 s at an assumed 2 GHz), so the events time the device's work
+    alone; otherwise a kernel shorter than its wrapper's host overhead is
+    timed by the host."""
+    t0 = time.perf_counter()
     for _ in range(warm):
         fn()
+    host_s = (time.perf_counter() - t0) / max(warm, 1)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(min(0.2, 1.5 * reps * host_s + 1e-3) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -128,6 +144,48 @@ def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def lut_bytes_ops(t: int, m: int, cb: int, dsub: int, quant: bool):
+    """LC's bound inputs: bytes (residuals, codebooks and norms read once,
+    the f32 table, or the u8 table with scale and bias, written once) and
+    operations (per entry dsub FMAs, the combination and the clamp; per
+    row ||r||^2; B adds the min, max, subtraction, division, rounding and
+    clamp of each entry)."""
+    nbytes = t * m * dsub * 4 + m * cb * dsub * 4 + m * cb * 4
+    nbytes += t * m * cb + 2 * t * m * 4 if quant else t * m * cb * 4
+    nops = t * m * cb * (2 * dsub + 4) + t * m * 2 * dsub
+    if quant:
+        nops += t * m * cb * 6
+    return nbytes, nops
+
+
+def ptxas_instances(text: str) -> list:
+    """(kernel, registers, stack frame bytes, spill store bytes, spill
+    load bytes) for each entry function in nvcc's ``-Xptxas -v`` output;
+    a template instance reads e.g. ``lut_build_kernel<8, 0, 0>``."""
+    out, name, frame = [], None, (0, 0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, frame = m.group(1), (0, 0, 0)
+            k = re.search(r"([a-z_]+_kernel)I((?:L[a-z]+\d+E|[a-z])+)E",
+                          name)
+            if k:
+                args = [a or {"h": "u8", "i": "i32"}.get(t, t) for a, t in
+                        re.findall(r"L[a-z]+(\d+)E|([a-z])", k.group(2))]
+                name = f"{k.group(1)}<{', '.join(args)}>"
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *frame))
+            name = None
+    return out
 
 
 def same_neighbours(kd, ki, pd, pi, rtol, atol):
@@ -316,10 +374,52 @@ def ragged_topk_checks(ops, lut, q, codes, where: str, g) -> None:
         f"to the sorted DC output bit for bit)")
 
 
+# (T, M, CB, dsub) for LC: every instance of csrc/lut_build.cu's launcher
+# (dsub 1, 2, 4, 8: the codebook slice in registers; 16: staged in shared
+# memory; 3, CB 20 and CB 512: the generic instance), CB 32 / 64 / 256,
+# T = 1 and T not a multiple of a block's warps
+LUT_RAGGED = ((1, 16, 256, 8), (9, 16, 32, 8), (37, 8, 64, 4),
+              (300, 32, 256, 2), (1000, 16, 256, 1), (129, 8, 256, 16),
+              (50, 4, 64, 16), (77, 5, 32, 3), (1, 3, 256, 3),
+              (33, 4, 20, 8), (40, 4, 512, 8))
+
+
+def ragged_lut_checks(ops, ref, adc, g) -> None:
+    """A and B at LUT_RAGGED, then on residuals that start off a 16-byte
+    boundary (a flat offset of one float, and a slice at an odd row of a
+    (T, 10) tensor), which must give the same bits as an aligned copy."""
+    def inputs(t, m, cb, dsub):
+        books = torch.randn(m, cb, dsub, device="cuda", generator=g) * 6
+        return books, (books * books).sum(-1)
+
+    for t, m, cb, dsub in LUT_RAGGED:
+        res = torch.randn(t, m * dsub, device="cuda", generator=g) * 8
+        check_lut(ops, ref, adc, res, *inputs(t, m, cb, dsub),
+                  f"LC T={t} M={m} CB={cb} dsub={dsub}")
+    for t, m, cb, dsub, how in ((200, 16, 256, 8, "flat offset 1"),
+                                (61, 5, 64, 2, "rows 1:")):
+        if how == "rows 1:":
+            res = (torch.randn(t + 1, m * dsub, device="cuda",
+                               generator=g) * 8)[1:]
+        else:
+            flat = torch.randn(t * m * dsub + 1, device="cuda", generator=g)
+            res = (flat * 8)[1:].view(t, m * dsub)
+        books, sqn = inputs(t, m, cb, dsub)
+        where = (f"LC T={t} M={m} CB={cb} dsub={dsub}, residuals {how} "
+                 f"(data_ptr % 16 = {res.data_ptr() % 16})")
+        lut, q, _, _ = check_lut(ops, ref, adc, res, books, sqn, where)
+        copy = res.clone()
+        q2 = ops.lut_build_q(copy, books, sqn)
+        check(torch.equal(lut, ops.lut_build(copy, books, sqn))
+              and all(torch.equal(a, b) for a, b in zip(q, q2)),
+              f"{where}: differs from an aligned copy's output")
+
+
 def ragged_checks(ops, ref, adc):
     """Shapes that are not multiples of the blocks, a task with sizes=0,
-    sizes < C, u8 and i32 codes."""
+    sizes < C, u8 and i32 codes; LC at every instance of its launcher."""
     g = torch.Generator(device="cuda").manual_seed(1)
+    ragged_lut_checks(ops, ref, adc, g)
     for t, c, code_dtype in ((1, 1, torch.uint8), (37, 1029, torch.uint8),
                              (300, 77, torch.int32), (5000, 2050,
                                                       torch.uint8)):
@@ -352,21 +452,18 @@ def main_shape_report(ops, ref, adc, res, books, sqn, codes, sizes,
     cbk = PQCodebook(books, sqn)
     res3 = res.view(t, M, dsub)
 
-    ins_lc = t * M * dsub * 4 + M * CB * dsub * 4 + M * CB * 4
-    ops_lc = t * M * CB * (2 * dsub + 4) + t * M * 2 * dsub
+    a_bytes, a_ops = lut_bytes_ops(t, M, CB, dsub, False)
+    b_bytes, b_ops = lut_bytes_ops(t, M, CB, dsub, True)
     rows = {
         "lut_build": dict(
             fn=lambda: ops.lut_build(res, books, sqn),
             plain=lambda: adc.build_lut_batch(cbk, res),
             lib=lambda: torch.cdist(res3.transpose(0, 1), books).square_(),
-            nbytes=ins_lc + t * M * CB * 4, nops=ops_lc,
-            err=err_a),
+            nbytes=a_bytes, nops=a_ops, err=err_a),
         "lut_build_q": dict(
             fn=lambda: ops.lut_build_q(res, books, sqn),
             plain=lambda: adc.quantize_lut(adc.build_lut_batch(cbk, res)),
-            lib=None,
-            nbytes=ins_lc + t * M * CB + 2 * t * M * 4,
-            nops=ops_lc + t * M * CB * 6, err=err_b),
+            lib=None, nbytes=b_bytes, nops=b_ops, err=err_b),
         "pq_scan_dc": dict(
             fn=lambda: ops.pq_scan_dc(lut, codes, sizes),
             plain=lambda: adc.adc_distances(lut, codes, sizes),
@@ -384,9 +481,10 @@ def main_shape_report(ops, ref, adc, res, books, sqn, codes, sizes,
     }
     out = []
     for name, r in rows.items():
-        ms = event_ms(r["fn"], reps=20)
-        plain_ms = event_ms(r["plain"], reps=5, warm=1)
-        lib_ms = event_ms(r["lib"], reps=20) if r["lib"] else None
+        ms = event_ms(r["fn"], reps=20, queued=True)
+        plain_ms = event_ms(r["plain"], reps=5, warm=1, queued=True)
+        lib_ms = (event_ms(r["lib"], reps=20, queued=True) if r["lib"]
+                  else None)
         b_ms, b_by = bound_ms(r["nbytes"], r["nops"])
         src, replaces = KERNELS[name]
         out.append({"name": name, "route": "cuda", "source": src,
@@ -402,33 +500,47 @@ def main_shape_report(ops, ref, adc, res, books, sqn, codes, sizes,
     return out
 
 
-def lut_build_at_sharded_step(ops, ref, adc, captured) -> dict:
-    """A on the inputs of its first launch in the sharded path (the step's
-    S x T residuals): check, time, bound, plain time and torch.cdist."""
+def lut_at_sharded_step(ops, ref, adc, captured) -> dict:
+    """A and B, each on the inputs of its first launch in the sharded path
+    (the step's S x T residuals): check (both kernels on those residuals,
+    B against quantize_lut of A), time, bound, plain time and, for A,
+    torch.cdist.  Returns {name: entry for that kernel's row}."""
     from repro_torch.core.pq import PQCodebook
-    res, books, sqn = captured["lut_build"]
-    t, dsub = res.shape[0], books.shape[2]
-    _, _, err, _ = check_lut(ops, ref, adc, res, books, sqn,
-                             f"sharded step T={t}",
-                             chunk=QUERY_CHUNK * NPROBE)
-    cbk = PQCodebook(books, sqn)
-    res3 = res.view(t, M, dsub)
-    nbytes = (t * M * dsub * 4 + M * CB * dsub * 4 + M * CB * 4
-              + t * M * CB * 4)
-    nops = t * M * CB * (2 * dsub + 4) + t * M * 2 * dsub
-    ms = event_ms(lambda: ops.lut_build(res, books, sqn), reps=20)
-    plain_ms = event_ms(lambda: adc.build_lut_batch(cbk, res), reps=5,
-                        warm=1)
-    lib_ms = event_ms(lambda: torch.cdist(res3.transpose(0, 1),
-                                          books).square_(), reps=20)
-    b_ms, b_by = bound_ms(nbytes, nops)
-    log(f"  lut_build at the sharded step: {ms:.4f} ms (bound {b_ms:.4f} "
-        f"ms by {b_by}, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms); "
-        f"T={t}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err,
-            "bytes": nbytes, "ops": nops,
-            "shape": {"T": t, "M": M, "CB": CB, "dsub": dsub}}
+    out = {}
+    for name in ("lut_build", "lut_build_q"):
+        res, books, sqn = captured[name]
+        t, dsub = res.shape[0], books.shape[2]
+        quant = name == "lut_build_q"
+        _, _, err_a, err_b = check_lut(ops, ref, adc, res, books, sqn,
+                                       f"sharded step ({name}'s) T={t}",
+                                       chunk=QUERY_CHUNK * NPROBE)
+        cbk = PQCodebook(books, sqn)
+        res3 = res.view(t, M, dsub)
+        nbytes, nops = lut_bytes_ops(t, M, CB, dsub, quant)
+        if quant:
+            fn, plain, lib = (
+                lambda: ops.lut_build_q(res, books, sqn),
+                lambda: adc.quantize_lut(adc.build_lut_batch(cbk, res)),
+                None)
+        else:
+            fn, plain, lib = (
+                lambda: ops.lut_build(res, books, sqn),
+                lambda: adc.build_lut_batch(cbk, res),
+                lambda: torch.cdist(res3.transpose(0, 1), books).square_())
+        ms = event_ms(fn, reps=20, queued=True)
+        plain_ms = event_ms(plain, reps=5, warm=1, queued=True)
+        lib_ms = event_ms(lib, reps=20, queued=True) if lib else None
+        b_ms, b_by = bound_ms(nbytes, nops)
+        log(f"  {name} at the sharded step: {ms:.4f} ms (bound {b_ms:.4f} "
+            f"ms by {b_by}, {ms / b_ms:.2f}x; plain {plain_ms:.4f} ms, "
+            f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'});"
+            f" T={t}")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms,
+                     "max_abs_err": err_b if quant else err_a,
+                     "bytes": nbytes, "ops": nops,
+                     "shape": {"T": t, "M": M, "CB": CB, "dsub": dsub}}
+    return out
 
 
 def phase_breakdown(ops, index, clusters, q, dt: str) -> dict:
@@ -464,7 +576,8 @@ def phase_breakdown(ops, index, clusters, q, dt: str) -> dict:
         "TS (torch.topk)": lambda: topk_smallest(dists.reshape(cand),
                                                  ids.reshape(cand), K),
     }
-    return {name: event_ms(fn, reps=10) for name, fn in phases.items()}
+    return {name: event_ms(fn, reps=10, queued=True)
+            for name, fn in phases.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -629,9 +742,10 @@ def sharded_path(ops, index, queries, local, rec_local, gt, pool, trace,
 
 
 def sharded_step_time(engines, runs, queries) -> None:
-    """Device time of one step of the first 1,000-query batch (RC, LC and
-    the fused kernel reading the codes by slot), CUDA events, beside the
-    host seconds the same batch's phases took."""
+    """Time of one step of the first 1,000-query batch (RC, LC and the
+    fused kernel reading the codes by slot), CUDA events, as the step runs
+    (host dispatch included) and queued (the device's work alone), beside
+    the host seconds the same batch's phases took."""
     from repro_torch.core.sharded_search import run_shards_vmap
     for dt, eng in engines.items():
         qb = queries[:SHARD_BATCH]
@@ -639,25 +753,32 @@ def sharded_step_time(engines, runs, queries) -> None:
         eng.carry = []
         qidx = torch.from_numpy(sched.query_idx).cuda()
         sidx = torch.from_numpy(sched.slot_idx).cuda()
-        step_ms = event_ms(lambda: run_shards_vmap(
-            eng.sindex, qidx, sidx, qb, k=K, quantize=dt == "uint8"),
-            reps=5)
+        def step():
+            return run_shards_vmap(eng.sindex, qidx, sidx, qb, k=K,
+                                   quantize=dt == "uint8")
+        step_ms = event_ms(step, reps=5)
+        device_ms = event_ms(step, reps=5, queued=True)
         wall, rounds, _ = runs[dt]
         busy = rounds * step_ms / 1e3
         log(f"  sharded lut={dt}: one step ({int(sched.n_tasks.sum())} "
-            f"tasks of {sched.query_idx.size}) {step_ms:.3f} ms on the "
-            f"device (CUDA events); {rounds} steps ~{busy:.3f} s of the "
-            f"{wall:.2f} s run, idle share ~{max(0.0, 1 - busy / wall):.3f}")
+            f"tasks of {sched.query_idx.size}) {step_ms:.3f} ms (CUDA "
+            f"events), {device_ms:.3f} ms of device work (queued); "
+            f"{rounds} steps ~{busy:.3f} s of the {wall:.2f} s run, idle "
+            f"share ~{max(0.0, 1 - busy / wall):.3f}")
 
 
-def save_launch(ops, captured) -> None:
+def save_launch(ops, captured, local_lc) -> None:
     """Write E's and F's first sharded launches to LAUNCH_FILE, for
     tools/torch_fused_topk_bench.py to replay: the residuals of the LC
     launch of the same step (the tool rebuilds the tables from them; here
     they are checked to come out bit for bit as the step's), the slots,
     and the rows of the slots the tasks read (the shard tensors are ~7
-    GiB, mostly slots no task of this step reads)."""
-    out = {}
+    GiB, mostly slots no task of this step reads).  ``local_lc``, the LC
+    inputs of the local path's first chunk, goes in as ``lut_local`` for
+    tools/torch_lut_build_bench.py."""
+    res, books, sqn = local_lc
+    out = {"lut_local": {"residuals": res.cpu(), "books": books.cpu(),
+                         "sqn": sqn.cpu()}}
     for name, lc_name, lc in (("pq_scan_topk", "lut_build", ops.lut_build),
                               ("pq_scan_topk_q", "lut_build_q",
                                ops.lut_build_q)):
@@ -741,16 +862,19 @@ def fused_report(ops, captured, launches) -> list:
         dense_bytes, _, _ = fused_bytes_ops(gathered[0], gathered[2], k_pad,
                                             quant)
         ms = event_ms(lambda: ops.pq_scan_topk(lut, codes, ids, sizes, k,
-                                               slots=slots), reps=20)
+                                               slots=slots), reps=20,
+                      queued=True)
         dense_ms = event_ms(lambda: ops.pq_scan_topk(lut, *gathered, k),
-                            reps=20)
+                            reps=20, queued=True)
         gather_ms = event_ms(lambda: ops.gather_slots(codes, ids, sizes,
-                                                      slots), reps=5)
+                                                      slots), reps=5,
+                             queued=True)
         plain_ms = event_ms(lambda: ops.pq_scan_topk_plain(
-            lut, codes, ids, sizes, k_pad, slots=slots), reps=3, warm=1)
+            lut, codes, ids, sizes, k_pad, slots=slots), reps=3, warm=1,
+            queued=True)
         pair_ms = event_ms(lambda: topk_smallest(
             ops.pq_scan_dc(lut, gathered[0], gathered[2]), gathered[1],
-            k_pad), reps=20)
+            k_pad), reps=20, queued=True)
         b_ms, b_by = bound_ms(nbytes, nops)
         dense_b_ms, _ = bound_ms(dense_bytes, nops)
         src, replaces = KERNELS[name]
@@ -813,9 +937,13 @@ def main() -> int:
     log(f"build: {secs:.2f} s for {list(_build.SOURCES)} "
         f"({' '.join(_build.NVCC_FLAGS)})")
     for name, text in _build.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        found = ptxas_instances(text)
+        check(bool(found), f"no ptxas report in {name}'s build log")
+        for kernel, regs, stack, st, ld in found:
+            log(f"  ptxas {name}: {kernel}: {regs} registers, {stack} B "
+                f"stack frame, spills {st} B stored / {ld} B loaded")
+            check(name != "lut_build" or st + ld == 0,
+                  f"{kernel} spills registers")
 
     # -- 3a. kernels vs plain at ragged shapes ----------------------------
     log("kernels vs plain, ragged shapes:")
@@ -1002,17 +1130,18 @@ def main() -> int:
                                block=QUERY_CHUNK)
     res = (q0[:, None, :] - index.centroids[probes]).reshape(-1, D)
     flat = probes.reshape(-1)
-    rows = main_shape_report(ops, ref, adc, res.contiguous(),
-                             index.codebook.codebooks,
-                             index.codebook.sqnorms,
+    local_lc = (res.contiguous(), index.codebook.codebooks,
+                index.codebook.sqnorms)
+    rows = main_shape_report(ops, ref, adc, *local_lc,
                              clusters.codes.index_select(0, flat),
                              clusters.sizes.index_select(0, flat), total)
     log("kernels vs plain, the sharded path's first launches:")
-    a_row = next(r for r in rows if r["name"] == "lut_build")
-    a_row["at_sharded_step"] = lut_build_at_sharded_step(ops, ref, adc,
-                                                         captured)
+    at_step = lut_at_sharded_step(ops, ref, adc, captured)
+    for r in rows:
+        if r["name"] in at_step:
+            r["at_sharded_step"] = at_step[r["name"]]
     rows += fused_report(ops, captured, total)
-    save_launch(ops, captured)
+    save_launch(ops, captured, local_lc)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,6 +24,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+VARIANT_DIR = BUILD_DIR.parent / "kernel_variants"
 SOURCES = ("lut_build", "pq_scan", "pq_scan_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -106,15 +108,61 @@ def build(names: Optional[Iterable[str]] = None) -> float:
     return time.perf_counter() - t0
 
 
+def _load(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(target(name)))
-            for fn, (argtypes, restype) in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = restype
-            _LIBS[name] = lib
+            lib = _LIBS[name] = _load(name, target(name))
         return lib
+
+
+def with_constants(source: str, spec: str) -> str:
+    """``source`` with ``constexpr int NAME = VALUE;`` for each NAME=VALUE
+    of the comma-separated ``spec``, in place of that constant's first
+    definition; raises ValueError if a NAME has none."""
+    for item in spec.split(","):
+        name, value = (x.strip() for x in item.split("="))
+        pat = re.compile(rf"constexpr int {re.escape(name)} = [^;]+;")
+        if not pat.search(source):
+            raise ValueError(f"no 'constexpr int {name} = ...;' in the "
+                             f"source")
+        source = pat.sub(f"constexpr int {name} = {value};", source, count=1)
+    return source
+
+
+def build_variant(name: str, source: str,
+                  label: Optional[str] = None) -> ctypes.CDLL:
+    """``source``, a replacement for ``csrc/<name>.cu`` with the same C
+    interface, built beside copies of the shared headers into
+    ``build/kernel_variants/`` and loaded with ``SIGNATURES[name]``.
+    nvcc's output goes to ``build_log[label]`` (default
+    ``"<name>@<hash>"``)."""
+    tag = hashlib.sha256(source.encode()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    where = VARIANT_DIR / f"{name}-{tag}"
+    lib = where / f"{name}.so"
+    if not lib.exists():
+        where.mkdir(parents=True, exist_ok=True)
+        for h in CSRC.glob("*.cuh"):
+            shutil.copy(h, where / h.name)
+        (where / f"{name}.cu").write_text(source)
+        out = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(lib),
+                              str(where / f"{name}.cu")],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+        build_log[label or f"{name}@{tag}"] = out.stdout
+        if out.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {name} variant "
+                               f"{where} (exit {out.returncode}):\n"
+                               f"{out.stdout}")
+    return _load(name, lib)

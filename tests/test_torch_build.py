@@ -1,0 +1,128 @@
+"""The ctypes signatures in ``repro_torch.kernels._build`` against the C
+interface the CUDA sources declare.  A C function whose arguments drift
+from its ``ctypes`` signature corrupts memory without an error, so each
+``extern "C"`` function of each ``csrc/*.cu`` is held to its entry in
+``SIGNATURES``: name, argument count, and a pointer, ``int`` or
+``size_t`` in each place (and the return type).  Runs on the CPU: it
+reads the sources and never builds them."""
+
+import ctypes
+import importlib.util
+import re
+from pathlib import Path
+
+import pytest
+
+from repro_torch.kernels import _build
+
+_C_TYPES = {"pointer": ctypes.c_void_p, "int": ctypes.c_int,
+            "size_t": ctypes.c_size_t, "const char*": ctypes.c_char_p}
+
+
+def _kind(decl: str) -> str:
+    """'pointer', 'int', 'size_t' or 'const char*' for a C parameter or
+    return type (the parameter's name, if any, included)."""
+    decl = " ".join(decl.split())
+    if decl.startswith("const char*"):
+        return "const char*"
+    if "*" in decl:
+        return "pointer"
+    base = decl.split()[0]
+    if base in ("int", "size_t"):
+        return base
+    raise ValueError(f"unexpected C type in {decl!r}")
+
+
+def extern_c_functions(source: str) -> dict:
+    """{name: (return kind, [parameter kinds])} of the functions defined
+    in the ``extern "C" { ... }`` blocks of a CUDA source."""
+    source = re.sub(r"//[^\n]*", "", source)
+    out = {}
+    for start in re.finditer(r'extern "C" \{', source):
+        depth, i = 1, start.end()
+        while depth:                       # to the block's closing brace
+            depth += {"{": 1, "}": -1}.get(source[i], 0)
+            i += 1
+        block = source[start.end():i - 1]
+        for f in re.finditer(r"^([A-Za-z_][\w \t\*]*?[ \t\*])(\w+)\("
+                             r"([^)]*)\)\s*\{", block, re.M):
+            params = [p for p in f.group(3).split(",") if p.strip()]
+            out[f.group(2)] = (_kind(f.group(1)), [_kind(p) for p in params])
+    return out
+
+
+def _declared(name: str) -> dict:
+    return extern_c_functions((_build.CSRC / f"{name}.cu").read_text())
+
+
+def test_sources_are_the_csrc_files():
+    assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
+    assert set(_build.SIGNATURES) == set(_build.SOURCES)
+
+
+@pytest.mark.parametrize("name", _build.SOURCES)
+def test_extern_c_names_match_signatures(name):
+    assert set(_declared(name)) == set(_build.SIGNATURES[name])
+
+
+@pytest.mark.parametrize("name,fn", [(n, f) for n in _build.SOURCES
+                                     for f in _build.SIGNATURES[n]])
+def test_extern_c_arguments_match_signature(name, fn):
+    ret, params = _declared(name)[fn]
+    argtypes, restype = _build.SIGNATURES[name][fn]
+    assert len(params) == len(argtypes)
+    assert [_C_TYPES[k] for k in params] == list(argtypes)
+    assert _C_TYPES[ret] is restype
+
+
+def test_parser_reads_declarations():
+    src = '''
+namespace { int helper(int x) { return x; } }
+extern "C" {
+// a comment (with parentheses)
+size_t f_bytes(int quant, int CB) { return 0; }
+int f_launch(const void* a, void* b,
+             int n, size_t m, void* stream) {
+  return helper(n);
+}
+const char* f_error_string(int err) { return ""; }
+}  // extern "C"
+'''
+    assert extern_c_functions(src) == {
+        "f_bytes": ("size_t", ["int", "int"]),
+        "f_launch": ("int", ["pointer", "pointer", "int", "size_t",
+                             "pointer"]),
+        "f_error_string": ("const char*", ["int"]),
+    }
+
+
+def test_with_constants_replaces_first_definition():
+    src = ("constexpr int kThreads = 128;  // a block\n"
+           "constexpr int kWarps = kThreads / 32;\n")
+    out = _build.with_constants(src, "kThreads=256, kWarps = 4")
+    assert out == ("constexpr int kThreads = 256;  // a block\n"
+                   "constexpr int kWarps = 4;\n")
+    with pytest.raises(ValueError):
+        _build.with_constants(src, "kMissing=1")
+
+
+def test_lut_build_constants_can_vary():
+    """The constants the LC bench tool varies exist in the source."""
+    src = (_build.CSRC / "lut_build.cu").read_text()
+    for spec in ("kThreads=256", "kStreamStores=0", "kRowsF32=1",
+                 "kRowsU8=1", "kStageDsub=16", "kMinBlocks=4"):
+        assert _build.with_constants(src, spec) != src
+
+
+def test_lut_bench_probes_apply_to_the_source():
+    """Each diagnostic build of tools/torch_lut_build_bench.py finds what
+    it edits in csrc/lut_build.cu."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_lut_build_bench",
+        Path(__file__).resolve().parents[1] / "tools"
+        / "torch_lut_build_bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    src = (_build.CSRC / "lut_build.cu").read_text()
+    for name in bench.PROBES:
+        assert bench.probe_source(src, name) != src

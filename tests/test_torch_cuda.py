@@ -43,9 +43,18 @@ def _mk(seed, t, m, cb, c, dsub, code_dtype, device):
             for a in (res, books, sqn, codes, sizes)]
 
 
+# Every instance of csrc/lut_build.cu's launcher: dsub 1, 2, 4, 8 (the
+# codebook slice in registers), 16 (staged in shared memory), and the
+# generic one (dsub 3, a CB that is not a multiple of 4, CB above 256), at
+# CB 32 / 64 / 256 and T = 1.
 @pytest.mark.parametrize("t,m,cb,dsub", [(7, 8, 64, 4), (32, 16, 256, 8),
                                          (130, 8, 256, 16), (9, 32, 32, 2),
-                                         (8192, 16, 256, 8)])
+                                         (8192, 16, 256, 8), (1, 16, 256, 8),
+                                         (50, 4, 256, 1), (1, 8, 32, 1),
+                                         (77, 16, 64, 2), (1, 4, 256, 4),
+                                         (17, 4, 32, 16), (33, 6, 64, 3),
+                                         (1, 8, 256, 3), (5, 3, 20, 8),
+                                         (12, 2, 512, 8)])
 def test_lut_kernels_match_plain(cuda, t, m, cb, dsub):
     r, b, s, _, _ = _mk(7, t, m, cb, 4, dsub, np.uint8, cuda)
     ops.reset_launches()
@@ -60,6 +69,47 @@ def test_lut_kernels_match_plain(cuda, t, m, cb, dsub):
     assert int((gq.lut_q.int() - hq.lut_q.int()).abs().max()) <= 1
     torch.testing.assert_close(gq.scale, hq.scale, rtol=1e-6, atol=0)
     torch.testing.assert_close(gq.bias, hq.bias, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("how", ["flat offset", "odd row"])
+def test_lut_kernels_unaligned_residuals(cuda, how):
+    """Residuals whose data_ptr is not 16-byte aligned (a flat offset of
+    one float at dsub 8; row 1 of a (T, 10) tensor at dsub 2) give the
+    same bits as an aligned copy, and match the oracle."""
+    m, cb, dsub = (16, 256, 8) if how == "flat offset" else (5, 64, 2)
+    t = 301
+    rng = np.random.default_rng(13)
+    flat = torch.from_numpy(rng.normal(size=t * m * dsub + m * dsub)
+                            .astype(np.float32)).to(cuda)
+    if how == "flat offset":
+        r = flat[1:1 + t * m * dsub].view(t, m * dsub)
+    else:
+        r = flat.view(t + 1, m * dsub)[1:]
+    assert r.is_contiguous() and r.data_ptr() % 16 != 0
+    _, b, s, _, _ = _mk(14, 1, m, cb, 1, dsub, np.uint8, cuda)
+    got, gq = ops.lut_build(r, b, s), ops.lut_build_q(r, b, s)
+    aligned = r.clone()
+    assert aligned.data_ptr() % 16 == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.lut_build(aligned, b, s))
+    for x, y in zip(gq, ops.lut_build_q(aligned, b, s)):
+        assert torch.equal(x, y)
+    torch.testing.assert_close(got, ref.lut_build_ref(r.view(t, m, dsub), b,
+                                                      s),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_lut_build_q_equals_quantized_lut_build(cuda):
+    """At the main path's shape B's u8 table, scale and bias equal
+    quantize_lut of A's output bit for bit (both kernels compute the f32
+    entry with one device function and divide in IEEE)."""
+    r, b, s, _, _ = _mk(15, 8192, 16, 256, 1, 8, np.uint8, cuda)
+    gq = ops.lut_build_q(r, b, s)
+    hq = quantize_lut(ops.lut_build(r, b, s))
+    torch.cuda.synchronize()
+    assert torch.equal(gq.lut_q, hq.lut_q)
+    assert torch.equal(gq.scale, hq.scale)
+    assert torch.equal(gq.bias, hq.bias)
 
 
 @pytest.mark.parametrize("t,m,cb,c", [(3, 8, 64, 300), (8, 16, 256, 512),

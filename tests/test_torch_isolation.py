@@ -1,6 +1,6 @@
-"""The port stands alone: nothing under src/repro_torch (nor chip_smoke.py)
-imports jax or the reference package, and the port imports with both
-blocked."""
+"""The port stands alone: nothing under src/repro_torch (nor chip_smoke.py
+or the port's tools) imports jax or the reference package, and the port
+imports with both blocked."""
 
 import ast
 import os
@@ -12,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "tools").glob("torch_*.py")))
 
 
 def _forbidden(name: str) -> bool:

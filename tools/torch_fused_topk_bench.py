@@ -13,7 +13,7 @@ A and B from the step's residuals (bit for bit the step's own).
 
 Each ``--variant NAME=VALUE[,NAME=VALUE...]`` rebuilds
 ``csrc/pq_scan_topk.cu`` with ``constexpr int NAME = VALUE;`` in place of
-each such line, into ``build/topk_variants/``, checks that its output
+each such line, into ``build/kernel_variants/``, checks that its output
 equals the source's bit for bit, and times it.  Prints one JSON line:
 the card and its power limit, then for E and F the bound
 (``chip_smoke.fused_bytes_ops``) and CUDA-event means of the source's
@@ -23,11 +23,7 @@ kernel before and after the variants and of each variant.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
-import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -64,29 +60,11 @@ def variant_library(spec: str):
     and loaded with the wrapper's signatures."""
     from repro_torch.kernels import _build
     src = (_build.CSRC / "pq_scan_topk.cu").read_text()
-    for item in spec.split(","):
-        name, value = item.split("=")
-        pat = re.compile(rf"constexpr int {re.escape(name)} = [^;]+;")
-        if not pat.search(src):
-            raise SystemExit(f"no 'constexpr int {name} = ...;' in the "
-                             f"source")
-        src = pat.sub(f"constexpr int {name} = {value};", src, count=1)
-    tag = hashlib.sha256(src.encode()).hexdigest()[:12]
-    where = ROOT / "build" / "topk_variants" / tag
-    lib = where / "pq_scan_topk.so"
-    if not lib.exists():
-        where.mkdir(parents=True, exist_ok=True)
-        for h in _build.CSRC.glob("*.cuh"):
-            shutil.copy(h, where / h.name)
-        (where / "pq_scan_topk.cu").write_text(src)
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                        str(lib), str(where / "pq_scan_topk.cu")],
-                       check=True, capture_output=True, text=True)
-    cdll = ctypes.CDLL(str(lib))
-    for fn, (argtypes, restype) in _build.SIGNATURES["pq_scan_topk"].items():
-        getattr(cdll, fn).argtypes = argtypes
-        getattr(cdll, fn).restype = restype
-    return cdll
+    try:
+        src = _build.with_constants(src, spec)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    return _build.build_variant("pq_scan_topk", src)
 
 
 def main() -> int:
