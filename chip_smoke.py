@@ -15,7 +15,9 @@ paths once at the configuration below:
     local:   corpus (make_clustered_corpus) -> build_ivfpq + pad_clusters
              on the card -> search_ivfpq(use_kernels=True), f32 and uint8
              LUTs -> LocalEngine behind ServingRuntime answering a
-             Poisson query stream;
+             Poisson query stream, on the virtual clock (run_stream) and
+             on the wall clock (one caller thread submitting and
+             stepping);
     sharded: the same index -> DistributedEngine (64 shards, clusters
              split at 1,024 rows, the hottest duplicated within 10% of
              the index's bytes, heat from CL of the 10,000 queries) ->
@@ -24,15 +26,31 @@ paths once at the configuration below:
              tasks, the kernel reading each task's codes by slot) ->
              ShardedEngine behind ServingRuntime, first on the
              local run's Poisson trace, then with the LUT cache and the
-             online heat estimator on a Zipf trace.
+             online heat estimator on a Zipf trace;
+    service: the same index behind repro_torch.service.AnnService:
+             S1 one local replica (search == search_ivfpq bit for bit),
+             S5 one local replica, no cache, on the local path's Poisson
+             trace (both clocks; the direct serving runs' twin, so the
+             front door's own cost reads beside them), S2 two local
+             replicas behind the cache-aware router with the LUT cache on
+             the Zipf trace (virtual and wall clock; S2-off the same
+             with no cache), S3 the same at uint8, S4 two sharded
+             replicas behind the least-queue router on the Poisson trace
+             (wall clock, f32 and uint8); then the service selftest on
+             the card, both clocks.
 
 The launch counters of the six kernels are reset just before each path
-and read just after it; every kernel of the path must have risen.
+and read just after it; every kernel of the path must have risen (the
+service path runs all six).
 Recall@10 is taken against the port's exact_search; the sharded results
 are held to the local path's on the same queries, and served results to
-a direct search.  The last lines printed are one ``{"kernels": [...]}``
+a direct search: every local service cell bit for bit to the uncached
+search_ivfpq of the same queries at its LUT dtype.  The last lines printed are one ``{"kernels": [...]}``
 JSON line and ``{"ok": true, "device": {...}}``; A's and B's rows carry
-their times at the sharded step's first LC launches too.  E's and F's
+their times at the sharded step's first LC launches too; ``launches``
+sums the local and sharded paths, as before the service existed, and
+``launches_by_path`` gives each path's own count, the service's
+included.  E's and F's
 first sharded launches, with their LC inputs and those of the local
 path's first chunk, are written to ``build/sharded_launch.pt``, which
 ``tools/torch_fused_topk_bench.py`` and ``tools/torch_lut_build_bench.py``
@@ -58,6 +76,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -93,6 +112,7 @@ KERNELS = {   # wrapper counter -> (route source, TPU kernel it replaces)
 LOCAL_KERNELS = ("lut_build", "lut_build_q", "pq_scan_dc", "pq_scan_dc_q")
 SHARDED_KERNELS = ("lut_build", "lut_build_q", "pq_scan_topk",
                    "pq_scan_topk_q")
+SERVICE_BUCKETS = (1, 2, 4, 8, 16, 32)
 
 
 class SmokeFailure(RuntimeError):
@@ -704,6 +724,11 @@ def sharded_path(ops, index, queries, local, rec_local, gt, pool, trace,
             eng.phase_s.clear()
             reqs = rt.run_stream(tr)
             served_s = dict(eng.phase_s)
+            # the stream's own cache counts, before the direct searches
+            # below look up (and hit) every key again
+            hit = (f", LUT cache hit rate {cache.stats.hit_rate:.4f} "
+                   f"({cache.stats.hits} hits, {len(cache)} entries)"
+                   if cache is not None else "")
             check(all(r.done for r in reqs), f"sharded serving ({label}): "
                                              f"unserved requests")
             qs = np.stack([r.query for r in reqs])
@@ -723,9 +748,6 @@ def sharded_path(ops, index, queries, local, rec_local, gt, pool, trace,
                                 f"{bad} requests from a direct search with "
                                 f"the cache {key}")
             m = rt.metrics()
-            hit = (f", LUT cache hit rate {cache.stats.hit_rate:.4f} "
-                   f"({cache.stats.hits} hits, {len(cache)} entries)"
-                   if cache is not None else "")
             log(f"  ShardedEngine serving ({label}): {m['requests']} "
                 f"requests in {m['batches']} batches: p50 "
                 f"{m['p50_ms']:.3f} ms, p99 {m['p99_ms']:.3f} ms, QPS "
@@ -898,6 +920,210 @@ def fused_report(ops, captured, launches) -> list:
 
 
 # ---------------------------------------------------------------------------
+# The service path: AnnService over the local and sharded engines
+# ---------------------------------------------------------------------------
+
+def served(reqs):
+    """(queries, dists, ids) of served requests, stacked."""
+    return (np.stack([r.query for r in reqs]), np.stack([r.dists for r in reqs]),
+            np.stack([r.ids for r in reqs]))
+
+
+def service_report(label: str, svc, secs: float, clock: str) -> dict:
+    st = svc.stats()
+    agg = st["aggregate"]
+    caches = [m.get("lut_cache") for m in st["replicas"]]
+    hit = agg.get("lut_hit_rate")
+    # engine time per batch (host clock around search_batch, device work
+    # included: results come back to the host), and the share of the
+    # stream's span the replicas' engines were busy
+    svc_s = [b.service_s for rep in svc.replicas
+             for b in rep.runtime.stats.batches]
+    engine_ms = float(np.mean(svc_s)) * 1e3
+    busy = sum(svc_s) / (agg["requests"] / agg["qps"] * len(svc.replicas))
+    # host seconds per engine phase, summed over the replicas (the cached
+    # local engine and the sharded engine keep them; the uncached local
+    # engine does not)
+    phases: dict = {}
+    for rep in svc.replicas:
+        for k, v in getattr(rep.core, "phase_s", {}).items():
+            phases[k] = phases.get(k, 0.0) + v
+    log(f"  {label}, clock={clock}: {agg['requests']} requests in "
+        f"{agg['batches']} batches: p50 {agg['p50_ms']:.3f} ms, p99 "
+        f"{agg['p99_ms']:.3f} ms, QPS {agg['qps']:.1f}; engine "
+        f"{engine_ms:.3f} ms a batch, engines busy {busy:.3f} of the span; "
+        f"router "
+        f"{st['router']['policy']} picks {st['router']['picks']}; LUT hit "
+        f"rate {'none' if hit is None else f'{hit:.4f}'}"
+        + ("" if caches[0] is None else
+           f" ({sum(c['entries'] for c in caches)} entries, "
+           f"{sum(c['bytes'] for c in caches) / 2**20:.1f} MiB)")
+        + f"; retries {agg['retries']}; build {secs:.2f} s; engine host s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+    return {"label": label, "clock": clock, "requests": agg["requests"],
+            "batches": agg["batches"], "p50_ms": agg["p50_ms"],
+            "p99_ms": agg["p99_ms"], "qps": agg["qps"],
+            "picks": st["router"]["picks"], "lut_hit_rate": hit,
+            "retries": agg["retries"], "build_s": secs,
+            "engine_ms_per_batch": engine_ms, "engines_busy": busy,
+            "engine_phase_s": phases}
+
+
+def direct_wall_stream(rt, arrivals) -> list:
+    """ServingRuntime on the wall clock, driven the way a direct user
+    would: one caller thread submits each arrival when it is due and
+    steps the runtime in between (a batch is served inline, so arrivals
+    behind it wait, stamped when submitted)."""
+    t0 = time.monotonic()
+    reqs = []
+    for t, q in arrivals:
+        while True:
+            now = time.monotonic() - t0
+            rt.step(now)
+            if now >= t:
+                break
+            ddl = rt.batcher.next_deadline()
+            wake = t if ddl is None else min(t, ddl)
+            time.sleep(max(0.0, wake - now))
+        reqs.append(rt.submit(q, now))
+        rt.step(now)
+    while rt.batcher.depth:
+        rt.step(time.monotonic() - t0, drain=True)
+    return reqs
+
+
+def service_path(handle, queries_np, results, rec_f32, gt, pool, trace,
+                 direct_serving: dict, n: int, seed: int) -> list:
+    """Drive AnnService (S1-S5) on the main path's index; hold every
+    served result to a direct search.  ``results`` holds the local path's
+    uncached search_ivfpq of all queries per LUT dtype (use_kernels=True);
+    ``direct_serving`` the direct ServingRuntime's metrics per clock on
+    ``trace``.  Returns one report per stream."""
+    from repro_torch.core.search import SearchParams, recall_at_k
+    from repro_torch.data import make_query_stream
+    from repro_torch.service import AnnService, ServiceSpec
+
+    base = dict(nprobe=NPROBE, k=K, buckets=SERVICE_BUCKETS)
+    reports = []
+    direct = {dt: tuple(x.cpu().numpy() for x in r)
+              for dt, r in results.items()}
+    row_of = {q.tobytes(): i for i, q in enumerate(queries_np)}
+
+    def build(spec, **kw):
+        svc, secs = sync_time(lambda: AnnService.build(spec, index=handle,
+                                                       **kw))
+        svc.warmup()
+        for rep in svc.replicas:        # phase clocks: traffic only
+            getattr(rep.core, "phase_s", {}).clear()
+        return svc, secs
+
+    def hold(label, reqs, want_d, want_i, rtol=0.0, atol=0.0):
+        check(all(r.done for r in reqs), f"{label}: unserved requests")
+        _, sd, si = served(reqs)
+        check(np.allclose(sd, want_d, rtol=rtol, atol=atol) if rtol or atol
+              else np.array_equal(sd, want_d),
+              f"{label}: served distances differ from the direct search")
+        bad = tie_diff_rows(sd, si, want_d, want_i, rtol, atol)
+        check(bad == 0, f"{label}: ids differ on {bad} requests beyond "
+                        f"k-th-place ties")
+
+    def hold_direct(label, reqs, dt):
+        """Bit for bit against the uncached search_ivfpq of the same
+        queries (LC, DC and TS are per row, CL on a fixed block)."""
+        rows = np.array([row_of[r.query.tobytes()] for r in reqs])
+        hold(label, reqs, direct[dt][0][rows], direct[dt][1][rows])
+
+    # S1: one local replica == search_ivfpq, bit for bit
+    s1, secs = build(ServiceSpec(engine="local", replicas=1, **base))
+    (d1, i1), t_s1 = sync_time(lambda: s1.search(queries_np))
+    check(np.array_equal(d1, direct["f32"][0])
+          and np.array_equal(i1, direct["f32"][1]),
+          "S1: the 1-replica service differs from search_ivfpq")
+    log(f"  S1 local, 1 replica: search of {len(queries_np)} queries "
+        f"{t_s1 * 1e3:.1f} ms ({len(queries_np) / t_s1:.0f} QPS), equal to "
+        f"search_ivfpq bit for bit; build {secs:.2f} s")
+    s1.shutdown()
+
+    # what the cache-aware router pays per request: CL of one query on a
+    # CL_BLOCK-row block on the card, its probes back on the host
+    from repro_torch.core.sharded_search import CL_BLOCK, locate_probes
+    t0 = time.perf_counter()
+    for q in queries_np[:64]:
+        locate_probes(q[None], handle.centroids, NPROBE)
+    probe_ms = (time.perf_counter() - t0) / 64 * 1e3
+    log(f"  router probe: {probe_ms:.3f} ms a request (CL of one query on "
+        f"a {CL_BLOCK}-row block, probes to the host; card idle)")
+    reports.append({"label": "router probe", "ms_per_request": probe_ms})
+
+    # S5: the direct serving runs' twin through the front door (one local
+    # replica, no cache, the same Poisson trace), so what the service adds
+    # (router, futures, executor thread) reads beside them
+    for clock in ("virtual", "wall"):
+        svc, secs = build(ServiceSpec(engine="local", replicas=1, **base))
+        reqs = svc.stream(trace, clock=clock)
+        hold_direct(f"S5 {clock}", reqs, "f32")
+        r = service_report("S5 local x1 no cache, Poisson", svc, secs, clock)
+        dm = direct_serving[clock]
+        r["direct"] = {k: dm[k] for k in ("p50_ms", "p99_ms", "qps")}
+        log(f"    direct ServingRuntime on the same trace, clock={clock}: "
+            f"p50 {dm['p50_ms']:.3f} ms, p99 {dm['p99_ms']:.3f} ms, QPS "
+            f"{dm['qps']:.1f}")
+        reports.append(r)
+        svc.shutdown()
+
+    zipf = make_query_stream(pool, N_SERVE, qps=2000.0, skew=1.1,
+                             seed=seed + 1)
+    # S2 / S3: two local replicas, cache-aware router, the LUT cache;
+    # S2-off: S2 with no cache, what the cache is measured against
+    for name, dt, cap in (("S2", "f32", 1 << 30), ("S2-off", "f32", 0),
+                          ("S3", "uint8", 1 << 28)):
+        spec = ServiceSpec(engine="local", replicas=2, router="cache_aware",
+                           lut_dtype=dt, cache_capacity_bytes=cap, **base)
+        for clock in ("virtual", "wall"):
+            svc, secs = build(spec)
+            reqs = svc.stream(zipf, clock=clock)
+            label = (f"{name} local x2 cache_aware lut={dt} cache "
+                     f"{cap >> 20} MiB, Zipf 1.1")
+            # reported before the direct searches below go through the cache
+            reports.append(service_report(label, svc, secs, clock))
+            hold_direct(f"{name} {clock}", reqs, dt)
+            if dt == "uint8":
+                # the service's own search (cache warm) too
+                dd, di = svc.search(queries_np)
+                check(np.array_equal(dd, direct[dt][0])
+                      and np.array_equal(di, direct[dt][1]),
+                      f"{name} {clock}: search differs from search_ivfpq")
+            if dt == "uint8" and clock == "wall":
+                rec = recall_at_k(torch.from_numpy(
+                    di[:N_RECALL]).cuda(), gt)
+                log(f"  S3 recall@{K} {rec:.4f} vs f32 {rec_f32:.4f} (drop "
+                    f"{rec_f32 - rec:.4f})")
+                check(rec_f32 - rec <= 0.01, "S3: uint8 recall drop > 0.01")
+            svc.shutdown()
+
+    # S4: two sharded replicas, least-queue router, Poisson, wall clock
+    dup = int(0.10 * n * (M + 4))
+    for dt in ("f32", "uint8"):
+        spec = ServiceSpec(engine="sharded", replicas=2, router="least_queue",
+                           n_shards=N_SHARDS, split_max=SPLIT_MAX,
+                           dup_budget_bytes=dup,
+                           tasks_per_shard=TASKS_PER_SHARD, lut_dtype=dt,
+                           **base)
+        svc, secs = build(spec, sample_queries=queries_np)
+        reqs = svc.stream(trace, clock="wall")
+        local = handle.search(served(reqs)[0], SearchParams(
+            nprobe=NPROBE, k=K, query_chunk=QUERY_CHUNK, use_kernels=True,
+            lut_dtype=dt))
+        hold(f"S4 sharded lut={dt}", reqs, *local, RTOL, ATOL)
+        reports.append(service_report(f"S4 sharded x2 least_queue lut={dt}, "
+                                      f"Poisson", svc, secs, "wall"))
+        svc.shutdown()
+        del svc
+        torch.cuda.empty_cache()
+    return reports
+
+
+# ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
 
@@ -906,6 +1132,9 @@ def main() -> int:
     ap.add_argument("--n-points", type=int, default=10_000_000)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    # the local and sharded paths build their engines directly on purpose
+    warnings.filterwarnings("ignore", category=DeprecationWarning,
+                            message=r"Direct \w+\(\.\.\.\) construction")
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs an "
@@ -1080,11 +1309,26 @@ def main() -> int:
     check(bad == 0, f"served ids differ from a direct search on {bad} "
                     f"queries")
     m = rt.metrics()
+    # the same trace on the wall clock, one caller thread
+    rt_wall = ServingRuntime(LocalEngine(index, clusters, params),
+                             ServingConfig(buckets=(1, 2, 4, 8, 16, 32)))
+    rt_wall.warmup(D)
+    wreqs = direct_wall_stream(rt_wall, trace)
+    check(all(r.done for r in wreqs), "unserved requests (wall clock)")
+    wd, wi = (x.cpu().numpy() for x in search_ivfpq(
+        index, clusters, torch.from_numpy(served(wreqs)[0]).cuda(), params))
+    check(np.array_equal(served(wreqs)[1], wd)
+          and np.array_equal(served(wreqs)[2], wi),
+          "wall-clock served results differ from a direct search")
+    mw = rt_wall.metrics()
+    direct_serving = {"virtual": m, "wall": mw}
     peak = torch.cuda.max_memory_allocated()
     launches = dict(ops.launches)
-    log(f"  serving {m['requests']} requests in {m['batches']} batches: "
-        f"p50 {m['p50_ms']:.3f} ms, p99 {m['p99_ms']:.3f} ms, "
-        f"QPS {m['qps']:.1f}, occupancy {m['avg_batch_occupancy']:.3f}")
+    for clock, mm in direct_serving.items():
+        log(f"  serving {mm['requests']} requests in {mm['batches']} "
+            f"batches, clock={clock}: p50 {mm['p50_ms']:.3f} ms, p99 "
+            f"{mm['p99_ms']:.3f} ms, QPS {mm['qps']:.1f}, occupancy "
+            f"{mm['avg_batch_occupancy']:.3f}")
     log(f"  peak device memory {peak / 2**30:.2f} GiB; launches {launches}")
     for name in LOCAL_KERNELS:
         check(launches[name] > 0, f"{name} never launched on the local path")
@@ -1142,6 +1386,36 @@ def main() -> int:
             r["at_sharded_step"] = at_step[r["name"]]
     rows += fused_report(ops, captured, total)
     save_launch(ops, captured, local_lc)
+    del engines, captured
+    torch.cuda.empty_cache()
+
+    # -- 6. the service front door on the same index ---------------------
+    from repro_torch.core.mutable_index import Index
+    from repro_torch.service.__main__ import selftest
+    log(f"service path: AnnService over the same index, buckets "
+        f"{SERVICE_BUCKETS}, {N_SERVE} requests at 2,000 QPS offered")
+    handle = Index(index)
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    service_runs = service_path(handle, queries.cpu().numpy(), results,
+                                rec["f32"], gt, pool, trace, direct_serving,
+                                n, args.seed)
+    service_launches = dict(ops.launches)
+    log(f"  service path {time.perf_counter() - t0:.1f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {service_launches}")
+    for name in KERNELS:
+        check(service_launches[name] > 0,
+              f"{name} never launched on the service path")
+    for clock in ("virtual", "wall"):
+        check(selftest(clock=clock, device="cuda") == 0,
+              f"service selftest on the card, clock={clock}")
+    by_path = {"local": launches, "sharded": sharded_launches,
+               "service": service_launches}
+    for r in rows:
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
+    log(json.dumps({"service": service_runs}))
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.adc import (adc_distances, adc_distances_quantized,
-                                  build_lut_batch, quantize_lut)
+from repro_torch.core.adc import (QuantizedLUT, adc_distances,
+                                  adc_distances_quantized, build_lut_batch,
+                                  quantize_lut)
 from repro_torch.core.ivf import IVFPQIndex, PaddedClusters
 from repro_torch.core.kmeans import l2_sq
 from repro_torch.core.topk import topk_smallest
@@ -52,46 +53,66 @@ def cluster_locate(queries: torch.Tensor, centroids: torch.Tensor,
     return idx, dist
 
 
-def _search_chunk(queries, centroids, codebook, clusters: PaddedClusters,
-                  rotation, params: SearchParams):
+def cl_rc(queries: torch.Tensor, centroids: torch.Tensor, rotation,
+          params: SearchParams):
+    """CL + RC for one chunk of at most ``params.query_chunk`` queries:
+    (Qc, D) -> probes (Qc, P) and flat residuals (Qc*P, D).  CL runs on a
+    fixed (query_chunk, D) block, so a query's probes do not depend on
+    the size of the batch it rode in."""
     q = queries.float()
-    # CL on a fixed (query_chunk, D) block: batch-size-invariant probes
     probes, _ = cluster_locate(q, centroids, params.nprobe,
                                block=params.query_chunk)          # (Qc, P)
     qc, p = probes.shape
-    # RC
     residual = q[:, None, :] - centroids[probes]                  # (Qc, P, D)
     if rotation is not None:
         ieee_f32_matmul()
         residual = residual @ rotation
-    flat_res = residual.reshape(qc * p, -1)
+    return probes, residual.reshape(qc * p, -1)
+
+
+def _lc(flat_res: torch.Tensor, codebook, params: SearchParams):
+    """LC: (T, D) residuals -> (T, M, CB) f32 tables, or a QuantizedLUT
+    on the uint8 path; through the LC kernels with ``use_kernels``."""
+    quantized = params.lut_dtype == "uint8"
+    if params.use_kernels:
+        from repro_torch.kernels import ops as kops
+        if quantized:                     # LC with fused quantize epilogue
+            return kops.lut_build_q(flat_res, codebook.codebooks,
+                                    codebook.sqnorms)
+        return kops.lut_build(flat_res, codebook.codebooks, codebook.sqnorms)
+    lut = build_lut_batch(codebook, flat_res)
+    return quantize_lut(lut) if quantized else lut
+
+
+def dc_ts(lut, probes: torch.Tensor, clusters: PaddedClusters,
+          params: SearchParams):
+    """DC + TS over one chunk's tables: ``lut`` (Qc*P, M, CB) f32 or a
+    (Qc*P,)-batched QuantizedLUT, one row per (query, probe) in
+    ``probes`` order -> ((Qc, k) dists, (Qc, k) ids)."""
+    qc, p = probes.shape
     flat_probes = probes.reshape(-1)
     # gather the probed clusters' codes/ids/sizes; codes keep their
     # stored dtype (uint8: 4x fewer gathered bytes than int32)
     codes = clusters.codes.index_select(0, flat_probes)           # (QcP, C, M)
     ids = clusters.ids.index_select(0, flat_probes)               # (QcP, C)
     sizes = clusters.sizes.index_select(0, flat_probes)           # (QcP,)
-    quantized = params.lut_dtype == "uint8"
     if params.use_kernels:
         from repro_torch.kernels import ops as kops
-        if quantized:                     # LC with fused quantize epilogue
-            lut = kops.lut_build_q(flat_res, codebook.codebooks,
-                                   codebook.sqnorms)
-        else:
-            lut = kops.lut_build(flat_res, codebook.codebooks,
-                                 codebook.sqnorms)                # (QcP, M, CB)
         dists = kops.pq_scan_dc(lut, codes, sizes, strategy=params.strategy)
+    elif isinstance(lut, QuantizedLUT):
+        dists = adc_distances_quantized(lut, codes, sizes, params.strategy)
     else:
-        lut = build_lut_batch(codebook, flat_res)
-        if quantized:
-            dists = adc_distances_quantized(quantize_lut(lut), codes, sizes,
-                                            params.strategy)
-        else:
-            dists = adc_distances(lut, codes, sizes, params.strategy)
+        dists = adc_distances(lut, codes, sizes, params.strategy)
     # TS: per query over all probed candidates
     cand_d = dists.reshape(qc, p * clusters.cmax)
     cand_i = ids.reshape(qc, p * clusters.cmax)
     return topk_smallest(cand_d, cand_i, params.k)
+
+
+def _search_chunk(queries, centroids, codebook, clusters: PaddedClusters,
+                  rotation, params: SearchParams):
+    probes, flat_res = cl_rc(queries, centroids, rotation, params)
+    return dc_ts(_lc(flat_res, codebook, params), probes, clusters, params)
 
 
 @torch.no_grad()

@@ -77,6 +77,19 @@ from repro_torch.util import ieee_f32_matmul, next_pow2
 CL_BLOCK = 256
 
 
+def locate_probes(queries, centroids: torch.Tensor,
+                  nprobe: int) -> np.ndarray:
+    """CL for (Q, D) queries on fixed (CL_BLOCK, D) blocks on the
+    centroids' device -> (Q, nprobe) probe ids on the host."""
+    q = torch.as_tensor(queries).to(centroids.device).float()
+    parts = [cluster_locate(q[s:s + CL_BLOCK], centroids, nprobe,
+                            block=CL_BLOCK)[0]
+             for s in range(0, q.shape[0], CL_BLOCK)]
+    if not parts:
+        return np.zeros((0, nprobe), np.int64)
+    return torch.cat(parts).cpu().numpy()
+
+
 class ShardedIndex(NamedTuple):
     """Per-shard instance tensors, materialized from a Layout (offline)."""
     codes: torch.Tensor      # (S, slots, cpart, M) u8/i32
@@ -665,13 +678,7 @@ class DistributedEngine:
     def locate(self, queries: torch.Tensor) -> np.ndarray:
         """CL for (Q, D) queries on fixed (CL_BLOCK, D) blocks -> (Q, P)
         probe ids on the host."""
-        q = torch.as_tensor(queries).to(self.device).float()
-        parts = [cluster_locate(q[s:s + CL_BLOCK], self.sindex.centroids,
-                                self.cfg.nprobe, block=CL_BLOCK)[0]
-                 for s in range(0, q.shape[0], CL_BLOCK)]
-        if not parts:
-            return np.zeros((0, self.cfg.nprobe), np.int64)
-        return torch.cat(parts).cpu().numpy()
+        return locate_probes(queries, self.sindex.centroids, self.cfg.nprobe)
 
     def _lut_bank(self, queries_np: np.ndarray, probes: np.ndarray,
                   n_valid: int):

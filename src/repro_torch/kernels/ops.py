@@ -11,6 +11,7 @@ count), so a run can show which kernels its path went through.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Union
 
 import torch
@@ -33,9 +34,19 @@ _SMEM_LIMIT = 232448
 MAX_K_PAD = 256
 
 
+# the service's replica workers launch from several threads at once
+_LAUNCHES_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in launches:
+            launches[name] = 0
+
+
+def _launched(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        launches[name] += 1
 
 
 def _check(t: torch.Tensor, what: str, dtypes, ndim: int,
@@ -109,7 +120,7 @@ def lut_build(residuals: torch.Tensor, codebooks: torch.Tensor,
                                 sqnorms.data_ptr(), out.data_ptr(), t, m, cbn,
                                 dsub, _stream(dev))
     _ok(lib, err, "lut_build", "lut_build")
-    launches["lut_build"] += 1
+    _launched("lut_build")
     return out
 
 
@@ -133,7 +144,7 @@ def lut_build_q(residuals: torch.Tensor, codebooks: torch.Tensor,
                                scale.data_ptr(), bias.data_ptr(), t, m, cbn,
                                dsub, _stream(dev))
     _ok(lib, err, "lut_build_q", "lut_build")
-    launches["lut_build_q"] += 1
+    _launched("lut_build_q")
     return QuantizedLUT(lut_q, scale, bias)
 
 
@@ -201,7 +212,7 @@ def pq_scan_dc(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
                                   code_bytes, _stream(dev))
     name = "pq_scan_dc_q" if quantized else "pq_scan_dc"
     _ok(lib, err, name, "pq_scan")
-    launches[name] += 1
+    _launched(name)
     return out
 
 
@@ -303,5 +314,5 @@ def pq_scan_topk(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
                 _stream(dev))
     name = "pq_scan_topk_q" if quantized else "pq_scan_topk"
     _ok(lib, err, name, "pq_scan_topk")
-    launches[name] += 1
+    _launched(name)
     return out_d[:, :k], out_i[:, :k]

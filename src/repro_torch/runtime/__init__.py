@@ -1,5 +1,5 @@
 """Serving runtime: micro-batching, the LUT cache, the local and sharded
-engines."""
+engines, PIM pacing and per-replica health."""
 
 from repro_torch.runtime.batching import (BucketPolicy, MicroBatch,
                                           MicroBatcher, Request,
@@ -8,15 +8,19 @@ from repro_torch.runtime.cache import (AdmissionPolicy, CacheStats,
                                        HeatAwareAdmission, HotClusterLUTCache,
                                        LRUCache, OnlineHeatEstimator,
                                        query_hash_bucket)
+from repro_torch.runtime.fault_tolerance import ReplicaHealth
 from repro_torch.runtime.serving import (BatchServeError, LocalEngine,
-                                         SearchEngine, ServingConfig,
-                                         ServingRuntime, ServingStats,
-                                         ShardedEngine)
+                                         PimPacedEngine, SearchEngine,
+                                         ServingConfig, ServingRuntime,
+                                         ServingStats, ShardedEngine,
+                                         service_construction)
 
 __all__ = ["BucketPolicy", "MicroBatch", "MicroBatcher", "Request",
            "TasksPerShardController",
            "AdmissionPolicy", "CacheStats", "HeatAwareAdmission",
            "HotClusterLUTCache", "LRUCache", "OnlineHeatEstimator",
            "query_hash_bucket",
-           "BatchServeError", "LocalEngine", "SearchEngine", "ServingConfig",
-           "ServingRuntime", "ServingStats", "ShardedEngine"]
+           "ReplicaHealth",
+           "BatchServeError", "LocalEngine", "PimPacedEngine", "SearchEngine",
+           "ServingConfig", "ServingRuntime", "ServingStats", "ShardedEngine",
+           "service_construction"]

@@ -26,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 from collections import deque
-from typing import Deque, Dict, List, Optional
+from typing import Any, Callable, Deque, Dict, List, Optional
 
 import numpy as np
 
@@ -67,7 +67,9 @@ class Request:
     ``t_arrival -> t_flush`` is queue time, ``t_flush ->
     t_service_start`` is batch time (waiting for the server), and
     ``t_service_start -> t_done`` is engine time, all on the clock that
-    drove the request."""
+    drove the request.  ``future`` is the completion hook the service's
+    async API attaches (resolved by the runtime at serve time, see
+    :class:`repro_torch.service.executor.SearchFuture`)."""
     req_id: int
     query: np.ndarray            # (D,) float32
     t_arrival: float
@@ -78,6 +80,11 @@ class Request:
     bucket: Optional[int] = None          # padded batch shape it rode in
     t_flush: Optional[float] = None
     t_service_start: Optional[float] = None
+    future: Optional[Any] = None   # SearchFuture-like completion hook
+    replica: Optional[int] = None  # which replica served it (service tier)
+    retried: bool = False          # re-routed after a replica failure
+    retries: int = 0               # how many times it was re-routed
+    deadline_missed: bool = False  # t_done exceeded the deadline budget
 
     @property
     def done(self) -> bool:
@@ -135,11 +142,18 @@ class MicroBatcher:
         self._next_id = 0
 
     # -- queue side --------------------------------------------------------
-    def submit(self, query: np.ndarray, now: float) -> Request:
+    def submit(self, query: np.ndarray, now: float,
+               attach: Optional[Callable[[Request], None]] = None
+               ) -> Request:
+        """Queue one request.  ``attach(req)``, when given, runs under
+        the queue lock before the request becomes visible to a poller, so
+        the service binds a future without racing a replica's worker."""
         with self._lock:
             req = Request(self._next_id, np.asarray(query, np.float32),
                           float(now))
             self._next_id += 1
+            if attach is not None:
+                attach(req)
             self._queue.append(req)
             return req
 
@@ -159,6 +173,11 @@ class MicroBatcher:
         return self._queue[0].t_arrival + self.max_wait_s
 
     # -- flush side --------------------------------------------------------
+    def ready(self, now: float) -> Optional[str]:
+        """The flush reason at ``now`` ("full" | "deadline"), or None."""
+        with self._lock:
+            return self._ready_locked(now)
+
     def _ready_locked(self, now: float) -> Optional[str]:
         if not self._queue:
             return None

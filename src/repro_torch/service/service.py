@@ -1,0 +1,759 @@
+"""AnnService: the one front door to the DRIM-ANN serving stack.
+
+The port of ``repro/service/service.py`` for the static, untenanted,
+fault-free service:
+
+    spec = ServiceSpec(engine="sharded", replicas=3, router="cache_aware",
+                       cache_capacity=4096, nprobe=8, k=10)
+    svc = AnnService.build(spec, points)        # index + engines + runtimes
+    svc.warmup()                                # first launch of every shape
+    d, i = svc.search(queries)                  # synchronous batch
+    fut = svc.submit_async(q)                   # futures-based lifecycle
+    d1, i1 = fut.result(timeout=1.0)            #   (executor-backed)
+    reqs = svc.stream(trace)                    # virtual-clock replay
+    reqs = svc.stream(trace, clock="wall")      # real executor overlap
+    svc.stats()                                 # per-replica + aggregate
+    svc.shutdown()
+
+The service owns N identical replicas, each an engine (``LocalEngine``
+over ``search_ivfpq`` or ``ShardedEngine`` over ``DistributedEngine``)
+with its own hot-cluster LUT cache and heat estimator behind its own
+``ServingRuntime`` micro-batcher, and a :class:`~repro_torch.service.
+router.Router` that assigns every incoming query to one replica.
+Replicas share the index (and, for the local engine, the padded cluster
+tensors), so results are routing-independent.
+
+The service runs where its index lives: ``build`` from points puts the
+index on ``device`` (default the card; without CUDA that raises), and a
+given index keeps its device.  On the card every engine goes through the
+hand-written kernels (``kernels.ops``); a failed batch is retried on
+another replica, never on the CPU.  CL for the router and for the
+sharded engine's heat sample runs on the index's device on fixed
+``CL_BLOCK``-row blocks (``core.sharded_search.locate_probes``), as the
+engines' own CL does, so the router's probes are the engine's probes.
+
+Request lifecycle: ``submit_async`` routes the query, enqueues it on the
+chosen replica's micro-batcher and returns a :class:`~repro_torch.service.
+executor.SearchFuture`; the replica's :class:`~repro_torch.service.
+executor.ReplicaExecutor` worker flushes on deadline or full, serves on
+the wall clock and resolves the future.  A replica failing mid-batch
+fails only that batch's futures, and each affected request is retried on
+another healthy replica (``runtime.fault_tolerance.ReplicaHealth``).
+``stream`` replays one arrival trace on the virtual clock (a
+deterministic discrete-event model) or on the wall clock (the executor
+path); with ``ServiceSpec.replicas_max`` set an
+:class:`~repro_torch.service.autoscale.Autoscaler` moves the live fleet
+between batches.
+
+Not ported yet, each raising ``NotImplementedError`` at ``build`` with
+its ROADMAP item: the mutable index (6), tiered storage and the
+two-level coarse quantizer (7), tenants, tags and weighted fair queueing
+(8), fault injection (9).
+
+Invariants (held in tests/test_torch_service.py):
+  * 1 replica, local engine, no cache: ``search`` is exactly
+    ``search_ivfpq`` (same call, same bits);
+  * per-query neighbour sets are identical across replica counts,
+    router policies, stream clocks and autoscale events;
+  * serving-batch padding rows never reach the router's heat estimators.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.core.ivf import IVFPQIndex
+from repro_torch.core.mutable_index import Index
+from repro_torch.core.search import SearchParams
+from repro_torch.core.sharded_search import (DistributedEngine, EngineConfig,
+                                             locate_probes)
+from repro_torch.runtime.batching import MicroBatch, Request
+from repro_torch.runtime.cache import (HeatAwareAdmission, HotClusterLUTCache,
+                                       OnlineHeatEstimator)
+from repro_torch.runtime.fault_tolerance import ReplicaHealth
+from repro_torch.runtime.serving import (LocalEngine, PimPacedEngine,
+                                         ServingConfig, ServingRuntime,
+                                         ShardedEngine, _percentile,
+                                         service_construction)
+from repro_torch.service.autoscale import Autoscaler, ScaleSignals
+from repro_torch.service.executor import ReplicaExecutor, SearchFuture
+from repro_torch.service.router import Router, make_policy
+from repro_torch.service.spec import ServiceSpec
+
+
+class ServiceOverloaded(RuntimeError):
+    """Raised by the submit path when ``spec.queue_bound`` in-flight
+    requests are already queued: under overload the service degrades to
+    fast rejection instead of letting the queue grow without bound."""
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               f"(ROADMAP item {item})")
+
+
+def _check_ported(spec: ServiceSpec, tenants, tags, fault_injector) -> None:
+    """Refuse, by ROADMAP item, what the reference service offers and
+    this one does not yet."""
+    if spec.mutable:
+        raise _not_ported("ServiceSpec(mutable=True)", 6)
+    if spec.storage == "tiered":
+        raise _not_ported("ServiceSpec(storage='tiered')", 7)
+    if spec.coarse_groups:
+        raise _not_ported("ServiceSpec(coarse_groups=...)", 7)
+    if spec.tenants or spec.qos_wfq:
+        raise _not_ported("ServiceSpec(tenants=..., qos_wfq=...)", 8)
+    if tenants is not None or tags is not None:
+        raise _not_ported("AnnService.build(tenants=..., tags=...)", 8)
+    if fault_injector is not None:
+        raise _not_ported("AnnService.build(fault_injector=...)", 9)
+
+
+@dataclasses.dataclass
+class Replica:
+    """One engine + runtime lane of the service."""
+    runtime: ServingRuntime
+    engine: object                     # LocalEngine | ShardedEngine adapter
+    core: object                       # LocalEngine | DistributedEngine
+    cache: Optional[HotClusterLUTCache]
+    heat_estimator: Optional[OnlineHeatEstimator]
+
+    @property
+    def queue_depth(self) -> int:
+        return self.runtime.batcher.depth
+
+
+class AnnService:
+    """Facade over index + replicas + router + serving runtimes.
+
+    Build with :meth:`build`; the constructor itself is wiring-only and
+    takes already-constructed parts.
+    """
+
+    def __init__(self, spec: ServiceSpec, index: Index,
+                 replicas: Sequence[Replica], router: Router):
+        self.spec = spec
+        self.index = index                 # the unified Index handle
+        self.replicas: List[Replica] = list(replicas)
+        self.router = router
+        self.health = ReplicaHealth(
+            len(self.replicas),
+            max_consecutive=spec.breaker_threshold,
+            half_open_after_s=spec.breaker_half_open_s)
+        self.autoscaler: Optional[Autoscaler] = None
+        if spec.replicas_max:
+            self.autoscaler = Autoscaler(
+                spec.replicas, spec.replicas_max,
+                queue_high=spec.autoscale_queue_high,
+                queue_low=spec.autoscale_queue_low,
+                p99_budget_s=(spec.autoscale_p99_budget_ms * 1e-3
+                              if spec.autoscale_p99_budget_ms else None),
+                cooldown=spec.autoscale_cooldown)
+        self._live = len(self.replicas)
+        self._executors: List[ReplicaExecutor] = []
+        self._batch_rr = 0
+        self._retries = 0
+        self._shed = 0                 # submits rejected by queue_bound
+        # seeded jitter for retry backoff: deterministic given the spec,
+        # uncorrelated across retries
+        self._retry_rng = np.random.default_rng(spec.index.seed + 0x5EED)
+        # serializes retry-target selection (worker threads) against
+        # live-set updates (scale_to on the driver thread): a retry can
+        # never be routed to a replica the autoscaler is draining
+        self._scale_lock = threading.Lock()
+        self._warmed = False
+        self._closed = False
+        self._virtual_used = False   # clock-domain latch (see _check_*_ok)
+        # scale-out context, stashed by build(); scale_to() builds more
+        # replicas from it when the fleet grows past the built set
+        self._sample_probes = None
+        self._serving_cfg = self._serving_config(spec)
+        for i, rep in enumerate(self.replicas):
+            rep.runtime.replica_idx = i
+
+    # -- construction ------------------------------------------------------
+    @classmethod
+    def build(cls, spec: ServiceSpec, points=None, *,
+              index=None, sample_queries=None, device="cuda",
+              tenants=None, tags=None,
+              fault_injector=None) -> "AnnService":
+        """Stand up the whole service from a validated spec.
+
+        Either ``points`` (index built per ``spec.index`` on ``device``)
+        or a prebuilt ``index`` must be given: an :class:`~repro_torch.
+        core.mutable_index.Index` handle or a raw ``IVFPQIndex`` (wrapped;
+        it keeps its device).  ``sample_queries`` seeds the sharded
+        engine's heat estimate (falls back to a slice of the corpus).
+        ``tenants``, ``tags`` and ``fault_injector`` are not ported and
+        raise ``NotImplementedError``."""
+        spec.validate()
+        _check_ported(spec, tenants, tags, fault_injector)
+        if index is None:
+            if points is None:
+                raise ValueError("AnnService.build needs points or index")
+            handle = spec.index.build(points, device=device)
+        elif isinstance(index, Index):
+            handle = index
+        elif isinstance(index, IVFPQIndex):
+            handle = Index(index)
+        else:
+            raise TypeError(f"index must be an Index or an IVFPQIndex, got "
+                            f"{type(index).__name__}")
+
+        sample_probes = None
+        if spec.engine == "sharded":
+            sample = sample_queries
+            if sample is None:
+                if points is None:
+                    raise ValueError("sharded engine needs sample_queries "
+                                     "(or points to fall back on) for the "
+                                     "heat estimate")
+                sample = points[:min(256, len(points))]
+            sample_probes = locate_probes(sample, handle.centroids,
+                                          spec.nprobe)
+
+        serving_cfg = cls._serving_config(spec)
+        with service_construction():
+            replicas = [cls._build_replica(spec, handle, sample_probes,
+                                           serving_cfg)
+                        for _ in range(spec.replicas)]
+
+        policy = make_policy(
+            spec.router, nlist=handle.nlist, n_replicas=spec.replicas,
+            halflife_batches=spec.router_halflife_batches)
+
+        def probe_fn(q: np.ndarray) -> np.ndarray:
+            return locate_probes(np.asarray(q)[None], handle.centroids,
+                                 spec.nprobe)[0]
+
+        svc = cls.__new__(cls)
+        router = Router(policy, spec.replicas,
+                        depth_fn=lambda r: svc.replicas[r].queue_depth,
+                        probe_fn=probe_fn)
+        cls.__init__(svc, spec, handle, replicas, router)
+        svc._sample_probes = sample_probes
+        return svc
+
+    @staticmethod
+    def _serving_config(spec: ServiceSpec) -> ServingConfig:
+        return ServingConfig(buckets=tuple(spec.buckets),
+                             max_wait_s=spec.max_wait_s,
+                             deadline_s=spec.deadline_ms * 1e-3)
+
+    @staticmethod
+    def _build_replica(spec: ServiceSpec, index: Index,
+                       sample_probes, serving_cfg: ServingConfig) -> Replica:
+        def make_cache(admission=None):
+            if not spec.cache_enabled:
+                return None
+            return HotClusterLUTCache(
+                capacity=spec.cache_capacity or None,
+                capacity_bytes=spec.cache_capacity_bytes or None,
+                granularity=spec.cache_granularity,
+                lut_dtype=spec.lut_dtype,
+                admission=admission)
+
+        def pace(engine):
+            """PIM-paced serving: wrap the engine so batches take their
+            Eq. 15 modeled time on a ``pim_paced_ranks``-rank fleet
+            (results unchanged; see runtime.serving.PimPacedEngine)."""
+            if not spec.pim_paced_ranks:
+                return engine
+            from repro_torch.core.perf_model import (IndexParams,
+                                                     UPMEM_PROFILE,
+                                                     lut_width_bytes,
+                                                     make_task_latency_model)
+            sizes = index.sizes
+            ixp = IndexParams(n_total=int(sizes.sum()), nlist=index.nlist,
+                              q=1, d=index.dim, k=spec.k, p=spec.nprobe,
+                              m=index.codebook.m, cb=index.codebook.cb,
+                              b_lut=lut_width_bytes(spec.lut_dtype))
+            model = make_task_latency_model(ixp, UPMEM_PROFILE)
+            return PimPacedEngine(
+                engine, nprobe=spec.nprobe, ranks=spec.pim_paced_ranks,
+                task_latency_s=model.task_latency(float(sizes.mean())))
+
+        if spec.engine == "local":
+            cache = make_cache()
+            # the static handle's search_view is the wrapped IVFPQIndex
+            # itself: bit-exact identity with a direct search_ivfpq;
+            # use_kernels: the device picks kernel (card) or plain version
+            core = LocalEngine(index.search_view, index.clusters,
+                               SearchParams(nprobe=spec.nprobe, k=spec.k,
+                                            strategy=spec.strategy,
+                                            use_kernels=True,
+                                            lut_dtype=spec.lut_dtype),
+                               lut_cache=cache)
+            return Replica(ServingRuntime(pace(core), serving_cfg), core,
+                           core, cache, None)
+        est = None
+        if spec.heat_aware_admission or spec.relayout_every > 0:
+            from repro_torch.core.layout import estimate_heat
+            est = OnlineHeatEstimator(
+                index.nlist, seed=estimate_heat(sample_probes, index.nlist))
+        cache = make_cache(HeatAwareAdmission(est)
+                           if spec.heat_aware_admission else None)
+        core = DistributedEngine(index.to_ivfpq(),
+                                 EngineConfig(**spec.engine_config_kwargs()),
+                                 sample_probes, lut_cache=cache,
+                                 heat_estimator=est)
+        if spec.tune_tasks_per_shard:
+            core.tasks_controller = core.make_tasks_controller()
+        adapter = ShardedEngine(core)
+        return Replica(ServingRuntime(pace(adapter), serving_cfg), adapter,
+                       core, cache, est)
+
+    # -- lifecycle ---------------------------------------------------------
+    @property
+    def n_replicas(self) -> int:
+        """Live replica count (the autoscaler moves this inside
+        ``[spec.replicas, spec.replicas_max]``)."""
+        return self._live
+
+    @property
+    def live_replicas(self) -> List[Replica]:
+        return self.replicas[:self._live]
+
+    def core_engine(self, replica: int = 0):
+        """The underlying engine (LocalEngine / DistributedEngine) of one
+        replica: for layout stats, scheduler inspection, ablations."""
+        return self.replicas[replica].core
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError("AnnService is shut down")
+
+    def _check_virtual_ok(self, what: str) -> None:
+        """Virtual-clock APIs simulate time over the replica batchers;
+        once executor workers are live they poll those same batchers on
+        the wall clock, so mixing the two would race (and mix clock
+        domains in the stats).  Fail loudly instead."""
+        if any(ex.running for ex in self._executors):
+            raise RuntimeError(
+                f"{what} uses the virtual clock, but executor workers "
+                f"are live (submit_async / stream(clock='wall') started "
+                f"them); use clock='wall', or a service that has not "
+                f"gone async")
+        self._virtual_used = True
+
+    def _check_wall_ok(self, what: str) -> None:
+        """The mirror guard: wall-clock timestamps must not land in stats
+        that already hold virtual-clock times."""
+        if self._virtual_used:
+            raise RuntimeError(
+                f"{what} stamps wall-clock times, but this service "
+                f"already served virtual-clock traffic (submit/step or "
+                f"stream(clock='virtual')); its stats would mix clock "
+                f"domains: use a fresh service for wall-clock serving")
+
+    def warmup(self) -> None:
+        """Run every bucket shape once on every replica (all-padding
+        batches: no cache, heat or router state is touched).  On the card
+        this loads the kernel libraries before any executor starts."""
+        self._check_open()
+        for rep in self.replicas:
+            rep.runtime.warmup(self.index.dim)
+        self._warmed = True
+
+    def shutdown(self) -> dict:
+        """Drain the executors, close the service (subsequent calls
+        raise) and return final stats.  A wedged worker does not abort the
+        shutdown of the rest of the fleet: it is counted in
+        ``stats()['aggregate']['wedged_workers']`` and the first wedge
+        error is re-raised after every executor had its chance."""
+        first_err: Optional[BaseException] = None
+        for ex in self._executors:
+            try:
+                ex.shutdown()
+            except RuntimeError as err:       # wedged: keep draining rest
+                if first_err is None:
+                    first_err = err
+        out = self.stats()
+        self._closed = True
+        if first_err is not None:
+            raise first_err
+        return out
+
+    # -- synchronous batch API ---------------------------------------------
+    def search(self, queries, tenant=None,
+               terms=()) -> Tuple[np.ndarray, np.ndarray]:
+        """One batched search, bypassing the micro-batcher (offline /
+        bulk callers).  Batches rotate over live replicas round-robin;
+        results are replica-independent.  With 1 replica, a local engine
+        and no cache this is exactly ``search_ivfpq``.  Tenant / predicate
+        scopes are not ported (ROADMAP item 8)."""
+        self._check_open()
+        if tenant is not None or len(tuple(terms)):
+            raise _not_ported("tenant / predicate scoped search", 8)
+        r = self._batch_rr % self.n_replicas
+        self._batch_rr += 1
+        return self.replicas[r].engine.search_batch(
+            np.asarray(queries, np.float32))
+
+    # -- async request lifecycle --------------------------------------------
+    def _route_and_submit(self, query, now: float,
+                          executor: bool) -> SearchFuture:
+        """The one submit path: route, enqueue, bind a future.  The future
+        is attached under the batcher lock, so an executor worker can
+        never serve the request before the future exists.
+
+        On the executor path a pick landing on a replica whose breaker
+        does not admit traffic (``ReplicaHealth.allow``) is steered to the
+        healthiest shallowest alternative.  With ``spec.queue_bound`` set
+        the executor path is admission controlled: once that many
+        requests are in flight fleet-wide, submits fail fast with
+        :class:`ServiceOverloaded`."""
+        q = np.asarray(query, np.float32)
+        bound = self.spec.queue_bound
+        if bound and executor:
+            depth = sum(rep.queue_depth for rep in self.live_replicas)
+            if depth >= bound:
+                self._shed += 1
+                raise ServiceOverloaded(
+                    f"queue_bound={bound} in-flight requests already "
+                    f"queued (depth={depth}); shedding")
+        r = self.router.route(q)
+        if executor and not self.health.allow(r):
+            with self._scale_lock:
+                alt = self._retry_target(exclude=r)
+            if alt is not None:
+                r = alt
+        cell: List[SearchFuture] = []
+
+        def attach(req: Request, r=r) -> None:
+            cell.append(SearchFuture(req, r))
+
+        if executor:
+            self._executors[r].submit(q, now=now, attach=attach)
+        else:
+            self.replicas[r].runtime.submit(q, now, attach=attach)
+        return cell[0]
+
+    def _ensure_executors(self, upto: Optional[int] = None) -> None:
+        """Stand up (or top up, after growth) one executor per replica
+        and start the first ``upto`` (default: the live set)."""
+        while len(self._executors) < len(self.replicas):
+            ridx = len(self._executors)
+            self._executors.append(ReplicaExecutor(
+                self.replicas[ridx].runtime, ridx,
+                on_batch_failure=self._on_batch_failure,
+                on_batch_success=self.health.record_success,
+                join_timeout_s=self.spec.shutdown_timeout_s,
+                device=self.index.device))
+        for ex in self._executors[:self._live if upto is None else upto]:
+            ex.start()
+
+    def submit_async(self, query, now: Optional[float] = None
+                     ) -> SearchFuture:
+        """Route one query onto an executor-backed replica; returns a
+        :class:`SearchFuture` (``result(timeout)``, ``done()``,
+        ``timing()``).  The first call starts the replica workers."""
+        self._check_open()
+        self._check_wall_ok("submit_async()")
+        self._ensure_executors()
+        t = float(now) if now is not None else time.monotonic()
+        return self._route_and_submit(query, t, executor=True)
+
+    def submit(self, query, now: float) -> Request:
+        """Route one query and enqueue it on the chosen replica's
+        micro-batcher under the caller's (virtual) clock.  Returns the
+        live Request (stamped when served; its ``future`` resolves then
+        too); drive completion with :meth:`step`."""
+        self._check_open()
+        self._check_virtual_ok("submit()")
+        return self._route_and_submit(query, now, executor=False).request
+
+    def step(self, now: float, drain: bool = False) -> List[Request]:
+        """Advance every live replica's flush policy to time ``now``
+        (virtual-clock counterpart of the executor workers)."""
+        self._check_open()
+        self._check_virtual_ok("step()")
+        done: List[Request] = []
+        for rep in self.live_replicas:
+            done.extend(rep.runtime.step(now, drain=drain))
+        return done
+
+    # -- fault tolerance (executor path) ------------------------------------
+    def _retry_target(self, exclude: int) -> Optional[int]:
+        """Healthy live replica with the shallowest queue, never the one
+        that just failed; None when the fleet has nowhere to go."""
+        cands = [r for r in self.health.healthy()
+                 if r < self._live and r != exclude]
+        if not cands:
+            return None
+        return min(cands, key=lambda r: self.replicas[r].queue_depth)
+
+    def _on_batch_failure(self, ridx: int, batch: MicroBatch,
+                          cause: BaseException) -> None:
+        """A replica died mid-batch: fail only that batch's requests,
+        retrying each on another healthy replica.
+
+        Each request carries its own ``retries`` count; a request is
+        retried at most ``spec.max_retries`` times, with exponential
+        backoff ``backoff_base_ms * 2^attempt`` plus seeded jitter slept
+        once per failed batch (on this worker thread, outside the scale
+        lock)."""
+        self.health.record_failure(ridx)
+        live = [req for req in batch.requests if req.future is not None]
+        retryable = [req for req in live
+                     if req.retries < self.spec.max_retries]
+        if retryable and self.spec.backoff_base_ms > 0:
+            attempt = min(req.retries for req in retryable)
+            delay = (self.spec.backoff_base_ms * 1e-3 * (2 ** attempt)
+                     * (0.5 + 0.5 * float(self._retry_rng.random())))
+            time.sleep(delay)
+        for req in live:
+            fut = req.future
+            with self._scale_lock:
+                target = (self._retry_target(exclude=ridx)
+                          if req.retries < self.spec.max_retries else None)
+                if target is None:
+                    fut._fail(cause)
+                    continue
+                self._retries += 1
+
+                def attach(new_req: Request, fut=fut, target=target,
+                           n=req.retries + 1) -> None:
+                    new_req.retries = n
+                    fut._rebind(new_req, target)
+
+                # keep the original arrival stamp: the caller has been
+                # waiting since then, and stats/autoscaling must see the
+                # failover's real latency (the stale deadline also makes
+                # the retry flush immediately)
+                self._executors[target].submit(req.query,
+                                               now=req.t_arrival,
+                                               attach=attach)
+
+    # -- autoscaling ---------------------------------------------------------
+    def scale_to(self, n: int) -> None:
+        """Grow/shrink the live fleet to ``n`` replicas (LIFO).
+
+        Growth reuses parked replicas when available, else builds fresh
+        ones from the stashed spec context (warmed if the service was).
+        Shrink drains the tail executors (queued requests are served
+        before the worker parks) and drops their router heat.  Neighbour
+        sets are invariant across scale events."""
+        self._check_open()
+        lo = self.spec.replicas
+        hi = self.spec.replicas_max or max(len(self.replicas), lo)
+        n = max(lo, min(int(n), hi))
+        if n == self._live:
+            return
+        if n > self._live:
+            with service_construction():
+                while len(self.replicas) < n:
+                    rep = self._build_replica(
+                        self.spec, self.index,
+                        self._sample_probes, self._serving_cfg)
+                    rep.runtime.replica_idx = len(self.replicas)
+                    if self._warmed:
+                        rep.runtime.warmup(self.index.dim)
+                    self.replicas.append(rep)
+            self.health.resize(len(self.replicas))
+            if self._executors:
+                # executors must exist and run before _live admits them
+                # as retry targets (worker threads index _executors)
+                self._ensure_executors(upto=n)
+            with self._scale_lock:
+                self._live = n
+        else:
+            with self._scale_lock:
+                old_live = self._live
+                self._live = n   # retries must not target the tail...
+                tail = list(self._executors[n:old_live])
+            for ex in tail:      # ...then drain it outside the lock (a
+                ex.shutdown()    # failing worker may be waiting on it)
+        self.router.resize(self._live)
+
+    def _autoscale_tick(self) -> None:
+        """One between-batches autoscaler evaluation (wall-clock stream
+        driver); applies the decision immediately."""
+        if self.autoscaler is None or not self._executors:
+            return
+        lat: List[float] = []
+        for rep in self.live_replicas:
+            lat.extend(rep.runtime.stats.recent_latencies(64))
+        breaker = self.health.stats()["breaker"]
+        signals = ScaleSignals(
+            queue_depths=[rep.queue_depth for rep in self.live_replicas],
+            p99_s=(_percentile(lat, 99) if lat else None),
+            open_breakers=self.health.open_count(),
+            open_mask=[i < len(breaker) and breaker[i] == "open"
+                       for i in range(len(self.live_replicas))])
+        target = self.autoscaler.decide(signals)
+        if target != self._live:
+            self.scale_to(target)
+
+    # -- stream drivers ------------------------------------------------------
+    def stream(self, arrivals: Sequence[Tuple],
+               clock: str = "virtual") -> List[Request]:
+        """Replay (t_arrival, query) arrivals across the fleet.
+
+        One submit loop, two drivers:
+
+          * ``clock="virtual"``: multi-server discrete-event model:
+            arrivals are routed in time order, each replica serves its
+            own flushed batches on its own server-free clock (measured
+            engine wall-clock charged onto the virtual timeline), and
+            deadline flushes fire in global time order.  No threads.
+          * ``clock="wall"``: the executor path in real time: arrival
+            gaps are slept, submits go through :meth:`submit_async`,
+            replica workers overlap, and (with ``replicas_max`` set) the
+            autoscaler moves the live fleet between batches.
+
+        An arrival carrying a third element (a tenant) is refused:
+        tenancy is not ported (ROADMAP item 8).  Returns served requests
+        in arrival order (same neighbour sets under either clock)."""
+        self._check_open()
+        if clock not in ("virtual", "wall"):
+            raise ValueError(f"stream clock must be 'virtual' or 'wall', "
+                             f"got {clock!r}")
+        if any(len(a) > 2 and a[2] is not None for a in arrivals):
+            raise _not_ported("a tenant-scoped stream", 8)
+        if clock == "virtual":
+            self._check_virtual_ok("stream(clock='virtual')")
+        else:
+            self._check_wall_ok("stream(clock='wall')")
+        arrivals = sorted(arrivals, key=lambda a: a[0])
+        driver = (_WallStreamDriver(self) if clock == "wall"
+                  else _VirtualStreamDriver(self))
+        interval = self.spec.autoscale_interval
+        for i, arrival in enumerate(arrivals):
+            t, query = arrival[0], arrival[1]
+            driver.advance_to(t)
+            driver.submit(query, t)
+            if clock == "wall" and (i + 1) % interval == 0:
+                self._autoscale_tick()
+        return driver.finish()
+
+    # -- metrics -------------------------------------------------------------
+    def stats(self) -> dict:
+        """Per-replica runtime metrics plus a fleet-level rollup:
+        aggregate p50/p99 over all served requests, QPS over the global
+        span, summed LUT-cache hit rate, the router's pick counts, retry
+        and replica-health counters, and the autoscaler's event log."""
+        per = [rep.runtime.metrics() for rep in self.replicas]
+        lat: List[float] = []
+        t0s, t1s = [], []
+        hits = lookups = 0
+        for rep in self.replicas:
+            s = rep.runtime.stats
+            lat.extend(s.latencies_s)
+            if s.t_first_arrival is not None:
+                t0s.append(s.t_first_arrival)
+            if s.t_last_done is not None:
+                t1s.append(s.t_last_done)
+            if rep.cache is not None:
+                hits += rep.cache.stats.hits
+                lookups += rep.cache.stats.lookups
+        span = (max(t1s) - min(t0s)) if t0s and t1s else 0.0
+        agg = {
+            "requests": len(lat),
+            "batches": sum(m["batches"] for m in per),
+            "p50_ms": _percentile(lat, 50) * 1e3,
+            "p99_ms": _percentile(lat, 99) * 1e3,
+            "qps": len(lat) / span if span > 0 else float("nan"),
+            "retries": self._retries,
+            "shed": self._shed,
+            "wedged_workers": sum(1 for ex in self._executors
+                                  if ex.wedged),
+            "deadline_missed": sum(m.get("deadline_missed", 0)
+                                   for m in per),
+        }
+        if lookups:
+            agg["lut_hit_rate"] = hits / lookups
+        out = {"aggregate": agg, "router": self.router.stats(),
+               "health": self.health.stats(), "replicas": per}
+        if self.autoscaler is not None:
+            out["autoscaler"] = self.autoscaler.stats()
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Stream drivers: one submit loop (in AnnService.stream), two clocks.
+# ---------------------------------------------------------------------------
+
+class _VirtualStreamDriver:
+    """Deterministic multi-server discrete-event replay (no threads):
+    per-replica server-free clocks, deadline flushes fired in global
+    time order, measured engine time charged onto the virtual
+    timeline."""
+
+    def __init__(self, svc: AnnService):
+        self.svc = svc
+        self.free = [0.0] * svc.n_replicas
+        self.reqs: List[Request] = []
+
+    def _serve(self, r: int, batch: MicroBatch) -> None:
+        start = max(batch.t_flush, self.free[r])
+        served = self.svc.replicas[r].runtime.serve_flushed(batch,
+                                                            t_start=start)
+        self.free[r] = served[0].t_done
+
+    def _fire_deadlines(self, until: Optional[float] = None) -> None:
+        reps = self.svc.live_replicas
+        while True:
+            pend = [(rep.runtime.batcher.next_deadline(), ri)
+                    for ri, rep in enumerate(reps)]
+            pend = [(d, ri) for d, ri in pend if d is not None]
+            if not pend:
+                return
+            ddl, ri = min(pend)
+            if until is not None and ddl > until:
+                return
+            batch = reps[ri].runtime.batcher.poll(ddl)
+            if batch is None:
+                return
+            self._serve(ri, batch)
+
+    def advance_to(self, t: float) -> None:
+        self._fire_deadlines(until=t)
+
+    def submit(self, query, t: float) -> None:
+        req = self.svc._route_and_submit(query, t, executor=False).request
+        self.reqs.append(req)
+        r = req.replica
+        batch = self.svc.replicas[r].runtime.batcher.poll(t)  # flush-on-full
+        if batch is not None:
+            self._serve(r, batch)
+
+    def finish(self) -> List[Request]:
+        for ri, rep in enumerate(self.svc.live_replicas):     # drain
+            b = rep.runtime.batcher
+            while b.depth:
+                batch = b.poll(b.next_deadline(), drain=True)
+                self._serve(ri, batch)
+        return self.reqs
+
+
+class _WallStreamDriver:
+    """Real-time replay through the executor-backed replicas: arrival
+    gaps are slept, workers overlap, futures gate completion."""
+
+    def __init__(self, svc: AnnService):
+        self.svc = svc
+        svc._ensure_executors()
+        self.t0 = time.monotonic()
+        self.futures: List[SearchFuture] = []
+
+    def advance_to(self, t: float) -> None:
+        dt = (self.t0 + t) - time.monotonic()
+        if dt > 0:
+            time.sleep(dt)
+
+    def submit(self, query, t: float) -> None:
+        self.futures.append(self.svc.submit_async(query))
+
+    def finish(self) -> List[Request]:
+        svc = self.svc
+        for ex in svc._executors[:svc._live]:
+            ex.flush()
+        for fut in self.futures:
+            fut.result(timeout=120.0)
+        return [fut.request for fut in self.futures]

@@ -395,3 +395,78 @@ def test_sharded_search_goes_through_fused_kernels(cuda, lut_dtype):
     for row in range(64):
         if set(i[row].tolist()) != set(li[row, :10].tolist()):
             assert np.isclose(ld[row, 9], ld[row, 10], rtol=RTOL, atol=ATOL)
+
+
+def _service_index(cuda):
+    ds = make_clustered_corpus(0, 8000, 32, n_queries=64, n_components=32,
+                               k_gt=10, device=cuda)
+    idx = build_ivfpq(torch.Generator().manual_seed(0), ds.points, nlist=64,
+                      m=16, cb=256, kmeans_iters=6, pq_iters=6, device=cuda)
+    return idx, ds.queries.float().cpu().numpy()
+
+
+@pytest.mark.parametrize("lut_dtype", ["f32", "uint8"])
+def test_local_cached_service_goes_through_kernels(cuda, lut_dtype):
+    """A 2-replica local service with the LUT cache on the card: LC (A or
+    B) and DC (C or D) launch; streamed results on both clocks equal the
+    service's direct search, which equals search_ivfpq bit for bit."""
+    from repro_torch.service import AnnService, ServiceSpec
+    idx, q = _service_index(cuda)
+    lc, dc = (("lut_build_q", "pq_scan_dc_q") if lut_dtype == "uint8"
+              else ("lut_build", "pq_scan_dc"))
+    d0, i0 = (x.cpu().numpy() for x in search_ivfpq(
+        idx, pad_clusters(idx), torch.from_numpy(q).to(cuda),
+        SearchParams(nprobe=8, k=10, use_kernels=True, lut_dtype=lut_dtype)))
+    stream = [(j * 5e-4, q[j % 16]) for j in range(48)]
+    for clock in ("virtual", "wall"):
+        svc = AnnService.build(ServiceSpec(
+            engine="local", replicas=2, router="cache_aware", nprobe=8,
+            k=10, lut_dtype=lut_dtype, cache_capacity_bytes=1 << 24,
+            buckets=(1, 2, 4, 8)), index=idx)
+        svc.warmup()
+        ops.reset_launches()
+        d, i = svc.search(q)
+        np.testing.assert_array_equal(d, d0)
+        np.testing.assert_array_equal(i, i0)
+        reqs = svc.stream(stream, clock=clock)
+        assert ops.launches[lc] > 0 and ops.launches[dc] > 0
+        for j, r in enumerate(reqs):
+            np.testing.assert_array_equal(r.dists, d0[j % 16])
+            assert set(r.ids.tolist()) == set(i0[j % 16].tolist())
+        assert svc.stats()["aggregate"]["lut_hit_rate"] > 0
+        svc.shutdown()
+
+
+@pytest.mark.parametrize("lut_dtype", ["f32", "uint8"])
+def test_sharded_service_goes_through_fused_kernels(cuda, lut_dtype):
+    """A 2-replica sharded service on the card: LC (A or B) and the fused
+    DC+TS kernel (E or F) launch; streamed results equal the service's
+    direct search, whose id sets equal the local kernel search's."""
+    from repro_torch.service import AnnService, ServiceSpec
+    idx, q = _service_index(cuda)
+    svc = AnnService.build(ServiceSpec(
+        engine="sharded", replicas=2, router="least_queue", nprobe=8, k=10,
+        n_shards=8, tasks_per_shard=256, split_max=64,
+        dup_budget_bytes=1 << 17, lut_dtype=lut_dtype, buckets=(1, 2, 4, 8)),
+        index=idx, sample_queries=q)
+    svc.warmup()
+    lc, fused = (("lut_build_q", "pq_scan_topk_q") if lut_dtype == "uint8"
+                 else ("lut_build", "pq_scan_topk"))
+    ops.reset_launches()
+    d, i = svc.search(q)
+    reqs = svc.stream([(j * 5e-4, q[j % 16]) for j in range(32)],
+                      clock="wall")
+    assert ops.launches[lc] > 0 and ops.launches[fused] > 0
+    for j, r in enumerate(reqs):
+        np.testing.assert_array_equal(r.dists, d[j % 16])
+        assert set(r.ids.tolist()) == set(i[j % 16].tolist())
+    if lut_dtype == "f32":
+        ld, li = search_ivfpq(idx, pad_clusters(idx), torch.from_numpy(q).to(
+            cuda), SearchParams(nprobe=8, k=11, use_kernels=True))
+        ld, li = ld.cpu().numpy(), li.cpu().numpy()
+        np.testing.assert_allclose(d, ld[:, :10], rtol=RTOL, atol=ATOL)
+        for row in range(len(q)):
+            if set(i[row].tolist()) != set(li[row, :10].tolist()):
+                assert np.isclose(ld[row, 9], ld[row, 10], rtol=RTOL,
+                                  atol=ATOL)
+    svc.shutdown()

@@ -1,6 +1,6 @@
 """The port stands alone: nothing under src/repro_torch (nor chip_smoke.py
-or the port's tools) imports jax or the reference package, and the port
-imports with both blocked."""
+or the port's tools) imports jax or the reference package, and the port,
+its service tier included, imports with both blocked."""
 
 import ast
 import os
@@ -45,6 +45,9 @@ def test_port_imports_with_jax_and_reference_blocked():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "assert 'repro_torch.kernels.ops' in mods, mods\n"
+        "assert {'repro_torch.service', 'repro_torch.service.service',\n"
+        "        'repro_torch.service.__main__'} <= set(mods), mods\n"
+        "from repro_torch.service import AnnService, ServiceSpec\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

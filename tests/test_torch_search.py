@@ -23,8 +23,8 @@ from repro_torch.convert import clusters_from_numpy, index_from_numpy
 from repro_torch.core import SearchParams, recall_at_k, search_ivfpq
 from repro_torch.data import make_query_stream
 from repro_torch.kernels import ops
-from repro_torch.runtime import (LocalEngine, ServingConfig, ServingRuntime,
-                                 BatchServeError)
+from repro_torch.runtime import (BatchServeError, HotClusterLUTCache,
+                                 LocalEngine, ServingConfig, ServingRuntime)
 
 torch.set_num_threads(1)
 K = 10
@@ -231,10 +231,14 @@ def test_batcher_flush_policy():
 def test_unported_engine_options_raise(port):
     idx, cl = port
     p = SearchParams(nprobe=2, k=3)
-    for kw in ({"lut_cache": object()}, {"tiered_store": object()},
-               {"coarse": object()}, {"meta": object()}):
+    for kw in ({"tiered_store": object()}, {"coarse": object()},
+               {"meta": object()}):
         with pytest.raises(NotImplementedError):
             LocalEngine(idx, cl, p, **kw)
+    # the LUT cache is ported; its dtype must match the scan's
+    with pytest.raises(ValueError, match="lut_dtype"):
+        LocalEngine(idx, cl, p, lut_cache=HotClusterLUTCache(
+            capacity=8, lut_dtype="uint8"))
     eng = LocalEngine(idx, cl, p)
     with pytest.raises(NotImplementedError):
         eng.search_batch(np.zeros((1, idx.dim), np.float32),
