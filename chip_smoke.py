@@ -37,11 +37,30 @@ paths once at the configuration below:
              with no cache), S3 the same at uint8, S4 two sharded
              replicas behind the least-queue router on the Poisson trace
              (wall clock, f32 and uint8); then the service selftest on
-             the card, both clocks.
+             the card, both clocks (its 4th phase is the live index);
+    mutation: a live Index(mutable=True) over the same index and points:
+             M1 32 rounds of upsert 1,024 new ids / re-upsert 256 /
+             delete 1,024 installed on a LocalEngine at f32 and uint8
+             (each round == search_ivfpq over the snapshot bit for bit,
+             no deleted id, upserted survivors in their own top-10 at
+             >= 0.9, recall before the generation within 0.01 of the
+             static index's), then a forced generation (auto band, PQ
+             retrained), timed build and install; S6 two mutable cached
+             local replicas on S2's Zipf trace on the wall clock while a
+             thread upserts, deletes and runs a generation (no request
+             sees an id deleted before it was submitted; after each
+             stream a served batch == the uncached search_ivfpq; the
+             mutation counts == the operations issued); S7 one mutable
+             sharded replica, f32 (upsert, delete, forced generation)
+             then uint8 (delete), on the Poisson trace, == the local
+             engine on the same snapshot.  The checks read the smoke's
+             own LiveSet model of the live ids, not the code under test;
+             A-D are held to their plain versions once more on the live
+             snapshot's first chunk, whose padded width is its own.
 
 The launch counters of the six kernels are reset just before each path
 and read just after it; every kernel of the path must have risen (the
-service path runs all six).
+service and mutation paths run all six).
 Recall@10 is taken against the port's exact_search; the sharded results
 are held to the local path's on the same queries, and served results to
 a direct search: every local service cell bit for bit to the uncached
@@ -49,8 +68,8 @@ search_ivfpq of the same queries at its LUT dtype.  The last lines printed are o
 JSON line and ``{"ok": true, "device": {...}}``; A's and B's rows carry
 their times at the sharded step's first LC launches too; ``launches``
 sums the local and sharded paths, as before the service existed, and
-``launches_by_path`` gives each path's own count, the service's
-included.  E's and F's
+``launches_by_path`` gives each path's own count, the service's and the
+mutation's included.  E's and F's
 first sharded launches, with their LC inputs and those of the local
 path's first chunk, are written to ``build/sharded_launch.pt``, which
 ``tools/torch_fused_topk_bench.py`` and ``tools/torch_lut_build_bench.py``
@@ -73,8 +92,10 @@ import argparse
 import json
 import math
 import re
+import resource
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -1124,6 +1145,362 @@ def service_path(handle, queries_np, results, rec_f32, gt, pool, trace,
 
 
 # ---------------------------------------------------------------------------
+# The mutation path: the live index behind the local and sharded engines
+# ---------------------------------------------------------------------------
+
+M1_ROUNDS, M1_NEW, M1_REUPSERT, M1_DELETE = 32, 1024, 256, 1024
+S6_ROUNDS, S6_BATCH = 16, 256
+
+
+class LiveSet:
+    """The smoke's own model of the live index, kept apart from the code
+    under test: which ids are live, and each id's vector as a corpus row
+    plus an offset (every upserted vector is a corpus row + 1e-2)."""
+
+    def __init__(self, points, n: int, capacity: int, seed: int):
+        self.points = points                       # (N, D) on the card
+        self.n = n
+        self.alive = np.zeros(capacity, bool)
+        self.alive[:n] = True
+        self.src = np.arange(capacity) % n
+        self.off = np.zeros(capacity, np.float32)
+        self.next_id = n
+        self.rng = np.random.default_rng(seed)
+
+    def sample_live(self, count: int, originals: bool = False) -> np.ndarray:
+        """``count`` distinct live ids, uniformly (the corpus's own ids
+        only, with ``originals``)."""
+        hi = self.n if originals else self.next_id
+        out = np.zeros(0, np.int64)
+        while len(out) < count:
+            cand = self.rng.integers(0, hi, 2 * count)
+            out = np.unique(np.concatenate([out, cand[self.alive[cand]]]))
+        return self.rng.permutation(out)[:count]
+
+    def vectors(self, src: np.ndarray) -> np.ndarray:
+        rows = self.points[torch.from_numpy(src).cuda()]
+        return rows.float().cpu().numpy() + np.float32(1e-2)
+
+    def new_ids(self, count: int):
+        """``count`` fresh ids (from N upward), each taking a random live
+        corpus point's vector + 1e-2; recorded as live."""
+        ids = np.arange(self.next_id, self.next_id + count)
+        src = self.sample_live(count, originals=True)
+        self.next_id += count
+        self.upserted(ids, src)
+        return ids, src
+
+    def upserted(self, ids, src) -> None:
+        self.alive[ids] = True
+        self.src[ids] = src
+        self.off[ids] = 1e-2
+
+    def live_vectors(self):
+        ids = np.nonzero(self.alive)[0]
+        vecs = self.points[torch.from_numpy(self.src[ids]).cuda()].float()
+        vecs += torch.from_numpy(self.off[ids]).cuda()[:, None]
+        return ids, vecs
+
+    def recall(self, found: np.ndarray, queries: torch.Tensor) -> float:
+        """recall@K of ``found`` ids against brute force over the live
+        set."""
+        from repro_torch.core.search import exact_search, recall_at_k
+        ids, vecs = self.live_vectors()
+        _, gt = exact_search(vecs, queries, k=K, chunk=64)
+        del vecs
+        gt_ids = torch.from_numpy(ids)[gt.cpu().long()]
+        return recall_at_k(torch.from_numpy(found).long(), gt_ids)
+
+
+def stream_stats(reqs) -> dict:
+    lat = np.array([r.latency_s for r in reqs]) * 1e3
+    span = max(r.t_done for r in reqs) - min(r.t_arrival for r in reqs)
+    return {"requests": len(reqs), "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "qps": len(reqs) / span}
+
+
+def mutation_path(index, points, queries, zipf, trace, rec_static: float,
+                  s2_wall: dict, n: int, seed: int):
+    """M1 (the handle + LocalEngine, f32 and uint8), S6 (two mutable
+    cached local replicas, wall clock, mutations mid-stream) and S7 (one
+    mutable sharded replica per LUT dtype) on one mutable handle over the
+    main path's index.  Returns the report and the handle."""
+    from repro_torch.core.mutable_index import Index
+    from repro_torch.core.search import SearchParams, search_ivfpq
+    from repro_torch.runtime import LocalEngine
+    from repro_torch.service import AnnService, ServiceSpec
+
+    queries_np = queries.cpu().numpy()
+    report: dict = {}
+    handle, t_wrap = sync_time(lambda: Index(index, points=points,
+                                             mutable=True))
+    lo, hi = handle.size_band()
+    log(f"  M1 wrap: Index(mutable=True) over N={n}: {t_wrap:.2f} s; "
+        f"padded width {handle.clusters.cmax}; auto band [{lo}, {hi}]")
+    report["wrap_s"] = t_wrap
+    params = {dt: SearchParams(nprobe=NPROBE, k=K, query_chunk=QUERY_CHUNK,
+                               use_kernels=True, lut_dtype=dt)
+              for dt in ("f32", "uint8")}
+    engines = {dt: LocalEngine(handle.search_view, handle.clusters, p)
+               for dt, p in params.items()}
+    model = LiveSet(points, n, n + (M1_ROUNDS + 2) * M1_NEW
+                    + S6_ROUNDS * S6_BATCH, seed + 16)
+
+    def hold_engines(qs: np.ndarray, tag: str) -> None:
+        """Each engine == search_ivfpq over the handle's current snapshot,
+        bit for bit; no deleted id and no padding in the results."""
+        view, cl = handle.search_view, handle.clusters
+        q = torch.from_numpy(qs).cuda()
+        for dt, eng in engines.items():
+            d, i = eng.search_batch(qs)
+            wd, wi = (x.cpu().numpy()
+                      for x in search_ivfpq(view, cl, q, params[dt]))
+            check(np.array_equal(d, wd) and np.array_equal(i, wi),
+                  f"M1 {tag} lut={dt}: engine differs from search_ivfpq "
+                  f"over the snapshot")
+            check(bool((i >= 0).all() and model.alive[i].all()),
+                  f"M1 {tag} lut={dt}: a deleted id in the results")
+
+    def self_hits(ids: np.ndarray) -> float:
+        """Share of upserted ids found in their own vector's top-K."""
+        _, i = engines["f32"].search_batch(model.vectors(model.src[ids]))
+        return float(np.mean([pid in row for pid, row in zip(ids, i)]))
+
+    # -- M1: 32 rounds of upsert / re-upsert / delete, then a generation --
+    apply_ms, install_ms, copied = [], [], []
+    new_all = []
+    for r in range(M1_ROUNDS):
+        ids, src = model.new_ids(M1_NEW)
+        re_ids = model.sample_live(M1_REUPSERT, originals=True)
+        re_src = model.sample_live(M1_REUPSERT, originals=True)
+        model.upserted(re_ids, re_src)
+        kill = model.sample_live(M1_DELETE)
+        vecs, re_vecs = model.vectors(src), model.vectors(re_src)
+        c0 = handle.copied_bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        up = handle.upsert(ids, vecs)
+        re_up = handle.upsert(re_ids, re_vecs)
+        removed = handle.delete(kill)
+        t1 = time.perf_counter()
+        for eng in engines.values():
+            eng.install(clusters=handle.clusters)
+        t2 = time.perf_counter()
+        model.alive[kill] = False
+        apply_ms.append((t1 - t0) * 1e3)
+        install_ms.append((t2 - t1) * 1e3)
+        copied.append(handle.copied_bytes - c0)
+        check(up["inserted"] == M1_NEW and re_up["replaced"] == M1_REUPSERT
+              and removed == M1_DELETE,
+              f"M1 round {r}: counts {up} {re_up} removed {removed}")
+        lo_q = (r * 256) % (len(queries_np) - 256)
+        hold_engines(queries_np[lo_q:lo_q + 256], f"round {r}")
+        kept = ids[model.alive[ids]]
+        hits = self_hits(kept)
+        check(hits >= 0.9, f"M1 round {r}: upserted survivors retrieve "
+                           f"themselves at {hits:.4f}")
+        new_all.append(ids)
+    new_all = np.concatenate(new_all)
+    survivors = new_all[model.alive[new_all]]
+    hits_before = self_hits(survivors)
+    check(hits_before >= 0.9, f"M1: survivors self-retrieve at "
+                              f"{hits_before:.4f}")
+    _, found = handle.search(queries_np[:N_RECALL], params["f32"])
+    rec_before = model.recall(found, queries[:N_RECALL])
+    check(abs(rec_before - rec_static) <= 0.01,
+          f"M1: recall {rec_before:.4f} vs the static index's "
+          f"{rec_static:.4f}")
+    def pct(xs, p):
+        return float(np.percentile(xs, p))
+    log(f"  M1 {M1_ROUNDS} rounds (upsert {M1_NEW} new, re-upsert "
+        f"{M1_REUPSERT}, delete {M1_DELETE}; then install on the f32 and "
+        f"uint8 engines): apply p50 {pct(apply_ms, 50):.2f} ms, p99 "
+        f"{pct(apply_ms, 99):.2f} ms; install p50 {pct(install_ms, 50):.3f}"
+        f" ms, p99 {pct(install_ms, 99):.3f} ms; bytes copied per round "
+        f"p50 {pct(copied, 50):.0f}, max {max(copied)}; padded width "
+        f"{handle.clusters.cmax}; engines == search_ivfpq over each "
+        f"snapshot bit for bit, no deleted id; survivors self-retrieve "
+        f"{hits_before:.4f}; recall@{K} {rec_before:.4f} (static "
+        f"{rec_static:.4f})")
+    plan = handle.maintenance_plan()
+    gen, t_build = sync_time(lambda: handle.build_generation(seed=seed))
+    info, t_install = sync_time(lambda: handle.install_generation(gen))
+    del gen
+    for eng in engines.values():
+        eng.install(index=handle.search_view, clusters=handle.clusters)
+    hold_engines(queries_np[:256], "after the generation")
+    hits_after = self_hits(survivors[model.alive[survivors]])
+    check(hits_after >= 0.9, f"M1: survivors self-retrieve at "
+                             f"{hits_after:.4f} after the generation")
+    _, found = handle.search(queries_np[:N_RECALL], params["f32"])
+    rec_after = model.recall(found, queries[:N_RECALL])
+    log(f"  M1 generation (auto band [{plan['band'][0]}, "
+        f"{plan['band'][1]}], retrain): plan split {len(plan['split'])} "
+        f"merge {len(plan['merge'])}; build {t_build:.2f} s, install "
+        f"{t_install:.3f} s; splits {info['splits']} merges "
+        f"{info['merges']} retrained {info['retrained']}, nlist "
+        f"{info['nlist']}, padded width {handle.clusters.cmax}; survivors "
+        f"self-retrieve {hits_after:.4f}; recall@{K} {rec_after:.4f}")
+    report["M1"] = {
+        "rounds": M1_ROUNDS, "apply_ms": apply_ms, "install_ms": install_ms,
+        "copied_bytes": copied, "self_hits_before": hits_before,
+        "self_hits_after": hits_after, "recall_before": rec_before,
+        "recall_after": rec_after, "recall_static": rec_static,
+        "generation_build_s": t_build, "generation_install_s": t_install,
+        "generation": {k: info[k] for k in ("splits", "merges", "retrained",
+                                            "nlist", "reconciled_upserts",
+                                            "reconciled_deletes")},
+        "cmax": handle.clusters.cmax}
+
+    base = dict(nprobe=NPROBE, k=K, buckets=SERVICE_BUCKETS, mutable=True)
+
+    def hold_fresh(svc, tag: str) -> None:
+        """A fresh batch through each replica (its LUT cache included)
+        == the uncached search_ivfpq over the current snapshot."""
+        qs = queries_np[:64]
+        for rep in svc.replicas:
+            d, i = rep.engine.search_batch(qs)
+            wd, wi = (x.cpu().numpy() for x in search_ivfpq(
+                handle.search_view, handle.clusters,
+                torch.from_numpy(qs).cuda(), rep.core.params))
+            check(np.array_equal(d, wd) and np.array_equal(i, wi),
+                  f"S6 {tag}: a served batch differs from the uncached "
+                  f"search_ivfpq over the snapshot")
+
+    # -- S6: two mutable cached local replicas, mutations mid-stream ------
+    svc = AnnService.build(ServiceSpec(
+        engine="local", replicas=2, router="cache_aware",
+        cache_capacity_bytes=1 << 30, **base), index=handle)
+    svc.warmup()
+    stats0, gen0 = handle.stats.as_dict(), handle.generation
+    deleted_at: list = []
+    errors: list = []
+    removed_total = [0]
+
+    def mutator():
+        try:
+            for r in range(S6_ROUNDS):
+                ids, src = model.new_ids(S6_BATCH)
+                svc.upsert(ids, model.vectors(src))
+                kill = model.sample_live(S6_BATCH)
+                removed_total[0] += svc.delete(kill)
+                deleted_at.append((time.monotonic(), kill))
+                model.alive[kill] = False
+                if r == S6_ROUNDS // 2:
+                    svc.run_maintenance(force=True, wait=False)
+        except Exception as e:             # noqa: BLE001 -- checked below
+            errors.append(e)
+
+    th = threading.Thread(target=mutator, name="s6-mutator")
+    t0 = time.perf_counter()
+    th.start()
+    reqs1 = svc.stream(zipf, clock="wall")
+    th.join(timeout=900)
+    check(not th.is_alive() and not errors, f"S6 mutator: {errors}")
+    svc.mutator.close()
+    t_mut = time.perf_counter() - t0
+    check(all(r.done for r in reqs1), "S6: unserved requests")
+    for r in reqs1:
+        dead = [k for t, k in deleted_at if t < r.t_arrival]
+        check(not dead or not np.isin(r.ids, np.concatenate(dead)).any(),
+              "S6: a request returned an id deleted before it was "
+              "submitted")
+    st = svc.stats()["mutation"]
+    check(st["upserts"] - stats0["upserts"] == S6_ROUNDS * S6_BATCH
+          and st["deletes"] - stats0["deletes"] == removed_total[0]
+          == S6_ROUNDS * S6_BATCH and st["generation"] == gen0 + 1,
+          f"S6: mutation stats {st} against {stats0}")
+    hold_fresh(svc, "after the mutated stream")
+    reqs2 = svc.stream(zipf, clock="wall")
+    check(all(r.done for r in reqs2), "S6: unserved requests (stream 2)")
+    qs = np.stack([r.query for r in reqs2])
+    wd, wi = (x.cpu().numpy() for x in search_ivfpq(
+        handle.search_view, handle.clusters, torch.from_numpy(qs).cuda(),
+        svc.replicas[0].core.params))
+    check(np.array_equal(np.stack([r.dists for r in reqs2]), wd)
+          and np.array_equal(np.stack([r.ids for r in reqs2]), wi),
+          "S6: stream 2 differs from the uncached search_ivfpq")
+    hold_fresh(svc, "after stream 2")
+    s6 = {"stream1": stream_stats(reqs1), "stream2": stream_stats(reqs2),
+          "mutator_s": t_mut, "generation": st["last_maintenance"],
+          "lut_hit_rate": svc.stats()["aggregate"].get("lut_hit_rate")}
+    svc.shutdown()
+    del svc
+    log(f"  S6 local x2 cache_aware, mutable, Zipf 1.1 on the wall clock: "
+        f"stream 1 with {S6_ROUNDS} rounds of {S6_BATCH} upserts + "
+        f"{S6_BATCH} deletes and a generation mid-stream: p50 "
+        f"{s6['stream1']['p50_ms']:.3f} ms, p99 {s6['stream1']['p99_ms']:.3f}"
+        f" ms, QPS {s6['stream1']['qps']:.1f}; stream 2 on the new "
+        f"generation: p50 {s6['stream2']['p50_ms']:.3f} ms, p99 "
+        f"{s6['stream2']['p99_ms']:.3f} ms, QPS {s6['stream2']['qps']:.1f} "
+        f"(S2 wall: p50 {s2_wall['p50_ms']:.3f} ms, p99 "
+        f"{s2_wall['p99_ms']:.3f} ms, QPS {s2_wall['qps']:.1f}); mutator + "
+        f"maintenance {t_mut:.2f} s; no id deleted before a request's "
+        f"submission in its result; served == uncached search_ivfpq after "
+        f"each stream")
+    report["S6"] = s6
+
+    # -- S7: one mutable sharded replica, f32 then uint8 -------------------
+    dup = int(0.10 * n * (M + 4))
+    report["S7"] = {}
+    for dt in ("f32", "uint8"):
+        spec = ServiceSpec(engine="sharded", replicas=1,
+                           router="least_queue", n_shards=N_SHARDS,
+                           split_max=SPLIT_MAX, dup_budget_bytes=dup,
+                           tasks_per_shard=TASKS_PER_SHARD, lut_dtype=dt,
+                           **base)
+        svc, t_svc = sync_time(lambda: AnnService.build(
+            spec, index=handle, sample_queries=queries_np))
+        svc.warmup()
+        stage = {}
+        if dt == "f32":
+            ids, src = model.new_ids(M1_NEW)
+            _, stage["upsert"] = sync_time(
+                lambda: svc.upsert(ids, model.vectors(src)))
+        kill = model.sample_live(M1_DELETE)
+        _, stage["delete"] = sync_time(lambda: svc.delete(kill))
+        model.alive[kill] = False
+        if dt == "f32":
+            out, stage["maintenance"] = sync_time(
+                lambda: svc.run_maintenance(force=True, wait=True))
+            check(out["ran"], f"S7: maintenance did not run: {out}")
+        reqs = svc.stream(trace, clock="wall")
+        check(all(r.done for r in reqs), f"S7 lut={dt}: unserved requests")
+        qs, sd, si = served(reqs)
+        local = LocalEngine(handle.search_view, handle.clusters, params[dt])
+        ld, li = local.search_batch(qs)
+        d7, i7 = svc.search(queries_np[:N_RECALL])
+        l7d, l7i = local.search_batch(queries_np[:N_RECALL])
+        for tag, (a, b, c, e) in (("stream", (sd, si, ld, li)),
+                                  ("search", (d7, i7, l7d, l7i))):
+            check(np.allclose(a, c, rtol=RTOL, atol=ATOL),
+                  f"S7 lut={dt} {tag}: distances differ from the local "
+                  f"engine on the same snapshot")
+            bad = tie_diff_rows(a, b, c, e, RTOL, ATOL)
+            check(bad == 0, f"S7 lut={dt} {tag}: ids differ on {bad} rows "
+                            f"beyond k-th-place ties")
+            check(bool(model.alive[b[b >= 0]].all()),
+                  f"S7 lut={dt} {tag}: a deleted id in the results")
+        st = stream_stats(reqs)
+        gens = svc.core_engine().serving_info()["generations"]
+        report["S7"][dt] = {"build_s": t_svc, "stage_s": stage,
+                            "generations": gens, **st}
+        log(f"  S7 sharded x1, mutable, lut={dt}: build {t_svc:.2f} s; "
+            f"staging s per call: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in stage.items())
+            + f"; {gens} generation swaps; Poisson on the wall clock: p50 "
+            f"{st['p50_ms']:.3f} ms, p99 {st['p99_ms']:.3f} ms, QPS "
+            f"{st['qps']:.1f}; == the local engine on the same snapshot "
+            f"(rtol {RTOL}, atol {ATOL}, ids up to k-th-place ties)")
+        svc.shutdown()
+        del svc, local
+        torch.cuda.empty_cache()
+    report["stats"] = handle.stats.as_dict()
+    return report, handle
+
+
+# ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
 
@@ -1411,11 +1788,54 @@ def main() -> int:
     for clock in ("virtual", "wall"):
         check(selftest(clock=clock, device="cuda") == 0,
               f"service selftest on the card, clock={clock}")
+
+    # -- 7. the live index on the same index ------------------------------
+    log(f"mutation path: Index(mutable=True) over the same index, M1 "
+        f"{M1_ROUNDS} rounds on LocalEngine (f32, uint8), S6 two mutable "
+        f"cached local replicas on the wall clock, S7 one mutable sharded "
+        f"replica (f32, uint8)")
+    zipf = make_query_stream(pool, N_SERVE, qps=2000.0, skew=1.1,
+                             seed=args.seed + 1)       # S2's trace
+    s2_wall = next(r for r in service_runs if r.get("clock") == "wall"
+                   and r["label"].startswith("S2 local"))
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mutation_run, live = mutation_path(index, ds.points, queries, zipf,
+                                       trace, rec["f32"], s2_wall, n,
+                                       args.seed)
+    mutation_launches = dict(ops.launches)
+    log(f"  mutation path {time.perf_counter() - t0:.1f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; peak "
+        f"host RSS of the process "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} "
+        f"GiB; launches {mutation_launches}")
+    for name in KERNELS:
+        check(mutation_launches[name] > 0,
+              f"{name} never launched on the mutation path")
+    # the kernels on the live snapshot's first chunk (after the counts
+    # were read): its padded width is not pad_clusters's
+    lcl, view = live.clusters, live.search_view
+    probes, _ = cluster_locate(q0, view.centroids, NPROBE, block=QUERY_CHUNK)
+    res = (q0[:, None, :] - view.centroids[probes]).reshape(-1, D)
+    where = (f"live snapshot T={res.shape[0]} C={lcl.cmax} (pad_clusters: "
+             f"C={clusters.cmax})")
+    log("kernels vs plain, the live snapshot's first chunk:")
+    lut, qlut, _, _ = check_lut(ops, ref, adc, res.contiguous(),
+                                view.codebook.codebooks,
+                                view.codebook.sqnorms, where)
+    flat = probes.reshape(-1)
+    check_scan(ops, adc.adc_distances, adc.adc_distances_quantized, lut,
+               qlut, lcl.codes.index_select(0, flat),
+               lcl.sizes.index_select(0, flat), where)
+    del live, lut, qlut
+    torch.cuda.empty_cache()
     by_path = {"local": launches, "sharded": sharded_launches,
-               "service": service_launches}
+               "service": service_launches, "mutation": mutation_launches}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
     log(json.dumps({"service": service_runs}))
+    log(json.dumps({"mutation": mutation_run}))
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

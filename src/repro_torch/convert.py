@@ -2,7 +2,10 @@
 
 Both packages can then search the same index: the arrays of a reference
 ``IVFPQIndex`` / ``PaddedClusters`` / ``ShardedIndex`` go through
-``numpy.asarray`` and in here.  ``uint16`` codes (CB > 256) become ``int32``, because
+``numpy.asarray`` and in here.  A reference mutable ``Index`` handle, and
+a ``_Generation`` it built, come across whole (store rows, locator, raw
+vectors, quantizers, counters), read attribute by attribute through
+numpy, so both packages can then apply the same mutations.  ``uint16`` codes (CB > 256) become ``int32``, because
 ``torch.uint16`` has few CUDA ops; ``uint8`` codes stay ``uint8``.
 """
 
@@ -14,6 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.ivf import IVFPQIndex, PaddedClusters
+from repro_torch.core.mutable_index import (Index, MutationStats, _Generation,
+                                            _Store)
 from repro_torch.core.pq import PQCodebook
 from repro_torch.core.sharded_search import ShardedIndex
 from repro_torch.util import resolve_device
@@ -74,3 +79,66 @@ def sharded_index_from_numpy(codes, ids, sizes, cluster_of, start_of,
                         _t(centroids, np.float32, dev),
                         PQCodebook(_t(codebooks, np.float32, dev),
                                    _t(sqnorms, np.float32, dev)), rot)
+
+
+def _codebook(cb, dev) -> PQCodebook:
+    return PQCodebook(_t(cb.codebooks, np.float32, dev),
+                      _t(cb.sqnorms, np.float32, dev))
+
+
+def _store_from_reference(st, dev) -> _Store:
+    """A reference ``_Store`` -> the port's, on ``dev``.  The port derives
+    its locator from the rows; the reference's must say the same."""
+    store = _Store(torch.from_numpy(_codes(st.codes).copy()).to(dev),
+                   _t(st.ids, np.int32, dev), np.asarray(st.sizes),
+                   st.pad_multiple)
+    pids = np.fromiter(st.loc, np.int64, len(st.loc))
+    want = np.array([st.loc[p] for p in pids.tolist()],
+                    np.int32).reshape(-1, 2)
+    if (len(store.loc) != len(pids)
+            or not np.array_equal(store.loc.get_many(pids), want)):
+        raise ValueError("the reference store's locator disagrees with its "
+                         "rows")
+    return store
+
+
+def mutable_index_from_reference(handle, *, device="cuda") -> Index:
+    """A reference mutable ``repro.core.Index`` -> the port's mutable
+    ``Index`` on ``device``, in the same state: store rows, locator, raw
+    vectors, centroids, codebook, rotation, the touched set, generation,
+    counters and compaction threshold."""
+    if not handle.mutable:
+        raise ValueError("mutable_index_from_reference needs a mutable "
+                         "handle (wrap a static index with Index(ivf))")
+    if handle.meta is not None:
+        raise NotImplementedError("a handle with per-vector metadata needs "
+                                  "tenancy, not ported to repro_torch yet "
+                                  "(ROADMAP item 8)")
+    dev = resolve_device(device)
+    pids = np.array(sorted(handle._vecs), np.int64)
+    vecs = (np.stack([handle._vecs[p] for p in pids.tolist()]) if len(pids)
+            else np.zeros((0, handle.dim), np.float32))
+    rot = handle._rotation
+    return Index._restore(
+        _t(handle._centroids, np.float32, dev),
+        _codebook(handle._codebook, dev),
+        None if rot is None else _t(rot, np.float32, dev),
+        _store_from_reference(handle._store, dev), pids,
+        _t(vecs, np.float32, dev), touched=handle._touched,
+        removed_since_compact=handle._removed_since_compact,
+        generation=handle.generation,
+        stats=MutationStats(**handle.stats.as_dict()),
+        compact_threshold=handle.compact_threshold)
+
+
+def generation_from_reference(gen, *, device="cuda") -> _Generation:
+    """A reference ``_Generation`` (built, not installed) -> the port's,
+    on ``device``; its snapshot id set becomes a sorted array."""
+    dev = resolve_device(device)
+    rot = gen.rotation
+    return _Generation(_t(gen.centroids, np.float32, dev),
+                       _codebook(gen.codebook, dev),
+                       None if rot is None else _t(rot, np.float32, dev),
+                       _store_from_reference(gen.store, dev),
+                       np.array(sorted(gen.snapshot_ids), np.int64),
+                       int(gen.splits), int(gen.merges), bool(gen.retrained))

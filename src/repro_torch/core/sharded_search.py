@@ -35,11 +35,13 @@ CL runs on fixed (``CL_BLOCK``, D) blocks, as ``core.search`` does, so a
 query's probes -- and so its results -- do not depend on the size of the
 batch it rode in.
 
+Live-index generation swaps (``prepare_index`` / ``stage_index`` /
+``install_index``) materialize a placement for a new index off to the
+side and install it between batches, as the re-layout does.
+
 Not ported yet, each raises ``NotImplementedError``: ``mesh=`` (the
 ``shard_map`` steps become ``torch.distributed`` across cards),
-``tiered_store=``, ``meta=`` and tenant/predicate scoped search, and the
-live-index generation swaps (``prepare_index``, ``stage_index``,
-``install_index``).
+``tiered_store=``, ``meta=`` and tenant/predicate scoped search.
 
 Shapes and units: queries (Q, D) f32; probes (Q, P) cluster ids; task
 tables (S, T) i32 with -1 padding; step outputs (S, T, k); heat is
@@ -396,10 +398,18 @@ class EngineConfig:
 class _Placement(NamedTuple):
     """One materialized placement: layout + shard tensors.  Built off to
     the side by :meth:`DistributedEngine.prepare_layout` and installed
-    atomically by ``swap_layout``."""
+    atomically by ``swap_layout``.
+
+    ``index`` / ``latency`` are set only by :meth:`DistributedEngine.
+    prepare_index` (a live-index generation swap): the placement then
+    carries the NEW index and its re-priced latency model, and installing
+    it also swaps ``engine.index`` and invalidates per-generation state
+    (LUT cache, heat estimator).  Plain re-layouts leave them None."""
     layout: Layout
     sindex: ShardedIndex
     cluster_of_host: np.ndarray
+    index: Optional[IVFPQIndex] = None
+    latency: Optional[TaskLatencyModel] = None
 
 
 def _not_ported(what: str):
@@ -467,26 +477,41 @@ class DistributedEngine:
         self.phase_s[phase] = self.phase_s.get(phase, 0.0) + (now - t0)
         return now
 
-    def _materialize(self, heat: np.ndarray) -> _Placement:
+    def _materialize(self, heat: np.ndarray,
+                     index: Optional[IVFPQIndex] = None,
+                     latency: Optional[TaskLatencyModel] = None
+                     ) -> _Placement:
         """Build a placement from a heat vector without touching serving
-        state.  Cluster ids -- and so LUT-cache keys -- are stable across
-        rebuilds; only placement changes."""
+        state.  Plain re-layouts (``index=None``) place the engine's
+        current index: cluster ids -- and so LUT-cache keys -- are stable
+        across rebuilds; only placement changes.  A generation swap
+        passes the NEW index (+ re-priced latency model), which rides
+        inside the placement until install."""
+        idx = self.index if index is None else index
+        lat = self.latency if latency is None else latency
         t0 = time.perf_counter()
         layout = build_layout(
-            self.index.sizes.cpu().numpy(), heat, self.cfg.n_shards,
+            idx.sizes.cpu().numpy(), heat, self.cfg.n_shards,
             split_max=self.cfg.split_max,
             dup_budget_bytes=self.cfg.dup_budget_bytes,
-            bytes_per_row=self.index.codebook.m + 4, latency=self.latency,
+            bytes_per_row=idx.codebook.m + 4, latency=lat,
             naive=self.cfg.naive_layout)
         t0 = self._clock("layout", t0)
-        sindex = materialize_shards(self.index, layout)
+        sindex = materialize_shards(idx, layout)
         cluster_of = sindex.cluster_of.cpu().numpy()
         self._clock("materialize", t0)
-        return _Placement(layout, sindex, cluster_of)
+        return _Placement(layout, sindex, cluster_of, index=index,
+                          latency=None if index is None else lat)
 
     def _install(self, placement: _Placement) -> None:
         """Point the serving path at ``placement``.  Deferred-task carry
-        is dropped -- callers re-issue via flush rounds."""
+        is dropped -- callers re-issue via flush rounds.  A placement
+        carrying a new index generation also swaps the engine's index
+        and latency model (``swap_layout``, the only caller that can see
+        one, invalidates the per-generation state)."""
+        if placement.index is not None:
+            self.index = placement.index
+            self.latency = placement.latency
         self.layout = placement.layout
         self.sindex = placement.sindex
         self._cluster_of_host = placement.cluster_of_host
@@ -527,12 +552,26 @@ class DistributedEngine:
             raise ValueError("swap_layout: no pending placement "
                              "(call prepare_layout first)")
         before = self.layout.stats(self.latency)["imbalance"]
+        new_generation = self._pending.index is not None
         self.heat = self._pending_heat
         self._install(self._pending)
         self._pending = None
         self._pending_heat = None
         self._swap_on_next_batch = False
         self.relayouts += 1
+        if new_generation:
+            # per-generation invalidation: cluster ids changed meaning
+            # (splits / merges renumber) and codebooks may have retrained,
+            # so cached LUTs and decayed heat are both stale.  The
+            # estimator resets IN PLACE (admission policy and router hold
+            # references to it), seeded with the heat the new placement
+            # was built from
+            self.generations += 1
+            if self.lut_cache is not None:
+                self.lut_cache.clear()
+            if self.heat_estimator is not None:
+                self.heat_estimator.reset(nlist=self.index.nlist,
+                                          seed=self.heat)
         if self.tasks_controller is not None:
             self.tasks_controller.retune(*self._layout_task_stats())
         after = self.layout.stats(self.latency)["imbalance"]
@@ -543,14 +582,57 @@ class DistributedEngine:
         self.prepare_layout(heat)
         return self.swap_layout()
 
-    def prepare_index(self, index: IVFPQIndex, heat=None) -> None:
-        raise _not_ported("prepare_index")
+    # -- live-index generation swaps --------------------------------------
+    def prepare_index(self, index: IVFPQIndex,
+                      heat: Optional[np.ndarray] = None) -> None:
+        """Double-buffered *generation* swap, phase 1: materialize a
+        placement for a NEW index (mutated, split / merged or retrained
+        by the live index) off to the side, while the current one keeps
+        serving.
 
-    def stage_index(self, index: IVFPQIndex, heat=None) -> None:
-        raise _not_ported("stage_index")
+        The latency model is re-priced for the new index's size and
+        cluster count.  ``heat`` defaults to the online estimator's view
+        when the cluster count is unchanged, else to the engine's last
+        heat if it fits, else to uniform (splits / merges renumbered the
+        clusters).  ``swap_layout`` installs it."""
+        self._sync_relayout_thread()
+        self._swap_on_next_batch = False
+        nlist = index.nlist
+        if heat is None:
+            if (self.heat_estimator is not None
+                    and self.heat_estimator.nlist == nlist):
+                heat = self.heat_estimator.heat()
+            elif len(self.heat) == nlist:
+                heat = self.heat
+            else:
+                heat = np.full(nlist, self.cfg.nprobe / max(nlist, 1),
+                               np.float64)
+        sizes = index.sizes.cpu().numpy()
+        latency = make_task_latency_model(
+            IndexParams(n_total=int(sizes.sum()), nlist=nlist, q=1,
+                        d=index.dim, k=self.cfg.k, p=self.cfg.nprobe,
+                        m=index.codebook.m, cb=index.codebook.cb,
+                        b_lut=lut_width_bytes(self.cfg.lut_dtype)),
+            UPMEM_PROFILE)
+        self._pending_heat = np.asarray(heat, np.float64)
+        self._pending = self._materialize(self._pending_heat, index=index,
+                                          latency=latency)
 
-    def install_index(self, index: IVFPQIndex, heat=None) -> dict:
-        raise _not_ported("install_index")
+    def stage_index(self, index: IVFPQIndex,
+                    heat: Optional[np.ndarray] = None) -> None:
+        """prepare_index + install at the start of the next served batch
+        (the ``_swap_on_next_batch`` hook periodic re-layout uses): the
+        non-blocking install path, searches never wait on a build."""
+        self.prepare_index(index, heat)
+        self._swap_on_next_batch = True
+
+    def install_index(self, index: IVFPQIndex,
+                      heat: Optional[np.ndarray] = None) -> dict:
+        """prepare_index + swap_layout in one synchronous call.  Callers
+        must not have searches in flight (the non-blocking path is
+        ``stage_index``)."""
+        self.prepare_index(index, heat)
+        return self.swap_layout()
 
     def _sync_relayout_thread(self) -> None:
         """Join an in-flight background rebuild and surface its error."""
@@ -567,6 +649,11 @@ class DistributedEngine:
         build the next placement on a background thread; the next batch
         joins and swaps (``_join_pending_relayout``)."""
         self._sync_relayout_thread()
+        if self._pending is not None and self._pending.index is not None:
+            # a staged index generation is waiting to swap: a periodic
+            # re-layout must not clobber it (the swap installs fresh heat;
+            # re-layout resumes on the new generation)
+            return
         heat = np.asarray(self.heat_estimator.heat(), np.float64)
 
         def build():

@@ -113,6 +113,14 @@ class LocalEngine:
     ``lut_scan``, ``lut_fill``, ``bank``, ``dc_ts``; each ends where the
     host next needs the device's result, so device time is inside).
 
+    Live-index support: ``(index, clusters)`` live in one ``_view`` tuple
+    read exactly once per batch, and ``install`` swaps the whole tuple --
+    a single attribute store -- so a mutation landing mid-batch can never
+    mix old centroids with new codes.  ``install`` with a new *index* (a
+    generation swap: centroids / codebooks changed) also bumps the view
+    generation that salts every LUT-cache bucket, so a stale in-flight
+    batch cannot poison the cache for the new generation.
+
     Tiered storage, the two-level coarse quantizer and tenant / predicate
     scopes are not ported yet and raise ``NotImplementedError`` (ROADMAP
     items 7 and 8).
@@ -137,13 +145,49 @@ class LocalEngine:
                 f"lut_cache.lut_dtype={lut_cache.lut_dtype!r} disagrees "
                 f"with SearchParams.lut_dtype={params.lut_dtype!r}; cached "
                 f"and uncached scans must run the same dtype")
-        self.index = index
-        self.clusters = clusters
+        self._view = (index, clusters, 0)
         self.params = params
         self.lut_cache = lut_cache
         self.k = params.k
         self.device = index.centroids.device
         self.phase_s: dict = {}
+
+    # the (index, clusters) pair is one atomic view; the split properties
+    # keep the attribute surface working
+    @property
+    def index(self) -> IVFPQIndex:
+        return self._view[0]
+
+    @index.setter
+    def index(self, index: IVFPQIndex) -> None:
+        self.install(index=index)
+
+    @property
+    def clusters(self) -> PaddedClusters:
+        return self._view[1]
+
+    @clusters.setter
+    def clusters(self, clusters: PaddedClusters) -> None:
+        self.install(clusters=clusters)
+
+    @property
+    def view_generation(self) -> int:
+        return self._view[2]
+
+    def install(self, index: Optional[IVFPQIndex] = None,
+                clusters: Optional[PaddedClusters] = None) -> None:
+        """Atomically swap the engine onto new index tensors.
+
+        ``clusters``-only installs are plain data mutations (upserts /
+        deletes): LUTs depend only on (query, centroid, codebook), so
+        cached entries stay valid.  Passing ``index`` means the quantizers
+        changed (a maintenance generation): the view generation is bumped
+        so cache keys from older views can never be hit again, even by a
+        batch that was in flight across the swap."""
+        cur_index, cur_clusters, gen = self._view
+        self._view = (index if index is not None else cur_index,
+                      clusters if clusters is not None else cur_clusters,
+                      gen + 1 if index is not None else gen)
 
     def _clock(self, phase: str, t0: float) -> float:
         now = time.perf_counter()
@@ -168,10 +212,11 @@ class LocalEngine:
                                       "not ported to repro_torch yet "
                                       "(ROADMAP item 8)")
         queries = np.asarray(queries, np.float32)
+        view = self._view                     # one atomic read per batch
         if self.lut_cache is not None:
-            return self._search_cached(queries, n_valid)
+            return self._search_cached(queries, n_valid, view)
         q = torch.from_numpy(queries).to(self.device)
-        d, i = search_ivfpq(self.index, self.clusters, q, self.params)
+        d, i = search_ivfpq(view[0], view[1], q, self.params)
         return d.cpu().numpy(), i.cpu().numpy()
 
     def serving_info(self) -> dict:
@@ -184,29 +229,35 @@ class LocalEngine:
                               lut_dtype=self.params.lut_dtype)
 
     @torch.no_grad()
-    def _search_cached(self, queries: np.ndarray,
-                       n_valid: Optional[int] = None):
-        """The cached pipeline, one ``query_chunk`` of queries at a time
-        (as ``search_ivfpq``).  Padding rows (>= n_valid) bypass the
-        cache entirely: no LRU slot, no hit or miss."""
+    def _search_cached(self, queries: np.ndarray, n_valid: Optional[int],
+                       view: tuple):
+        """The cached pipeline over one ``(index, clusters, view
+        generation)`` view, one ``query_chunk`` of queries at a time (as
+        ``search_ivfpq``).  Padding rows (>= n_valid) bypass the cache
+        entirely: no LRU slot, no hit or miss."""
         qc = self.params.query_chunk
         nv = len(queries) if n_valid is None else min(n_valid, len(queries))
         outs = [self._search_cached_chunk(queries[s:s + qc],
-                                          min(max(nv - s, 0), qc))
+                                          min(max(nv - s, 0), qc), view)
                 for s in range(0, len(queries), qc)]
         return (np.concatenate([o[0] for o in outs]),
                 np.concatenate([o[1] for o in outs]))
 
-    def _search_cached_chunk(self, queries: np.ndarray, n_valid: int):
-        p, cache, index = self.params, self.lut_cache, self.index
+    def _search_cached_chunk(self, queries: np.ndarray, n_valid: int,
+                             view: tuple):
+        p, cache = self.params, self.lut_cache
+        index, clusters, vgen = view
         t0 = time.perf_counter()
         probes, flat_res = cl_rc(torch.from_numpy(queries).to(self.device),
                                  index.centroids, index.rotation, p)
         nq, npr = probes.shape
         flat_probes = probes.reshape(-1).cpu().numpy()
         t0 = self._clock("cl_rc", t0)
-        # one hash per valid query, reused across its nprobe cache keys
-        buckets = [cache.bucket_of(queries[qi]) for qi in range(n_valid)]
+        # one hash per valid query, reused across its nprobe cache keys;
+        # the view generation salts the bucket, so entries of a superseded
+        # generation (older centroids / codebooks) can never hit
+        buckets = [(vgen, cache.bucket_of(queries[qi]))
+                   for qi in range(n_valid)]
         luts, miss_rows = lut_miss_scan(cache, flat_probes, buckets, npr,
                                         nq * npr)
         t0 = self._clock("lut_scan", t0)
@@ -220,7 +271,7 @@ class LocalEngine:
             t0 = self._clock("lut_fill", t0)
         lut = stack_lut_bank(luts, device=self.device)
         t0 = self._clock("bank", t0)
-        d, i = dc_ts(lut, probes, self.clusters, p)
+        d, i = dc_ts(lut, probes, clusters, p)
         out = d.cpu().numpy(), i.cpu().numpy()
         self._clock("dc_ts", t0)
         return out

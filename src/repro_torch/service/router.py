@@ -166,9 +166,13 @@ class CacheAwarePolicy(RoutingPolicy):
     def expected_hit_rate(self, ridx: int, probes: np.ndarray) -> float:
         """Mean over probed clusters of min(heat_r(c), 1) — heat is
         expected accesses/query, so clipped at 1 it reads as 'fraction of
-        this query's LUT lookups likely resident on replica ridx'."""
+        this query's LUT lookups likely resident on replica ridx'.  A
+        cluster past the estimator's count scores cold: the probe already
+        saw a live index's next generation, whose ``invalidate_clusters``
+        has not resized the estimators yet."""
         est = self.estimators[ridx]
         return float(np.mean([min(est.heat_of(int(c)), 1.0)
+                              if c < est.nlist else 0.0
                               for c in np.asarray(probes).reshape(-1)]))
 
     def pick(self, query, probes, depths) -> int:

@@ -15,6 +15,12 @@ fault-free service:
     svc.stats()                                 # per-replica + aggregate
     svc.shutdown()
 
+With ``ServiceSpec(mutable=True)`` the service is built over a mutable
+:class:`~repro_torch.core.mutable_index.Index` handle and ``upsert`` /
+``delete`` / ``run_maintenance`` come alive; a :class:`~repro_torch.
+service.mutation.MutationCoordinator` fans every mutation and every
+maintenance generation out to the replicas.
+
 The service owns N identical replicas, each an engine (``LocalEngine``
 over ``search_ivfpq`` or ``ShardedEngine`` over ``DistributedEngine``)
 with its own hot-cluster LUT cache and heat estimator behind its own
@@ -46,9 +52,8 @@ path); with ``ServiceSpec.replicas_max`` set an
 between batches.
 
 Not ported yet, each raising ``NotImplementedError`` at ``build`` with
-its ROADMAP item: the mutable index (6), tiered storage and the
-two-level coarse quantizer (7), tenants, tags and weighted fair queueing
-(8), fault injection (9).
+its ROADMAP item: tiered storage and the two-level coarse quantizer (7),
+tenants, tags and weighted fair queueing (8), fault injection (9).
 
 Invariants (held in tests/test_torch_service.py):
   * 1 replica, local engine, no cache: ``search`` is exactly
@@ -100,8 +105,6 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
 def _check_ported(spec: ServiceSpec, tenants, tags, fault_injector) -> None:
     """Refuse, by ROADMAP item, what the reference service offers and
     this one does not yet."""
-    if spec.mutable:
-        raise _not_ported("ServiceSpec(mutable=True)", 6)
     if spec.storage == "tiered":
         raise _not_ported("ServiceSpec(storage='tiered')", 7)
     if spec.coarse_groups:
@@ -172,7 +175,10 @@ class AnnService:
         # scale-out context, stashed by build(); scale_to() builds more
         # replicas from it when the fleet grows past the built set
         self._sample_probes = None
+        self._sample_queries = None       # re-probed after a generation
         self._serving_cfg = self._serving_config(spec)
+        # the mutation coordinator (wired by build() when spec.mutable)
+        self.mutator = None
         for i, rep in enumerate(self.replicas):
             rep.runtime.replica_idx = i
 
@@ -187,8 +193,11 @@ class AnnService:
         Either ``points`` (index built per ``spec.index`` on ``device``)
         or a prebuilt ``index`` must be given: an :class:`~repro_torch.
         core.mutable_index.Index` handle or a raw ``IVFPQIndex`` (wrapped;
-        it keeps its device).  ``sample_queries`` seeds the sharded
-        engine's heat estimate (falls back to a slice of the corpus).
+        it keeps its device).  With ``spec.mutable`` the service is built
+        over a *mutable* handle (needs ``points``, or an already-mutable
+        handle) and ``upsert`` / ``delete`` / ``run_maintenance`` come
+        alive.  ``sample_queries`` seeds the sharded engine's heat
+        estimate (falls back to a slice of the corpus).
         ``tenants``, ``tags`` and ``fault_injector`` are not ported and
         raise ``NotImplementedError``."""
         spec.validate()
@@ -196,16 +205,23 @@ class AnnService:
         if index is None:
             if points is None:
                 raise ValueError("AnnService.build needs points or index")
-            handle = spec.index.build(points, device=device)
+            handle = spec.index.build(points, device=device,
+                                      mutable=spec.mutable)
         elif isinstance(index, Index):
             handle = index
+            if spec.mutable and not handle.mutable:
+                raise ValueError(
+                    "spec.mutable=True needs a mutable Index handle -- "
+                    "build one with IndexSpec.build(points, mutable=True)")
         elif isinstance(index, IVFPQIndex):
-            handle = Index(index)
+            # identity-preserving for the static case; with spec.mutable
+            # the raw points must come along so maintenance can re-encode
+            handle = Index(index, points=points, mutable=spec.mutable)
         else:
             raise TypeError(f"index must be an Index or an IVFPQIndex, got "
                             f"{type(index).__name__}")
 
-        sample_probes = None
+        sample = sample_probes = None
         if spec.engine == "sharded":
             sample = sample_queries
             if sample is None:
@@ -228,6 +244,8 @@ class AnnService:
             halflife_batches=spec.router_halflife_batches)
 
         def probe_fn(q: np.ndarray) -> np.ndarray:
+            # centroids read through the handle, so routing follows the
+            # live generation (maintenance may split / merge clusters)
             return locate_probes(np.asarray(q)[None], handle.centroids,
                                  spec.nprobe)[0]
 
@@ -237,6 +255,10 @@ class AnnService:
                         probe_fn=probe_fn)
         cls.__init__(svc, spec, handle, replicas, router)
         svc._sample_probes = sample_probes
+        svc._sample_queries = sample
+        if spec.mutable:
+            from repro_torch.service.mutation import MutationCoordinator
+            svc.mutator = MutationCoordinator(svc)
         return svc
 
     @staticmethod
@@ -281,7 +303,9 @@ class AnnService:
         if spec.engine == "local":
             cache = make_cache()
             # the static handle's search_view is the wrapped IVFPQIndex
-            # itself: bit-exact identity with a direct search_ivfpq;
+            # itself: bit-exact identity with a direct search_ivfpq; a
+            # mutable one's is the current generation's lean view, and
+            # clusters its current snapshot;
             # use_kernels: the device picks kernel (card) or plain version
             core = LocalEngine(index.search_view, index.clusters,
                                SearchParams(nprobe=spec.nprobe, k=spec.k,
@@ -365,7 +389,10 @@ class AnnService:
         raise) and return final stats.  A wedged worker does not abort the
         shutdown of the rest of the fleet: it is counted in
         ``stats()['aggregate']['wedged_workers']`` and the first wedge
-        error is re-raised after every executor had its chance."""
+        error is re-raised after every executor had its chance.  An
+        in-flight maintenance cycle is joined first."""
+        if self.mutator is not None:
+            self.mutator.close()
         first_err: Optional[BaseException] = None
         for ex in self._executors:
             try:
@@ -378,6 +405,47 @@ class AnnService:
         if first_err is not None:
             raise first_err
         return out
+
+    # -- mutation API --------------------------------------------------------
+    def _require_mutable(self, what: str):
+        if self.mutator is None:
+            raise RuntimeError(
+                f"AnnService.{what} needs a mutable service -- build with "
+                f"ServiceSpec(mutable=True) and the points array")
+        return self.mutator
+
+    def upsert(self, ids, vectors, *, tenant=None, tags=None) -> dict:
+        """Insert or replace vectors in the live index: assign to the
+        nearest centroid, encode with the live PQ codebooks, append to the
+        per-cluster code rows, and install the new tensors on every
+        replica (centroids / codebooks unchanged, so LUT caches stay
+        valid).  Visible to the next search batch.  Returns insert /
+        replace counts (see :meth:`Index.upsert`).  Scoped upserts
+        (``tenant`` / ``tags``) wait for tenancy (ROADMAP item 8)."""
+        self._check_open()
+        mut = self._require_mutable("upsert")
+        if tenant is not None or tags is not None:
+            raise _not_ported("upsert(tenant=..., tags=...)", 8)
+        return mut.upsert(ids, vectors)
+
+    def delete(self, ids) -> int:
+        """Remove ids from the live index (swap-compacted out of the scan
+        mask: a deleted id can never appear in a result) and install on
+        every replica.  Returns how many ids were live."""
+        self._check_open()
+        return self._require_mutable("delete").delete(ids)
+
+    def run_maintenance(self, force: bool = False, wait: bool = True
+                        ) -> dict:
+        """Run one cluster-maintenance cycle: split / merge clusters that
+        drifted past the spec's size band and retrain the PQ codebooks,
+        building the next index generation on a background thread and
+        installing it on each engine -- searches never block on the
+        rebuild.  ``force=True`` rebuilds even when no cluster is out of
+        band; ``wait=False`` returns at once."""
+        self._check_open()
+        return self._require_mutable("run_maintenance").run_maintenance(
+            force=force, wait=wait)
 
     # -- synchronous batch API ---------------------------------------------
     def search(self, queries, tenant=None,
@@ -546,7 +614,10 @@ class AnnService:
         if n == self._live:
             return
         if n > self._live:
-            with service_construction():
+            # under the scale lock, so a mutation's fan-out sees either the
+            # replica already built from the handle's current state, or
+            # the replica in the list
+            with self._scale_lock, service_construction():
                 while len(self.replicas) < n:
                     rep = self._build_replica(
                         self.spec, self.index,
@@ -672,6 +743,8 @@ class AnnService:
                "health": self.health.stats(), "replicas": per}
         if self.autoscaler is not None:
             out["autoscaler"] = self.autoscaler.stats()
+        if self.mutator is not None:
+            out["mutation"] = self.mutator.stats()
         return out
 
 

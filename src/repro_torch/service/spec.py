@@ -130,8 +130,9 @@ class IndexSpec:
         :class:`~repro_torch.core.mutable_index.Index` handle from raw
         (N, D) points on ``device`` (default the card; without CUDA that
         raises), drawing from a ``torch.Generator`` seeded with ``seed``.
-        ``mutable=True`` (ROADMAP item 6) and ``storage="tiered"`` (item
-        7) are not ported and raise ``NotImplementedError``."""
+        ``mutable=True`` keeps the raw points for upserts, deletes and
+        generation maintenance; ``storage="tiered"`` (ROADMAP item 7) is
+        not ported and raises ``NotImplementedError``."""
         import torch
 
         from repro_torch.core.mutable_index import Index

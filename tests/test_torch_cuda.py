@@ -470,3 +470,70 @@ def test_sharded_service_goes_through_fused_kernels(cuda, lut_dtype):
                 assert np.isclose(ld[row, 9], ld[row, 10], rtol=RTOL,
                                   atol=ATOL)
     svc.shutdown()
+
+
+@pytest.mark.parametrize("lut_dtype", ["f32", "uint8"])
+def test_live_index_on_the_card(cuda, lut_dtype):
+    """A mutable Index on the card: an edit never writes a published
+    snapshot (it is copied first), each engine over the current snapshot
+    launches LC and DC and equals search_ivfpq over it bit for bit, and a
+    forced generation keeps deleted ids out."""
+    from repro_torch.core.mutable_index import Index
+    from repro_torch.runtime import LocalEngine
+    ds = make_clustered_corpus(0, 8000, 32, n_queries=64, n_components=32,
+                               device=cuda)
+    idx = build_ivfpq(torch.Generator().manual_seed(0), ds.points, nlist=64,
+                      m=16, cb=256, kmeans_iters=6, pq_iters=6, device=cuda)
+    h = Index(idx, points=ds.points, mutable=True)
+    q = ds.queries.float().cpu().numpy()
+    p = SearchParams(nprobe=8, k=10, use_kernels=True, lut_dtype=lut_dtype)
+    eng = LocalEngine(h.search_view, h.clusters, p)
+    old = h.clusters
+    kept = old.codes.clone(), old.ids.clone()
+    vecs = ds.points[:256].float().cpu().numpy() + 1e-2
+    h.upsert(np.arange(8000, 8256), vecs)
+    h.delete(np.arange(0, 4000, 3))
+    assert torch.equal(old.codes, kept[0]) and torch.equal(old.ids, kept[1])
+    assert h.clusters.codes.data_ptr() != old.codes.data_ptr()
+    lc, dc = (("lut_build_q", "pq_scan_dc_q") if lut_dtype == "uint8"
+              else ("lut_build", "pq_scan_dc"))
+    for step in ("mutated", "generation"):
+        if step == "generation":
+            h.run_maintenance(force=True)
+            eng.install(index=h.search_view, clusters=h.clusters)
+        else:
+            eng.install(clusters=h.clusters)
+        ops.reset_launches()
+        d, i = eng.search_batch(np.concatenate([q, vecs[:64]]))
+        assert ops.launches[lc] > 0 and ops.launches[dc] > 0
+        wd, wi = search_ivfpq(h.search_view, h.clusters, torch.from_numpy(
+            np.concatenate([q, vecs[:64]])).to(cuda), p)
+        np.testing.assert_array_equal(d, wd.cpu().numpy())
+        np.testing.assert_array_equal(i, wi.cpu().numpy())
+        assert not np.isin(i, np.arange(0, 4000, 3)).any()
+        assert np.mean([8000 + r in i[64 + r] for r in range(64)]) >= 0.9
+
+
+def test_live_sharded_service_goes_through_fused_kernels(cuda):
+    """A mutable sharded replica on the card: each mutation stages a new
+    placement; the next batch installs it and launches LC and E."""
+    from repro_torch.service import AnnService, ServiceSpec
+    idx, q = _service_index(cuda)
+    ds = make_clustered_corpus(0, 8000, 32, n_queries=64, n_components=32,
+                               device=cuda)
+    svc = AnnService.build(ServiceSpec(
+        engine="sharded", replicas=1, nprobe=8, k=10, n_shards=8,
+        tasks_per_shard=256, split_max=64, mutable=True,
+        buckets=(1, 2, 4, 8)), points=ds.points, index=idx,
+        sample_queries=q)
+    vecs = ds.points[:32].float().cpu().numpy() + 1e-2
+    svc.upsert(np.arange(8000, 8032), vecs)
+    svc.delete(np.arange(8000, 8016))
+    svc.run_maintenance(force=True)
+    ops.reset_launches()
+    _, i = svc.search(vecs)
+    assert ops.launches["lut_build"] > 0 and ops.launches["pq_scan_topk"] > 0
+    assert not np.isin(i, np.arange(8000, 8016)).any()
+    assert np.mean([8016 + r in i[16 + r] for r in range(16)]) >= 0.9
+    assert svc.core_engine().serving_info()["generations"] >= 1
+    svc.shutdown()

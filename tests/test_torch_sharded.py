@@ -453,10 +453,7 @@ def test_unported_options_raise(port, sample_probes):
         with pytest.raises(NotImplementedError):
             _engine(idx, sample_probes, extra=extra)
     eng = _engine(idx, sample_probes)
-    for call in (lambda: eng.prepare_index(idx),
-                 lambda: eng.stage_index(idx),
-                 lambda: eng.install_index(idx),
-                 lambda: eng.search(np.zeros((1, idx.dim), np.float32),
+    for call in (lambda: eng.search(np.zeros((1, idx.dim), np.float32),
                                     tenants=np.zeros(1, np.int32)),
                  lambda: ss.make_sharded_step(None, eng.sindex),
                  lambda: ss.make_sharded_step_lut(None, eng.sindex)):
