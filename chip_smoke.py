@@ -56,11 +56,33 @@ paths once at the configuration below:
              engine on the same snapshot.  The checks read the smoke's
              own LiveSet model of the live ids, not the code under test;
              A-D are held to their plain versions once more on the live
-             snapshot's first chunk, whose padded width is its own.
+             snapshot's first chunk, whose padded width is its own;
+    tiered:  beyond-memory serving over the same index, a quarter of the
+             padded clusters on the card and the rest in a CRC-checked
+             spill under build/tier (free space checked first, removed
+             at the end): T1 TieredStore.from_clusters, open + full
+             verify, LocalEngine over the tier, the 10,000 queries at
+             f32 and uint8, then 5 churn passes (each 4,096 queries
+             drawn Zipf(1.1) under its own permutation, with promotions
+             and demotions of its own; every pass == search_ivfpq bit
+             for bit, resident bytes within the budget after each),
+             one chunk's parts timed alone, a budget_s=0 batch (degraded,
+             == search_ivfpq over the clusters with the cold ones
+             emptied); T2 the two-level CL (128 groups): at full fan-out
+             the queries whose probe set differs from flat CL's, each
+             checked to be a near-tie, and recall and CL time at nprobe1
+             = 8; T3 the tiered DistributedEngine over the reopened spill
+             (2 batches of 1,000 at f32, 1 at uint8, == T1 at rtol 1e-4 /
+             atol 1e-3 with k-th-place ties); the CRC checks (a rotten
+             resident cluster rebuilt on demotion, verify() clean, a
+             rotten cold one raising CorruptClusterError by its id and
+             dropped by gather_degraded); S8 one tiered AnnService replica
+             on S2's Zipf trace, wall clock, == search_ivfpq bit for bit,
+             beside S5.
 
 The launch counters of the six kernels are reset just before each path
 and read just after it; every kernel of the path must have risen (the
-service and mutation paths run all six).
+service, mutation and tiered paths run all six).
 Recall@10 is taken against the port's exact_search; the sharded results
 are held to the local path's on the same queries, and served results to
 a direct search: every local service cell bit for bit to the uncached
@@ -68,8 +90,8 @@ search_ivfpq of the same queries at its LUT dtype.  The last lines printed are o
 JSON line and ``{"ok": true, "device": {...}}``; A's and B's rows carry
 their times at the sharded step's first LC launches too; ``launches``
 sums the local and sharded paths, as before the service existed, and
-``launches_by_path`` gives each path's own count, the service's and the
-mutation's included.  E's and F's
+``launches_by_path`` gives each path's own count, the service's, the
+mutation's and the tiered path's included.  E's and F's
 first sharded launches, with their LC inputs and those of the local
 path's first chunk, are written to ``build/sharded_launch.pt``, which
 ``tools/torch_fused_topk_bench.py`` and ``tools/torch_lut_build_bench.py``
@@ -1504,6 +1526,367 @@ def mutation_path(index, points, queries, zipf, trace, rec_static: float,
 # Main path
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# The tiered path: beyond-memory serving over the same index
+# ---------------------------------------------------------------------------
+
+TIER_DIR = ROOT / "build" / "tier"
+T1_CHURN, T1_CHURN_DRAWS, T2_FULL_QUERIES, T2_GROUPS = 5, 4096, 512, 128
+
+
+def zipf_rows(n_pool: int, n: int, seed: int, skew: float = 1.1):
+    """``n`` rows drawn Zipf(``skew``) over a pool of ``n_pool`` queries
+    under a permutation of its own (seeded): each seed makes other
+    queries, and so other clusters, hot."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n_pool)
+    pmf = np.arange(1, n_pool + 1, dtype=np.float64) ** -skew
+    return perm[rng.choice(n_pool, size=n, p=pmf / pmf.sum())]
+T3_BATCHES = (("f32", 0), ("f32", 1), ("uint8", 0))
+
+
+def tiered_path(ops, index, clusters, queries, results, zipf, gt,
+                rec_f32: float, s5_wall: dict, n: int) -> dict:
+    """Drive the tier on the card (T1), the two-level CL (T2), the tiered
+    sharded engine (T3) and the tiered service (S8) on the main path's
+    index; hold every result to the uncached search_ivfpq over
+    pad_clusters (``results`` per LUT dtype).  The spill lives under
+    ``build/tier`` and is removed at the end, whatever happens."""
+    import shutil
+
+    from repro_torch.core.coarse2 import build_coarse2, coarse2_locate
+    from repro_torch.core.search import (SearchParams, cluster_locate,
+                                         recall_at_k, search_ivfpq)
+    from repro_torch.core.sharded_search import (DistributedEngine,
+                                                 EngineConfig, locate_probes)
+    from repro_torch.runtime import LocalEngine
+    from repro_torch.service import AnnService, ServiceSpec
+    from repro_torch.storage import CorruptClusterError, TieredStore
+
+    out: dict = {}
+    q_np = queries.cpu().numpy()
+    direct = {dt: tuple(x.cpu().numpy() for x in r)
+              for dt, r in results.items()}
+    total = clusters.codes.numel() + clusters.ids.numel() * 4
+    budget = total // 4
+    shutil.rmtree(TIER_DIR, ignore_errors=True)
+    TIER_DIR.mkdir(parents=True)
+    free = shutil.disk_usage(TIER_DIR).free
+    log(f"  disk: {free / 2**30:.2f} GiB free under {TIER_DIR}; the phase "
+        f"needs {1.5 * total / 2**30:.2f} GiB (one {total} B spill at a "
+        f"time, and a margin)")
+    check(free >= 1.5 * total, f"tiered path: {free} B free under "
+                               f"{TIER_DIR}, short of {1.5 * total:.0f}")
+    try:
+        # -- T1: the tier on the card, LocalEngine over it ---------------
+        t1_dir = TIER_DIR / "t1"
+        tier, t_spill = sync_time(lambda: TieredStore.from_clusters(
+            clusters, t1_dir, budget_bytes=budget, device="cuda"))
+        disk = sum(f.stat().st_size for f in t1_dir.iterdir())
+        opened, t_open = sync_time(lambda: TieredStore.open(
+            t1_dir, budget_bytes=budget, device="cuda"))
+        check(tier.total_bytes == total and disk == total + len(
+            (t1_dir / "meta.json").read_bytes()),
+              f"T1: spill holds {disk} B for {total} B of clusters")
+        log(f"  T1 tier: {tier.nlist} clusters x cap {tier.cap} x M "
+            f"{tier.m}: total {total} B, budget {budget} B, resident "
+            f"{tier.resident_bytes} B in {tier.n_slots} slots on the card; "
+            f"spill {t_spill:.2f} s ({disk} B on disk), open + full verify "
+            f"{t_open:.2f} s")
+        check(tier.resident_bytes <= budget, "T1: seeded over the budget")
+        engines = {}
+        for dt in ("f32", "uint8"):
+            p = SearchParams(nprobe=NPROBE, k=K, query_chunk=QUERY_CHUNK,
+                             use_kernels=True, lut_dtype=dt)
+            engines[dt] = LocalEngine(index, None, p, tiered_store=tier)
+        # the 10,000 queries at f32 and uint8, then churn passes: each a
+        # Zipf draw under its own permutation, so each moves the hot set
+        # and every pass is checked at a residency of its own
+        every = np.arange(len(q_np))
+        plan = [("f32", every), ("uint8", every)] + [
+            ("f32", zipf_rows(len(q_np), T1_CHURN_DRAWS, seed=1 + c))
+            for c in range(T1_CHURN)]
+        passes = []
+        for j, (dt, rows) in enumerate(plan):
+            eng = engines[dt]
+            eng.phase_s.clear()
+            fetch0 = dict(tier.fetch_s)
+            st0 = tier.stats.as_dict()
+            qj = q_np[rows]
+            n_chunks = -(-len(qj) // QUERY_CHUNK)
+            (d, i), secs = sync_time(lambda: eng.search_batch(qj))
+            check(np.array_equal(d, direct[dt][0][rows])
+                  and np.array_equal(i, direct[dt][1][rows]),
+                  f"T1 pass {j} lut={dt}: the tiered engine differs from "
+                  f"search_ivfpq")
+            check(tier.resident_bytes <= budget,
+                  f"T1 pass {j}: {tier.resident_bytes} B resident, over "
+                  f"the {budget} B budget")
+            st = tier.stats.as_dict()
+            delta = {k: st[k] - st0[k] for k in st}
+            check(j < 2 or (delta["promotions"] > 0
+                            and delta["demotions"] > 0),
+                  f"T1 churn pass {j}: promotions {delta['promotions']}, "
+                  f"demotions {delta['demotions']}: residency did not move")
+            probes = delta["hot_hits"] + delta["cold_requests"]
+            fetch = {k: tier.fetch_s[k] - fetch0[k] for k in fetch0}
+            rec = {"lut": dt, "queries": len(qj), "s": secs,
+                   "ms_per_chunk": secs / n_chunks * 1e3,
+                   "hot_rate": delta["hot_hits"] / max(probes, 1),
+                   "cold_bytes": delta["cold_bytes"],
+                   "cold_fetches": delta["cold_fetches"],
+                   "promotions": delta["promotions"],
+                   "demotions": delta["demotions"],
+                   "host_ms_per_chunk": {
+                       k: v / n_chunks * 1e3
+                       for k, v in {**eng.phase_s, **fetch}.items()}}
+            passes.append(rec)
+            log(f"  T1 pass {j} lut={dt}: {len(qj)} queries {secs:.3f} s "
+                f"({rec['ms_per_chunk']:.3f} ms a {QUERY_CHUNK}-query "
+                f"chunk), == search_ivfpq bit for bit; hot rate "
+                f"{rec['hot_rate']:.4f}, cold {delta['cold_fetches']} "
+                f"clusters / {delta['cold_bytes']} B, promotions "
+                f"{delta['promotions']}, demotions {delta['demotions']}, "
+                f"resident {tier.resident_bytes} B; host ms a chunk: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in
+                            rec["host_ms_per_chunk"].items()))
+        st = tier.stats
+        check(st.cold_fetches > 0 and st.promotions > 0,
+              f"T1: cold_fetches {st.cold_fetches}, promotions "
+              f"{st.promotions}")
+        out["T1"] = {"spill_s": t_spill, "open_verify_s": t_open,
+                     "disk_bytes": disk, "total_bytes": total,
+                     "budget_bytes": budget, "passes": passes,
+                     "stats": tier.serving_info()}
+        # one chunk's parts on the card, each timed alone (CUDA events)
+        p = engines["f32"].params
+        q0 = queries[:QUERY_CHUNK]
+        probes0 = cluster_locate(q0, index.centroids, NPROBE,
+                                 block=QUERY_CHUNK)[0]
+        flat0 = probes0.reshape(-1)
+        src = tier._slot_of_dev.index_select(0, flat0).clamp_min(0)
+        codes, ids, sizes = tier.gather(flat0)
+        res = (q0[:, None, :] - index.centroids[probes0]).reshape(-1, D)
+        cb = index.codebook
+        lut = ops.lut_build(res, cb.codebooks, cb.sqnorms)
+        from repro_torch.core.search import dc_ts_tasks
+        parts = {
+            "CL (flat)": lambda: cluster_locate(q0, index.centroids, NPROBE,
+                                                block=QUERY_CHUNK),
+            "hot gather (slab, all rows)": lambda: (
+                tier._hot_codes.index_select(0, src),
+                tier._hot_ids.index_select(0, src)),
+            "whole fetch (gather)": lambda: tier.gather(flat0),
+            "LC kernel": lambda: ops.lut_build(res, cb.codebooks,
+                                               cb.sqnorms),
+            "DC kernel + TS": lambda: dc_ts_tasks(lut, codes, ids, sizes,
+                                                  QUERY_CHUNK, p),
+        }
+        counted = dict(ops.launches)     # timing launches do not count
+        chunk_ms = {k: event_ms(fn, reps=5) for k, fn in parts.items()}
+        ops.launches.update(counted)
+        device_ms = sum(v for k, v in chunk_ms.items() if k != "whole fetch "
+                        "(gather)")
+        idle = 1 - device_ms / passes[0]["ms_per_chunk"]
+        log(f"  T1 one {QUERY_CHUNK}-query chunk, f32, parts timed alone "
+            f"(CUDA events, host included): " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in chunk_ms.items()))
+        log(f"  T1 device work of a chunk (the parts on the card) "
+            f"{device_ms:.3f} ms of pass 0's {passes[0]['ms_per_chunk']:.3f}"
+            f": idle share ~{idle:.3f}")
+        out["T1"]["chunk_parts_ms"] = chunk_ms
+        out["T1"]["idle_share"] = idle
+
+        # budget_s=0: every cold probe shed; exact over what was scanned
+        eng = engines["f32"]
+        qd = q_np[:N_RECALL]
+        d, i = eng.search_batch(qd, budget_s=0.0)
+        counted = dict(ops.launches)
+        info = eng.last_batch_info
+        check(info["degraded"] and info["dropped_probes"] > 0,
+              f"T1 budget_s=0: not degraded ({info})")
+        cold = torch.from_numpy(~tier.resident_mask).cuda()
+        emptied = clusters._replace(
+            sizes=clusters.sizes.masked_fill(cold, 0),
+            ids=clusters.ids.masked_fill(cold[:, None], -1))
+        md, mi = (x.cpu().numpy() for x in search_ivfpq(
+            index, emptied, torch.from_numpy(qd).cuda(), p))
+        ops.launches.update(counted)     # nor does the comparison search
+        check(np.array_equal(d, md) and np.array_equal(i, mi),
+              "T1 budget_s=0: differs from search_ivfpq over the clusters "
+              "with the cold ones emptied")
+        del emptied
+        log(f"  T1 budget_s=0 on {len(qd)} queries: degraded, "
+            f"{info['dropped_probes']} probes dropped, == search_ivfpq "
+            f"over the resident clusters bit for bit")
+        out["T1"]["degraded_dropped_probes"] = info["dropped_probes"]
+
+        # -- T2: two-level CL -----------------------------------------
+        coarse, t_c2 = sync_time(lambda: build_coarse2(
+            torch.Generator().manual_seed(0), index.centroids,
+            n_groups=T2_GROUPS))
+        qf = queries[:T2_FULL_QUERIES]
+        flat = locate_probes(qf, index.centroids, NPROBE)
+        two = coarse2_locate(coarse, qf, nprobe=NPROBE,
+                             nprobe1=coarse.n_groups,
+                             block=QUERY_CHUNK)[0].cpu().numpy()
+        cents = index.centroids.double()
+        c_sq = (cents * cents).sum(1)
+        differ, worst = 0, 0.0
+        for r in range(len(qf)):
+            a, b = set(flat[r].tolist()), set(two[r].tolist())
+            if a == b:
+                continue
+            differ += 1
+            qr = qf[r].double()
+            dist = ((qr[None] - cents) ** 2).sum(1)
+            edge = torch.sort(dist).values[NPROBE - 1]
+            for c in a ^ b:
+                # each swapped probe sits at the nprobe-th distance, within
+                # f32 rounding of the expansion's terms ||q||^2 + ||c||^2
+                scale = float((qr * qr).sum() + c_sq[c])
+                worst = max(worst, float(abs(dist[c] - edge)) / scale)
+        check(worst <= 1e-5, f"T2: a differing probe is {worst:.2e} (of "
+                             f"||q||^2 + ||c||^2) from the nprobe-th "
+                             f"distance: not a near-tie")
+        log(f"  T2 build_coarse2: {coarse.n_groups} groups, gmax "
+            f"{coarse.gmax}, {t_c2:.2f} s; nprobe1 = {coarse.n_groups}: "
+            f"{differ} of {len(qf)} queries' probe sets differ from flat "
+            f"CL's, each a near-tie (worst gap to the {NPROBE}th distance "
+            f"{worst:.2e} of ||q||^2 + ||c||^2, float64)")
+        q0 = queries[:QUERY_CHUNK]
+        counted = dict(ops.launches)
+        cl_ms = {"flat": event_ms(lambda: cluster_locate(
+            q0, index.centroids, NPROBE, block=QUERY_CHUNK), reps=10)}
+        for nprobe1 in (8, coarse.n_groups):
+            cl_ms[nprobe1] = event_ms(lambda: coarse2_locate(
+                coarse, q0, nprobe=NPROBE, nprobe1=nprobe1,
+                block=QUERY_CHUNK), reps=3)
+        ops.launches.update(counted)
+        eng2 = LocalEngine(index, clusters, p, coarse=coarse,
+                           coarse_nprobe1=8)
+        _, i2 = eng2.search_batch(q_np[:N_RECALL])
+        rec2 = recall_at_k(torch.from_numpy(i2).cuda(), gt)
+        log(f"  T2 CL ms a {QUERY_CHUNK}-query chunk (CUDA events): flat "
+            f"{cl_ms['flat']:.3f}, two-level nprobe1=8 {cl_ms[8]:.3f}, "
+            f"nprobe1={coarse.n_groups} {cl_ms[coarse.n_groups]:.3f}; "
+            f"recall@{K} at nprobe1=8 {rec2:.4f} (flat {rec_f32:.4f})")
+        out["T2"] = {"n_groups": coarse.n_groups, "gmax": coarse.gmax,
+                     "build_s": t_c2, "full_fanout_queries": len(qf),
+                     "full_fanout_differ": differ, "worst_gap": worst,
+                     "cl_ms": {str(k): v for k, v in cl_ms.items()},
+                     "recall_nprobe1_8": rec2}
+        del eng2, coarse
+
+        # -- T3: the tiered sharded engine over the reopened spill ------
+        handle_view = index._replace(
+            codes=index.codes[:0], ids=index.ids[:0])
+        sample = locate_probes(queries, index.centroids, NPROBE)
+        dup = int(0.10 * n * (M + 4))
+        t3 = []
+        sh_engines = {}
+        for dt, b in T3_BATCHES:
+            if dt not in sh_engines:
+                cfg = EngineConfig(n_shards=N_SHARDS, nprobe=NPROBE, k=K,
+                                   split_max=SPLIT_MAX,
+                                   dup_budget_bytes=dup,
+                                   tasks_per_shard=TASKS_PER_SHARD,
+                                   lut_dtype=dt)
+                sh_engines[dt], secs = sync_time(lambda: DistributedEngine(
+                    handle_view, cfg, sample, tiered_store=opened))
+                se = sh_engines[dt]
+                log(f"  T3 DistributedEngine lut={dt} over the reopened "
+                    f"spill: {secs:.2f} s (layout "
+                    f"{se.phase_s['layout']:.2f}, materialize "
+                    f"{se.phase_s['materialize']:.2f}); "
+                    f"{int(se._cold_mask.sum())} of {index.nlist} clusters "
+                    f"scanned through the tier")
+            se = sh_engines[dt]
+            se.phase_s.clear()
+            rows = slice(b * SHARD_BATCH, (b + 1) * SHARD_BATCH)
+            (d, i, _), secs = sync_time(lambda: se.search(q_np[rows]))
+            ld, li = direct[dt][0][rows], direct[dt][1][rows]
+            check(np.allclose(d, ld, rtol=RTOL, atol=ATOL),
+                  f"T3 lut={dt} batch {b}: distances differ from T1's")
+            bad = tie_diff_rows(d, i, ld, li, RTOL, ATOL)
+            check(bad == 0, f"T3 lut={dt} batch {b}: ids differ from T1's "
+                            f"on {bad} queries beyond k-th-place ties")
+            t3.append({"lut": dt, "batch": b, "s": secs,
+                       "phase_s": dict(se.phase_s)})
+            log(f"  T3 lut={dt} batch {b}: {SHARD_BATCH} queries "
+                f"{secs:.3f} s, == T1 (rtol {RTOL}, atol {ATOL}, ties "
+                f"allowed); host s: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in se.phase_s.items()))
+        out["T3"] = t3
+        del sh_engines, opened, handle_view
+        torch.cuda.empty_cache()
+
+        # integrity on T1's store (after T3: the two share the files)
+        r = int(np.nonzero(tier.resident_mask)[0][0])
+        tier.corrupt_spill(r)
+        rebuilds = tier.stats.rebuilds
+        check(tier.demote(r) and tier.stats.rebuilds == rebuilds + 1,
+              f"integrity: demoting resident cluster {r} with a rotten "
+              f"spill did not rebuild it")
+        rep, t_verify = sync_time(lambda: tier.verify())
+        check(not rep["corrupt"], f"integrity: verify after the rebuild "
+                                  f"found {rep['corrupt'][:8]}")
+        c = int(np.nonzero(~tier.resident_mask)[0][1])
+        tier.corrupt_spill(c)
+        try:
+            tier.gather(np.array([c]))
+            check(False, f"integrity: gather served rotten cluster {c}")
+        except CorruptClusterError as e:
+            check(e.cluster == c, f"integrity: the error names {e.cluster}, "
+                                  f"not {c}")
+        _, _, sz, dropped = tier.gather_degraded(np.array([r, c]))
+        check(dropped.tolist() == [False, True] and int(sz[1]) == 0,
+              f"integrity: gather_degraded kept rotten cluster {c}")
+        log(f"  integrity: resident cluster {r}'s rotten spill rebuilt on "
+            f"demotion, verify() then clean ({t_verify:.2f} s for "
+            f"{tier.nlist} clusters); cold cluster {c}'s rot raised "
+            f"CorruptClusterError({c}) and gather_degraded dropped it")
+        out["integrity"] = {"rebuilt": r, "quarantined": c,
+                            "verify_s": t_verify}
+        del engines, tier
+        shutil.rmtree(t1_dir)
+
+        # -- S8: the tiered service on S2's Zipf trace, wall clock -------
+        spec = ServiceSpec(engine="local", replicas=1, nprobe=NPROBE, k=K,
+                           buckets=SERVICE_BUCKETS, storage="tiered",
+                           storage_budget_bytes=budget,
+                           storage_dir=str(TIER_DIR / "s8"))
+        svc, secs = sync_time(lambda: AnnService.build(spec, index=index))
+        svc.warmup()
+        svc.core_engine().phase_s.clear()
+        fetch0 = dict(svc.index.tiered_store.fetch_s)
+        reqs = svc.stream(zipf, clock="wall")
+        fetch = {k: v - fetch0[k]
+                 for k, v in svc.index.tiered_store.fetch_s.items()}
+        s8 = service_report("S8 tiered local x1, Zipf 1.1", svc, secs,
+                            "wall")
+        check(all(r.done for r in reqs), "S8: unserved requests")
+        row_of = {qq.tobytes(): j for j, qq in enumerate(q_np)}
+        rows = np.array([row_of[r.query.tobytes()] for r in reqs])
+        _, sd, si = served(reqs)
+        check(np.array_equal(sd, direct["f32"][0][rows])
+              and np.array_equal(si, direct["f32"][1][rows]),
+              "S8: served results differ from search_ivfpq")
+        tinfo = svc.stats()["tier"]
+        log(f"    S8 beside S5 wall: p50 {s5_wall['p50_ms']:.3f}, p99 "
+            f"{s5_wall['p99_ms']:.3f}, QPS {s5_wall['qps']:.1f}; hot rate "
+            f"{tinfo['hot_rate']:.4f}, promotions {tinfo['promotions']}, "
+            f"cold {tinfo['cold_fetches']} clusters / "
+            f"{tinfo['cold_bytes']} B (host s over the stream: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in fetch.items())
+            + "); == search_ivfpq bit for bit")
+        out["S8"] = dict(s8, tier=tinfo, fetch_s=fetch)
+        svc.shutdown()
+    finally:
+        shutil.rmtree(TIER_DIR, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-points", type=int, default=10_000_000)
@@ -1830,12 +2213,35 @@ def main() -> int:
                lcl.sizes.index_select(0, flat), where)
     del live, lut, qlut
     torch.cuda.empty_cache()
+
+    # -- 8. beyond-memory serving on the same index ----------------------
+    log(f"tiered path: TieredStore with a quarter of the padded clusters "
+        f"on the card (T1 LocalEngine f32 + uint8 and {T1_CHURN} churn "
+        f"passes, T2 two-level CL with {T2_GROUPS} groups, T3 tiered "
+        f"DistributedEngine, S8 tiered AnnService on the Zipf trace, wall "
+        f"clock)")
+    s5_wall = next(r for r in service_runs if r.get("clock") == "wall"
+                   and r["label"].startswith("S5"))
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tiered_run = tiered_path(ops, index, clusters, queries, results, zipf,
+                             gt, rec["f32"], s5_wall, n)
+    tiered_launches = dict(ops.launches)
+    log(f"  tiered path {time.perf_counter() - t0:.1f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {tiered_launches}")
+    for name in KERNELS:
+        check(tiered_launches[name] > 0,
+              f"{name} never launched on the tiered path")
     by_path = {"local": launches, "sharded": sharded_launches,
-               "service": service_launches, "mutation": mutation_launches}
+               "service": service_launches, "mutation": mutation_launches,
+               "tiered": tiered_launches}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
     log(json.dumps({"service": service_runs}))
     log(json.dumps({"mutation": mutation_run}))
+    log(json.dumps({"tiered": tiered_run}))
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@ Both packages can then search the same index: the arrays of a reference
 ``numpy.asarray`` and in here.  A reference mutable ``Index`` handle, and
 a ``_Generation`` it built, come across whole (store rows, locator, raw
 vectors, quantizers, counters), read attribute by attribute through
-numpy, so both packages can then apply the same mutations.  ``uint16`` codes (CB > 256) become ``int32``, because
-``torch.uint16`` has few CUDA ops; ``uint8`` codes stay ``uint8``.
+numpy, so both packages can then apply the same mutations.  A reference
+``Coarse2`` comes across through ``coarse2_from_numpy``.  ``uint16``
+codes (CB > 256) become ``int32``, because ``torch.uint16`` has few CUDA
+ops; ``uint8`` codes stay ``uint8``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.coarse2 import Coarse2
 from repro_torch.core.ivf import IVFPQIndex, PaddedClusters
 from repro_torch.core.mutable_index import (Index, MutationStats, _Generation,
                                             _Store)
@@ -142,3 +145,17 @@ def generation_from_reference(gen, *, device="cuda") -> _Generation:
                        _store_from_reference(gen.store, dev),
                        np.array(sorted(gen.snapshot_ids), np.int64),
                        int(gen.splits), int(gen.merges), bool(gen.retrained))
+
+
+def coarse2_from_numpy(l1_centroids, members, member_centroids, *,
+                       device="cuda") -> Coarse2:
+    """A reference ``Coarse2``'s fields as numpy arrays (level-1 centroids
+    (G, D), member cluster ids (G, gmax) with -1 pad, member centroids
+    (G, gmax, D)) -> the port's ``Coarse2`` on ``device``, so both
+    packages can route with one grouping (the reference builds it with
+    ``jax.random``).  A tiered store needs no converter: both packages
+    open the same spill directory."""
+    dev = resolve_device(device)
+    return Coarse2(_t(l1_centroids, np.float32, dev),
+                   _t(members, np.int64, dev),
+                   _t(member_centroids, np.float32, dev))

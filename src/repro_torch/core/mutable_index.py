@@ -59,9 +59,15 @@ sees complete tensors.  ``build_generation`` runs outside the lock
 (snapshot in, tensors out); only the reconcile in
 ``install_generation`` holds it.
 
-Not ported: per-vector tenant / tag metadata (``meta``; ROADMAP item 8)
-and tiered storage (``storage="tiered"``; ROADMAP item 7).  Both raise
-``NotImplementedError``.
+Tiered storage (``storage="tiered"``, static handles only): the built
+codes spill to ``storage_dir`` through a :class:`~repro_torch.storage.
+TieredStore` that keeps ``storage_budget_bytes`` of hot clusters on the
+index's device; the handle then drops the codes and keeps a lean view
+(empty codes and ids, real offsets), and engines fetch probed clusters
+through ``tiered_store``.
+
+Not ported: per-vector tenant / tag metadata (``meta``; ROADMAP item 8),
+which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -78,15 +84,6 @@ from repro_torch.core.ivf import (IVFPQIndex, PaddedClusters, build_ivfpq,
 from repro_torch.core.kmeans import assign_chunked, kmeans
 from repro_torch.core.pq import PQCodebook, encode_pq, train_pq
 from repro_torch.util import ieee_f32_matmul
-
-
-def _check_ported(storage: str) -> None:
-    if storage not in ("resident", "tiered"):
-        raise ValueError(f"storage must be 'resident' or 'tiered', "
-                         f"got {storage!r}")
-    if storage == "tiered":
-        raise NotImplementedError("storage='tiered' is not ported to "
-                                  "repro_torch yet (ROADMAP item 7)")
 
 
 def _settle(device: torch.device) -> None:
@@ -443,14 +440,26 @@ class Index:
 
     # per-vector tenant / tag metadata (tenancy, ROADMAP item 8)
     meta = None
-    tiered_store = None
 
     def __init__(self, ivf: IVFPQIndex, *, points=None, mutable: bool = False,
                  compact_threshold: float = 0.5, pad_multiple: int = 8,
-                 storage: str = "resident"):
-        _check_ported(storage)
+                 storage: str = "resident", storage_dir=None,
+                 storage_budget_bytes: int = 0,
+                 storage_promote_margin: float = 1.25,
+                 storage_checksum: bool = True):
+        if storage not in ("resident", "tiered"):
+            raise ValueError(f"storage must be 'resident' or 'tiered', "
+                             f"got {storage!r}")
+        if storage == "tiered" and mutable:
+            raise ValueError("tiered storage currently requires a static "
+                             "index (the spill file is written once; "
+                             "upserts would need per-cluster rewrite)")
         self._ivf = ivf
         self.storage = storage
+        self.tiered_store = None
+        if storage == "tiered":
+            self._spill(storage_dir, storage_budget_bytes, pad_multiple,
+                        storage_promote_margin, storage_checksum)
         self.mutable = bool(mutable)
         self.generation = 0
         self.stats = MutationStats()
@@ -486,16 +495,50 @@ class Index:
         self._touched: set = set()
         self._removed_since_compact = 0
 
+    def _spill(self, storage_dir, budget_bytes: int, pad_multiple: int,
+               promote_margin: float, checksum: bool) -> None:
+        """Spill the wrapped codes to a tiered store on the index's device
+        and keep a lean view: centroids / codebook / rotation and the real
+        offsets (so ``sizes`` stays honest) with EMPTY codes and ids --
+        dropping the reference to the codes is what frees the bytes past
+        the budget."""
+        from repro_torch.storage import TieredStore
+        ivf = self._ivf
+        if storage_dir is None:
+            raise ValueError("storage='tiered' needs storage_dir (the "
+                             "spill directory)")
+        if budget_bytes <= 0:
+            raise ValueError(f"storage='tiered' needs storage_budget_bytes "
+                             f"> 0, got {budget_bytes}")
+        if ivf.codes.dtype != torch.uint8:
+            raise ValueError(f"tiered storage ships uint8 PQ codes (cb <= "
+                             f"256); index codes are {ivf.codes.dtype}")
+        self.tiered_store = TieredStore.from_index(
+            ivf, storage_dir, budget_bytes=int(budget_bytes),
+            pad_multiple=pad_multiple, promote_margin=float(promote_margin),
+            checksum=bool(checksum), device=ivf.centroids.device)
+        self._ivf = ivf._replace(
+            codes=ivf.codes.new_zeros((0, ivf.codes.shape[1])),
+            ids=ivf.ids.new_zeros((0,)))
+
     # -- construction ------------------------------------------------------
     @classmethod
     def build(cls, generator: torch.Generator, points, *, nlist: int, m: int,
               cb: int = 256, kmeans_iters: int = 12, pq_iters: int = 12,
               opq: bool = False, train_sample: Optional[int] = None,
               mutable: bool = False, compact_threshold: float = 0.5,
-              storage: str = "resident", device="cuda") -> "Index":
+              storage: str = "resident", storage_dir=None,
+              storage_budget_bytes: int = 0,
+              storage_promote_margin: float = 1.25,
+              storage_checksum: bool = True, device="cuda") -> "Index":
         """Build from raw (N, D) points (``core.ivf.build_ivfpq`` on
-        ``device``, draws from ``generator``) and wrap in a handle."""
-        _check_ported(storage)
+        ``device``, draws from ``generator``) and wrap in a handle.
+        ``storage="tiered"`` spills the built codes to ``storage_dir`` and
+        keeps ``storage_budget_bytes`` of hot clusters on ``device`` (see
+        :mod:`repro_torch.storage.tiered`); static indexes only."""
+        if storage not in ("resident", "tiered"):
+            raise ValueError(f"storage must be 'resident' or 'tiered', "
+                             f"got {storage!r}")
         if isinstance(points, torch.Tensor):
             pts = points
         else:
@@ -506,7 +549,11 @@ class Index:
                           kmeans_iters=kmeans_iters, pq_iters=pq_iters,
                           opq=opq, train_sample=train_sample, device=device)
         return cls(ivf, points=pts if mutable else None, mutable=mutable,
-                   compact_threshold=compact_threshold, storage=storage)
+                   compact_threshold=compact_threshold, storage=storage,
+                   storage_dir=storage_dir,
+                   storage_budget_bytes=storage_budget_bytes,
+                   storage_promote_margin=storage_promote_margin,
+                   storage_checksum=storage_checksum)
 
     @classmethod
     def _restore(cls, centroids: torch.Tensor, codebook: PQCodebook,
@@ -551,6 +598,11 @@ class Index:
         """Engine-ready padded snapshot (cached until the next mutation;
         never written afterwards)."""
         if not self.mutable:
+            if self.tiered_store is not None:
+                raise RuntimeError(
+                    "a tiered Index holds no resident PaddedClusters (that "
+                    "is the point) -- fetch probed clusters through "
+                    ".tiered_store.gather(...)")
             if self._clusters_cache is None:
                 self._clusters_cache = pad_clusters(self._ivf)
             return self._clusters_cache
@@ -617,10 +669,17 @@ class Index:
     def __len__(self) -> int:
         if self.mutable:
             return self._store.n_live
+        if self.tiered_store is not None:   # lean view: ids live in the tier
+            return int(self.tiered_store.sizes.sum())
         return int(self._ivf.ids.shape[0])
 
     def __contains__(self, pid) -> bool:
         if not self.mutable:
+            if self.tiered_store is not None:
+                tier = self.tiered_store
+                valid = np.arange(tier.cap)[None, :] < tier.sizes[:, None]
+                return bool(np.any(np.asarray(tier._ids_mm)[valid]
+                                   == int(pid)))
             return bool((self._ivf.ids == int(pid)).any())
         return int(pid) in self._store.loc
 

@@ -62,15 +62,10 @@ def cl_rc(queries: torch.Tensor, centroids: torch.Tensor, rotation,
     q = queries.float()
     probes, _ = cluster_locate(q, centroids, params.nprobe,
                                block=params.query_chunk)          # (Qc, P)
-    qc, p = probes.shape
-    residual = q[:, None, :] - centroids[probes]                  # (Qc, P, D)
-    if rotation is not None:
-        ieee_f32_matmul()
-        residual = residual @ rotation
-    return probes, residual.reshape(qc * p, -1)
+    return probes, rc_from_probes(q, centroids, rotation, probes)
 
 
-def _lc(flat_res: torch.Tensor, codebook, params: SearchParams):
+def lc(flat_res: torch.Tensor, codebook, params: SearchParams):
     """LC: (T, D) residuals -> (T, M, CB) f32 tables, or a QuantizedLUT
     on the uint8 path; through the LC kernels with ``use_kernels``."""
     quantized = params.lut_dtype == "uint8"
@@ -96,6 +91,16 @@ def dc_ts(lut, probes: torch.Tensor, clusters: PaddedClusters,
     codes = clusters.codes.index_select(0, flat_probes)           # (QcP, C, M)
     ids = clusters.ids.index_select(0, flat_probes)               # (QcP, C)
     sizes = clusters.sizes.index_select(0, flat_probes)           # (QcP,)
+    return dc_ts_tasks(lut, codes, ids, sizes, qc, params)
+
+
+def dc_ts_tasks(lut, codes: torch.Tensor, ids: torch.Tensor,
+                sizes: torch.Tensor, qc: int, params: SearchParams):
+    """DC + TS over pre-gathered task tensors: codes (Qc*P, C, M), ids
+    (Qc*P, C), sizes (Qc*P,), one task per (query, probe) in probe order
+    -> ((Qc, k) dists, (Qc, k) ids).  The tiered path fetches these rows
+    from its store; bytes equal to ``dc_ts``'s gather give equal
+    results."""
     if params.use_kernels:
         from repro_torch.kernels import ops as kops
         dists = kops.pq_scan_dc(lut, codes, sizes, strategy=params.strategy)
@@ -104,15 +109,28 @@ def dc_ts(lut, probes: torch.Tensor, clusters: PaddedClusters,
     else:
         dists = adc_distances(lut, codes, sizes, params.strategy)
     # TS: per query over all probed candidates
-    cand_d = dists.reshape(qc, p * clusters.cmax)
-    cand_i = ids.reshape(qc, p * clusters.cmax)
+    cand_d = dists.reshape(qc, -1)
+    cand_i = ids.reshape(qc, -1)
     return topk_smallest(cand_d, cand_i, params.k)
+
+
+def rc_from_probes(queries: torch.Tensor, centroids: torch.Tensor, rotation,
+                   probes: torch.Tensor) -> torch.Tensor:
+    """RC for probes routed elsewhere (two-level CL, or CL run ahead of
+    the chunk): (Qc, D) + (Qc, P) -> flat residuals (Qc*P, D), the same
+    arithmetic as :func:`cl_rc`'s."""
+    q = queries.float()
+    residual = q[:, None, :] - centroids[probes]
+    if rotation is not None:
+        ieee_f32_matmul()
+        residual = residual @ rotation
+    return residual.reshape(probes.shape[0] * probes.shape[1], -1)
 
 
 def _search_chunk(queries, centroids, codebook, clusters: PaddedClusters,
                   rotation, params: SearchParams):
     probes, flat_res = cl_rc(queries, centroids, rotation, params)
-    return dc_ts(_lc(flat_res, codebook, params), probes, clusters, params)
+    return dc_ts(lc(flat_res, codebook, params), probes, clusters, params)
 
 
 @torch.no_grad()

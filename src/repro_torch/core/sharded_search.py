@@ -37,11 +37,21 @@ batch it rode in.
 
 Live-index generation swaps (``prepare_index`` / ``stage_index`` /
 ``install_index``) materialize a placement for a new index off to the
-side and install it between batches, as the re-layout does.
+side and install it between batches, as the re-layout does.  One lock
+guards the pending placement, so a placement staged on one thread while
+a batch on another swaps the previous one in is never lost.
+
+Tiered storage (``tiered_store=``, a :class:`~repro_torch.storage.
+TieredStore`): the shard tensors hold only the clusters resident when
+the placement was built (``materialize_shards_tiered``); probes of the
+others are scanned per batch through the tier (``_scan_cold``: one
+deduplicated fetch, LC from the cache's bank or the LC kernels, then the
+fused DC+TS kernel in its dense form), and their candidates join the
+host merge.
 
 Not ported yet, each raises ``NotImplementedError``: ``mesh=`` (the
 ``shard_map`` steps become ``torch.distributed`` across cards),
-``tiered_store=``, ``meta=`` and tenant/predicate scoped search.
+``meta=`` and tenant/predicate scoped search.
 
 Shapes and units: queries (Q, D) f32; probes (Q, P) cluster ids; task
 tables (S, T) i32 with -1 padding; step outputs (S, T, k); heat is
@@ -124,14 +134,54 @@ def materialize_shards(index: IVFPQIndex, layout: Layout,
     codes_np = index.codes.cpu().numpy()
     ids_np = index.ids.cpu().numpy()
     offsets = index.offsets.cpu().numpy()
-    m = codes_np.shape[1]
+
+    def rows_of(inst):
+        row0 = offsets[inst.cluster] + inst.start
+        return (codes_np[row0:row0 + inst.size],
+                ids_np[row0:row0 + inst.size])
+
+    return _fill_shards(index, layout, rows_of, codes_np.dtype,
+                        pad_multiple)
+
+
+def materialize_shards_tiered(index: IVFPQIndex, layout: Layout, tier,
+                              pad_multiple: int = 8):
+    """Tiered materialize: the shard tensors hold only resident clusters.
+
+    ``index`` is a tiered handle's lean view (real offsets, empty code
+    arrays); rows come from the :class:`~repro_torch.storage.TieredStore`
+    instead, its whole slab in one copy from the card.  Instances of
+    clusters cold at snapshot time get ``sizes = 0``: the step yields
+    (+inf, -1) for them and the engine scans those probes through the
+    tier.  Returns ``(sindex, cold_mask)``; the mask is the snapshot the
+    serving path routes by until the next placement (a cluster promoted
+    in between still scans through the tier: exact, just not in the
+    shard tensors yet)."""
+    resident, slot_of, hot_codes, hot_ids = tier.resident_snapshot()
+
+    def rows_of(inst):
+        if not resident[inst.cluster]:
+            return None          # sizes stay 0: the tier scan owns it
+        row = int(slot_of[inst.cluster])
+        part = slice(inst.start, inst.start + inst.size)
+        return hot_codes[row, part], hot_ids[row, part]
+
+    return (_fill_shards(index, layout, rows_of, np.uint8, pad_multiple),
+            ~resident)
+
+
+def _fill_shards(index: IVFPQIndex, layout: Layout, rows_of, code_dtype,
+                 pad_multiple: int) -> ShardedIndex:
+    """Dense per-shard tensors of a layout; ``rows_of(instance)`` gives an
+    instance's (codes, ids) rows, or None to leave it empty (size 0)."""
+    m = index.codebook.m
     s = layout.n_shards
     slots = max(int((layout.shard_of == sh).sum()) for sh in range(s))
     slots = max(slots, 1)
     cpart = max(i.size for i in layout.instances)
     cpart = max(-(-cpart // pad_multiple) * pad_multiple, pad_multiple)
 
-    sh_codes = np.zeros((s, slots, cpart, m), dtype=codes_np.dtype)
+    sh_codes = np.zeros((s, slots, cpart, m), dtype=code_dtype)
     sh_ids = np.full((s, slots, cpart), -1, np.int32)
     sh_sizes = np.zeros((s, slots), np.int32)
     sh_cluster = np.full((s, slots), -1, np.int32)
@@ -143,16 +193,16 @@ def materialize_shards(index: IVFPQIndex, layout: Layout,
         sh = int(layout.shard_of[inst.instance_id])
         slot = int(cursor[sh])
         cursor[sh] += 1
-        row0 = offsets[inst.cluster] + inst.start
-        sz = int(inst.size)
-        sh_codes[sh, slot, :sz] = codes_np[row0:row0 + sz]
-        sh_ids[sh, slot, :sz] = ids_np[row0:row0 + sz]
-        sh_sizes[sh, slot] = sz
+        rows = rows_of(inst)
+        if rows is not None:
+            sz = int(inst.size)
+            sh_codes[sh, slot, :sz], sh_ids[sh, slot, :sz] = rows
+            sh_sizes[sh, slot] = sz
         sh_cluster[sh, slot] = inst.cluster
         sh_start[sh, slot] = inst.start
         slot_of[inst.instance_id] = slot
 
-    dev = index.codes.device
+    dev = index.centroids.device
     return ShardedIndex(*(torch.from_numpy(a).to(dev) for a in (
                             sh_codes, sh_ids, sh_sizes, sh_cluster, sh_start)),
                         slot_of, index.centroids, index.codebook,
@@ -410,6 +460,7 @@ class _Placement(NamedTuple):
     cluster_of_host: np.ndarray
     index: Optional[IVFPQIndex] = None
     latency: Optional[TaskLatencyModel] = None
+    cold_mask: Optional[np.ndarray] = None   # tiered: True = not in shards
 
 
 def _not_ported(what: str):
@@ -423,7 +474,9 @@ class DistributedEngine:
     ``index`` lives on the device the engine runs on (its tensors' device).
     Optional collaborators: ``lut_cache`` (skip LC on hits),
     ``heat_estimator`` (online heat + periodic re-layout),
-    ``tasks_controller`` (per-batch-size task-table width).
+    ``tasks_controller`` (per-batch-size task-table width),
+    ``tiered_store`` (shards hold the resident clusters; the rest are
+    scanned through the tier).
     """
 
     def __init__(self, index: IVFPQIndex, cfg: EngineConfig,
@@ -431,8 +484,7 @@ class DistributedEngine:
                  latency: Optional[TaskLatencyModel] = None,
                  mesh=None, lut_cache=None, heat_estimator=None,
                  tasks_controller=None, tiered_store=None, meta=None):
-        for name, val in (("mesh", mesh), ("tiered_store", tiered_store),
-                          ("meta", meta)):
+        for name, val in (("mesh", mesh), ("meta", meta)):
             if val is not None:
                 raise _not_ported(f"{name}=...")
         if cfg.lut_dtype not in ("f32", "uint8"):
@@ -458,6 +510,12 @@ class DistributedEngine:
         self.lut_cache = lut_cache
         self.heat_estimator = heat_estimator
         self.tasks_controller = tasks_controller
+        self.tiered_store = tiered_store
+        self._cold_mask: Optional[np.ndarray] = None
+        # per-batch degrade report, read by the serving adapter after
+        # search() returns (one worker serves a replica)
+        self.last_batch_info: dict = {"degraded": False,
+                                      "dropped_probes": 0}
         self.batches_served = 0
         self.relayouts = 0
         self.generations = 0
@@ -465,6 +523,11 @@ class DistributedEngine:
         # (the caller may reset it); "step" ends with the results' copy
         # to the host, so it includes the device time of the step
         self.phase_s: dict = {}
+        # the placement built off to the side and its heat; every
+        # read-modify-write of the two (and of _swap_on_next_batch) holds
+        # _pending_lock, so a stage on one thread and a swap on another
+        # cannot lose the newer placement
+        self._pending_lock = threading.Lock()
         self._pending: Optional[_Placement] = None
         self._pending_heat: Optional[np.ndarray] = None
         self._swap_on_next_batch = False
@@ -497,11 +560,17 @@ class DistributedEngine:
             bytes_per_row=idx.codebook.m + 4, latency=lat,
             naive=self.cfg.naive_layout)
         t0 = self._clock("layout", t0)
-        sindex = materialize_shards(idx, layout)
+        cold_mask = None
+        if self.tiered_store is not None:
+            sindex, cold_mask = materialize_shards_tiered(
+                idx, layout, self.tiered_store)
+        else:
+            sindex = materialize_shards(idx, layout)
         cluster_of = sindex.cluster_of.cpu().numpy()
         self._clock("materialize", t0)
         return _Placement(layout, sindex, cluster_of, index=index,
-                          latency=None if index is None else lat)
+                          latency=None if index is None else lat,
+                          cold_mask=cold_mask)
 
     def _install(self, placement: _Placement) -> None:
         """Point the serving path at ``placement``.  Deferred-task carry
@@ -515,6 +584,7 @@ class DistributedEngine:
         self.layout = placement.layout
         self.sindex = placement.sindex
         self._cluster_of_host = placement.cluster_of_host
+        self._cold_mask = placement.cold_mask
         self.carry: list = []
 
     def _build(self, heat: np.ndarray) -> None:
@@ -531,16 +601,16 @@ class DistributedEngine:
         off to the side while the current one keeps serving.  Returns the
         predicted imbalance of current vs pending."""
         self._sync_relayout_thread()
-        self._swap_on_next_batch = False
         if heat is None:
             if self.heat_estimator is None:
                 raise ValueError("prepare_layout needs heat or an estimator")
             heat = self.heat_estimator.heat()
-        self._pending_heat = np.asarray(heat, np.float64)
-        self._pending = self._materialize(self._pending_heat)
+        heat = np.asarray(heat, np.float64)
+        pending = self._materialize(heat)
+        self._set_pending(pending, heat, swap=False)
         return {"imbalance_current": self.layout.stats(
                     self.latency)["imbalance"],
-                "imbalance_pending": self._pending.layout.stats(
+                "imbalance_pending": pending.layout.stats(
                     self.latency)["imbalance"]}
 
     def swap_layout(self) -> dict:
@@ -548,16 +618,17 @@ class DistributedEngine:
         by :meth:`prepare_layout` between batches.  Returns before/after
         predicted-imbalance stats."""
         self._sync_relayout_thread()
-        if self._pending is None:
-            raise ValueError("swap_layout: no pending placement "
-                             "(call prepare_layout first)")
+        with self._pending_lock:      # take the pending placement whole
+            pending, heat = self._pending, self._pending_heat
+            if pending is None:
+                raise ValueError("swap_layout: no pending placement "
+                                 "(call prepare_layout first)")
+            self._pending = self._pending_heat = None
+            self._swap_on_next_batch = False
         before = self.layout.stats(self.latency)["imbalance"]
-        new_generation = self._pending.index is not None
-        self.heat = self._pending_heat
-        self._install(self._pending)
-        self._pending = None
-        self._pending_heat = None
-        self._swap_on_next_batch = False
+        new_generation = pending.index is not None
+        self.heat = heat
+        self._install(pending)
         self.relayouts += 1
         if new_generation:
             # per-generation invalidation: cluster ids changed meaning
@@ -595,8 +666,12 @@ class DistributedEngine:
         when the cluster count is unchanged, else to the engine's last
         heat if it fits, else to uniform (splits / merges renumbered the
         clusters).  ``swap_layout`` installs it."""
+        self._set_pending(*self._build_index_placement(index, heat),
+                          swap=False)
+
+    def _build_index_placement(self, index: IVFPQIndex,
+                               heat: Optional[np.ndarray]):
         self._sync_relayout_thread()
-        self._swap_on_next_batch = False
         nlist = index.nlist
         if heat is None:
             if (self.heat_estimator is not None
@@ -614,17 +689,25 @@ class DistributedEngine:
                         m=index.codebook.m, cb=index.codebook.cb,
                         b_lut=lut_width_bytes(self.cfg.lut_dtype)),
             UPMEM_PROFILE)
-        self._pending_heat = np.asarray(heat, np.float64)
-        self._pending = self._materialize(self._pending_heat, index=index,
-                                          latency=latency)
+        heat = np.asarray(heat, np.float64)
+        return self._materialize(heat, index=index, latency=latency), heat
+
+    def _set_pending(self, pending: _Placement, heat: np.ndarray, *,
+                     swap: bool) -> None:
+        with self._pending_lock:
+            self._pending, self._pending_heat = pending, heat
+            self._swap_on_next_batch = swap
 
     def stage_index(self, index: IVFPQIndex,
                     heat: Optional[np.ndarray] = None) -> None:
         """prepare_index + install at the start of the next served batch
         (the ``_swap_on_next_batch`` hook periodic re-layout uses): the
-        non-blocking install path, searches never wait on a build."""
-        self.prepare_index(index, heat)
-        self._swap_on_next_batch = True
+        non-blocking install path, searches never wait on a build.  The
+        placement and the flag are set together under the pending lock,
+        so a batch swapping in an older placement meanwhile leaves this
+        one pending."""
+        self._set_pending(*self._build_index_placement(index, heat),
+                          swap=True)
 
     def install_index(self, index: IVFPQIndex,
                       heat: Optional[np.ndarray] = None) -> dict:
@@ -649,7 +732,7 @@ class DistributedEngine:
         build the next placement on a background thread; the next batch
         joins and swaps (``_join_pending_relayout``)."""
         self._sync_relayout_thread()
-        if self._pending is not None and self._pending.index is not None:
+        if self._staged_generation():
             # a staged index generation is waiting to swap: a periodic
             # re-layout must not clobber it (the swap installs fresh heat;
             # re-layout resumes on the new generation)
@@ -662,22 +745,30 @@ class DistributedEngine:
             except BaseException as e:           # surfaced at join
                 self._relayout_error = e
                 return
-            self._pending_heat = heat
-            self._pending = pending
+            with self._pending_lock:
+                # a generation staged meanwhile wins over this re-layout
+                if not self._staged_generation():
+                    self._pending, self._pending_heat = pending, heat
 
         self._relayout_thread = threading.Thread(target=build, daemon=True)
         self._relayout_thread.start()
+
+    def _staged_generation(self) -> bool:
+        pending = self._pending
+        return pending is not None and pending.index is not None
 
     def _join_pending_relayout(self) -> None:
         try:
             self._sync_relayout_thread()
         except BaseException:
-            self._swap_on_next_batch = False
+            with self._pending_lock:
+                self._swap_on_next_batch = False
             raise
-        if self._pending is not None:
-            self.swap_layout()
-        else:
-            self._swap_on_next_batch = False
+        with self._pending_lock:
+            if self._pending is None:
+                self._swap_on_next_batch = False
+                return
+        self.swap_layout()
 
     def _layout_task_stats(self):
         """(tasks_per_query, mean_task_s) of the current layout: nprobe x
@@ -727,6 +818,8 @@ class DistributedEngine:
             info["tasks_controller"] = self.tasks_controller.summary()
         if self.heat_estimator is not None:
             info["heat_batches"] = self.heat_estimator.batches_observed
+        if self.tiered_store is not None:
+            info["tier"] = self.tiered_store.serving_info()
         return info
 
     # -- online ------------------------------------------------------------
@@ -798,6 +891,69 @@ class DistributedEngine:
                             flat_probes, buckets, npr, res)
         return stack_lut_bank(luts, device=self.device)
 
+    def _scan_cold(self, q_dev: torch.Tensor, probes: np.ndarray, bank,
+                   budget_s: Optional[float], n_valid: int):
+        """Scan this batch's snapshot-cold probes through the tier.
+
+        (q, pos) pairs whose cluster is not in the shard tensors are
+        fetched from the tier (one deduplicated spill read per batch),
+        scored with the same tables the shards would use -- bank rows
+        when the cache is on (row ``q * nprobe + pos``), else RC + LC
+        (the LC kernels) over those pairs -- by the fused DC+TS kernel in
+        its dense form, and returned as extra (T, k) candidate rows for
+        the host merge.  ``None`` when nothing is cold.  Padding rows
+        (``q >= n_valid``) get no cold scan: their results are thrown
+        away, and their probes must not shed or degrade the batch.
+
+        Fail-operational: the fetch runs degraded; probes the tier cannot
+        serve (quarantined clusters, or all of them when ``budget_s`` says
+        the predicted cold cost would blow the deadline) come back with
+        size 0, so the scan stays exact over what it scanned; the drop
+        count lands in ``last_batch_info``."""
+        from repro_torch.kernels import ops as kops
+        mask = self._cold_mask
+        if mask is None or not mask.any():
+            return None
+        cold_q, cold_pos = np.nonzero(mask[probes[:n_valid]])
+        if cold_q.size == 0:
+            return None
+        clusters = probes[cold_q, cold_pos]
+        tier = self.tiered_store
+        resident_only = False
+        if budget_s is not None:
+            n_cold = int(np.unique(clusters).size)
+            resident_only = bool(n_cold) and (
+                budget_s <= 0 or tier.estimate_cold_seconds(n_cold)
+                > budget_s)
+        codes, ids, sizes, dropped = tier.gather_degraded(
+            clusters, resident_only=resident_only)
+        n_dropped = int(dropped.sum())
+        if n_dropped:
+            self.last_batch_info = {
+                "degraded": True,
+                "dropped_probes":
+                    self.last_batch_info.get("dropped_probes", 0)
+                    + n_dropped}
+        if bank is not None:
+            li = self._dev(cold_q.astype(np.int64) * self.cfg.nprobe
+                           + cold_pos)
+            lut = (QuantizedLUT(*(a.index_select(0, li) for a in bank))
+                   if isinstance(bank, QuantizedLUT)
+                   else bank.index_select(0, li))
+        else:
+            res = miss_residuals(q_dev.index_select(0, self._dev(cold_q)),
+                                 self.sindex.centroids,
+                                 self._dev(clusters),
+                                 self.sindex.rotation).contiguous()
+            lc = (kops.lut_build_q if self.cfg.lut_dtype == "uint8"
+                  else kops.lut_build)
+            cb = self.index.codebook
+            lut = lc(res, cb.codebooks, cb.sqnorms)
+        bd, bi = kops.pq_scan_topk(lut, codes, ids, sizes, self.cfg.k,
+                                   strategy=self.cfg.strategy)   # DC + TS
+        bi = bi.masked_fill(~torch.isfinite(bd), -1)
+        return bd.cpu().numpy(), bi.cpu().numpy(), cold_q
+
     def _probe_posmap(self, probes: np.ndarray) -> np.ndarray:
         """(nq, nlist) position of each cluster in its query's probe list
         (-1 absent).  Built once per batch; every drain round reuses it."""
@@ -834,11 +990,15 @@ class DistributedEngine:
         follow-up rounds so results are complete.
 
         ``n_valid``: rows >= n_valid are serving-batch padding, kept out
-        of heat observation and the LUT cache.  ``budget_s`` only matters
-        to the tiered cold scan (not ported) and is ignored here."""
+        of heat observation and the LUT cache.  ``budget_s``: remaining
+        deadline budget; only the tiered cold scan consults it (when the
+        predicted cold-read cost would blow it, the cold probes are
+        dropped and the batch is reported degraded in
+        ``last_batch_info``)."""
         if tenants is not None or terms is not None:
             raise NotImplementedError("tenant / predicate scoped search is "
                                       "not ported to repro_torch yet")
+        self.last_batch_info = {"degraded": False, "dropped_probes": 0}
         if self._swap_on_next_batch:
             self._join_pending_relayout()
         t0 = time.perf_counter()
@@ -852,6 +1012,12 @@ class DistributedEngine:
         if nv > 0:      # all-padding warmup batches are not traffic
             if self.heat_estimator is not None:
                 self.heat_estimator.observe(probes[:nv])
+            if self.tiered_store is not None:
+                # tier heat drives promote / demote; residency changes
+                # reach the shard tensors at the next placement (the cold
+                # mask is a snapshot), and the tier scan serves the
+                # batches in between exactly
+                self.tiered_store.observe(probes[:nv])
             self.batches_served += 1
             if (self.cfg.relayout_every > 0
                     and self.heat_estimator is not None
@@ -901,6 +1067,12 @@ class DistributedEngine:
             if not (flush and self.carry):
                 break
             pending = np.zeros((0, 0), np.int64)   # only carry-in tasks
+        if self.tiered_store is not None:
+            cold = self._scan_cold(q_dev, probes, bank, budget_s, nv)
+            if cold is not None:
+                for out, part in zip((all_d, all_i, all_q), cold):
+                    out.append(part)
+            t0 = self._clock("cold", t0)
         d = np.concatenate([a.reshape(-1, k) for a in all_d])
         i = np.concatenate([a.reshape(-1, k) for a in all_i])
         q = np.concatenate([a.reshape(-1) for a in all_q])

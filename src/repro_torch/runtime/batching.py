@@ -84,6 +84,7 @@ class Request:
     replica: Optional[int] = None  # which replica served it (service tier)
     retried: bool = False          # re-routed after a replica failure
     retries: int = 0               # how many times it was re-routed
+    degraded: bool = False         # served from resident-only probes
     deadline_missed: bool = False  # t_done exceeded the deadline budget
 
     @property

@@ -4,7 +4,9 @@
     into padded micro-batches, flushing on deadline or on a full batch;
   * :class:`LocalEngine` runs the single-device five-phase pipeline
     (``core.search.search_ivfpq``) over an all-resident index, optionally
-    backed by the hot-cluster LUT cache (:mod:`repro_torch.runtime.cache`);
+    backed by the hot-cluster LUT cache (:mod:`repro_torch.runtime.cache`),
+    or over a tiered store (:mod:`repro_torch.storage`) and the two-level
+    coarse quantizer (:mod:`repro_torch.core.coarse2`);
   * :class:`ShardedEngine` serves ``core.sharded_search.DistributedEngine``
     (layout-sharded clusters, scheduled scans, optional LUT cache);
   * :class:`PimPacedEngine` paces any engine's batches to their modeled
@@ -43,7 +45,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.ivf import IVFPQIndex, PaddedClusters
-from repro_torch.core.search import SearchParams, cl_rc, dc_ts, search_ivfpq
+from repro_torch.core.search import (SearchParams, cluster_locate, dc_ts,
+                                     dc_ts_tasks, lc, rc_from_probes,
+                                     search_ivfpq)
 from repro_torch.runtime.batching import (BucketPolicy, MicroBatch,
                                           MicroBatcher, Request)
 from repro_torch.runtime.cache import (HotClusterLUTCache, lut_fill_misses,
@@ -103,15 +107,19 @@ class SearchEngine(Protocol):
 class LocalEngine:
     """Single-device five-phase pipeline behind the serving protocol.
 
-    With ``lut_cache`` set, LC consults the hot-cluster LUT cache per
-    (query, probed cluster) pair and builds tables for the misses only
-    (one batched LC over the miss rows, through the LC kernels on the
-    card); CL, RC, DC and TS are the cache-off pipeline's own steps
-    (``core.search.cl_rc`` / ``dc_ts``), so at exact granularity an f32
-    hit gives the same numbers as the cache-off search.  Host seconds of
-    each cached-path phase accumulate in :attr:`phase_s` (``cl_rc``,
-    ``lut_scan``, ``lut_fill``, ``bank``, ``dc_ts``; each ends where the
-    host next needs the device's result, so device time is inside).
+    Without a cache, tier or two-level CL a batch is one ``search_ivfpq``.
+    With any of them it runs :meth:`_search_tasks`, one ``query_chunk``
+    at a time.  With ``lut_cache`` set, LC consults the hot-cluster LUT
+    cache per (query, probed cluster) pair and builds tables for the
+    misses only (one batched LC over the miss rows, through the LC
+    kernels on the card); CL, RC, DC and TS are the cache-off pipeline's
+    own steps (``cluster_locate`` on the fixed block, ``rc_from_probes``,
+    ``dc_ts``), so at exact granularity an f32 hit gives the same numbers
+    as the cache-off search.  Host seconds of each phase accumulate in
+    :attr:`phase_s` (``route``, ``observe``, ``rc``, ``lut_scan``,
+    ``lut_fill``, ``bank``, ``rc_lc``, ``fetch``, ``dc_ts``; each ends
+    where the host next needs the device's result, so device time is
+    inside).
 
     Live-index support: ``(index, clusters)`` live in one ``_view`` tuple
     read exactly once per batch, and ``install`` swaps the whole tuple --
@@ -121,25 +129,35 @@ class LocalEngine:
     generation that salts every LUT-cache bucket, so a stale in-flight
     batch cannot poison the cache for the new generation.
 
-    Tiered storage, the two-level coarse quantizer and tenant / predicate
-    scopes are not ported yet and raise ``NotImplementedError`` (ROADMAP
-    items 7 and 8).
+    Beyond-memory serving: with ``tiered_store`` (a :class:`~repro_torch.
+    storage.TieredStore`) the engine holds no ``PaddedClusters``
+    (``clusters=None``): CL routes as usual, the probes' heat feeds the
+    store's residency controller, and each chunk's codes, ids and sizes
+    are fetched through the store (the slab on the card, or the spill on
+    the host) and scanned by ``core.search.dc_ts_tasks``.  With
+    ``coarse`` (a :class:`~repro_torch.core.coarse2.Coarse2`) CL ranks
+    only the top ``coarse_nprobe1`` groups' member centroids (default:
+    all groups).  The fetched bytes equal ``pad_clusters``'s, so a tiered
+    batch equals the all-resident search bit for bit; under deadline
+    pressure (``budget_s``) cold probes are shed and ``last_batch_info``
+    reports the batch degraded.
+
+    Tenant / predicate scopes (``meta``) are not ported yet and raise
+    ``NotImplementedError`` (ROADMAP item 8).
     """
 
-    def __init__(self, index: IVFPQIndex, clusters: PaddedClusters,
+    def __init__(self, index: IVFPQIndex, clusters: Optional[PaddedClusters],
                  params: SearchParams,
                  lut_cache: Optional[HotClusterLUTCache] = None,
-                 tiered_store=None, coarse=None, meta=None):
+                 tiered_store=None, coarse=None, coarse_nprobe1: int = 0,
+                 meta=None):
         _warn_direct_use("LocalEngine")
-        for name, val, item in (("tiered_store", tiered_store, 7),
-                                ("coarse", coarse, 7), ("meta", meta, 8)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"LocalEngine({name}=...) is not ported to repro_torch "
-                    f"yet (ROADMAP item {item})")
-        if clusters is None:
-            raise ValueError("clusters are required (tiered storage is not "
-                             "ported)")
+        if meta is not None:
+            raise NotImplementedError("LocalEngine(meta=...) is not ported "
+                                      "to repro_torch yet (ROADMAP item 8)")
+        if clusters is None and tiered_store is None:
+            raise ValueError("clusters may be omitted only with a "
+                             "tiered_store (codes then live in the tier)")
         if lut_cache is not None and lut_cache.lut_dtype != params.lut_dtype:
             raise ValueError(
                 f"lut_cache.lut_dtype={lut_cache.lut_dtype!r} disagrees "
@@ -148,9 +166,17 @@ class LocalEngine:
         self._view = (index, clusters, 0)
         self.params = params
         self.lut_cache = lut_cache
+        self.tiered_store = tiered_store
+        self.coarse = coarse
+        self.coarse_nprobe1 = (int(coarse_nprobe1) if coarse_nprobe1
+                               else (coarse.n_groups if coarse is not None
+                                     else 0))
         self.k = params.k
         self.device = index.centroids.device
         self.phase_s: dict = {}
+        # per-batch degrade report, re-stamped by every search_batch call;
+        # the serving runtime reads it to flag requests as degraded
+        self.last_batch_info: dict = {"degraded": False, "dropped_probes": 0}
 
     # the (index, clusters) pair is one atomic view; the split properties
     # keep the attribute surface working
@@ -205,22 +231,31 @@ class LocalEngine:
                      terms: Optional[np.ndarray] = None
                      ) -> Tuple[np.ndarray, np.ndarray]:
         """(B, D) queries -> ((B, k) f32 dists, (B, k) i32 ids) on the
-        host.  ``budget_s`` only matters to the tiered path and is
-        ignored here, as in the reference's all-resident engine."""
+        host.  ``budget_s`` (seconds left before the batch's deadline)
+        only matters to the tiered path."""
         if tenants is not None or terms is not None:
             raise NotImplementedError("tenant / predicate scoped search is "
                                       "not ported to repro_torch yet "
                                       "(ROADMAP item 8)")
+        self.last_batch_info = {"degraded": False, "dropped_probes": 0}
         queries = np.asarray(queries, np.float32)
         view = self._view                     # one atomic read per batch
-        if self.lut_cache is not None:
-            return self._search_cached(queries, n_valid, view)
+        if (self.lut_cache is not None or self.tiered_store is not None
+                or self.coarse is not None):
+            return self._search_tasks(queries, n_valid, budget_s, view)
         q = torch.from_numpy(queries).to(self.device)
         d, i = search_ivfpq(view[0], view[1], q, self.params)
         return d.cpu().numpy(), i.cpu().numpy()
 
     def serving_info(self) -> dict:
-        return {"engine": "local", "device": str(self.device)}
+        """Engine-side metrics block (routing mode, tier residency)."""
+        out: dict = {"engine": "local", "device": str(self.device)}
+        if self.coarse is not None:
+            out["coarse"] = {"n_groups": self.coarse.n_groups,
+                             "nprobe1": self.coarse_nprobe1}
+        if self.tiered_store is not None:
+            out["tier"] = self.tiered_store.serving_info()
+        return out
 
     def precompile_lc(self, max_rows: int) -> None:
         """Run the cached path's miss-batch LC shapes (powers of two up to
@@ -228,38 +263,20 @@ class LocalEngine:
         precompile_lut_shapes(self.index.codebook, max_rows,
                               lut_dtype=self.params.lut_dtype)
 
-    @torch.no_grad()
-    def _search_cached(self, queries: np.ndarray, n_valid: Optional[int],
-                       view: tuple):
-        """The cached pipeline over one ``(index, clusters, view
-        generation)`` view, one ``query_chunk`` of queries at a time (as
-        ``search_ivfpq``).  Padding rows (>= n_valid) bypass the cache
-        entirely: no LRU slot, no hit or miss."""
-        qc = self.params.query_chunk
-        nv = len(queries) if n_valid is None else min(n_valid, len(queries))
-        outs = [self._search_cached_chunk(queries[s:s + qc],
-                                          min(max(nv - s, 0), qc), view)
-                for s in range(0, len(queries), qc)]
-        return (np.concatenate([o[0] for o in outs]),
-                np.concatenate([o[1] for o in outs]))
-
-    def _search_cached_chunk(self, queries: np.ndarray, n_valid: int,
-                             view: tuple):
-        p, cache = self.params, self.lut_cache
-        index, clusters, vgen = view
+    def _cached_lut(self, queries: np.ndarray, n_valid: int,
+                    flat_probes: np.ndarray, npr: int,
+                    flat_res: torch.Tensor, index: IVFPQIndex, vgen: int):
+        """One chunk's tables through the LUT cache: hits from the cache,
+        misses built by LC over the chunk's own residual rows."""
+        cache = self.lut_cache
         t0 = time.perf_counter()
-        probes, flat_res = cl_rc(torch.from_numpy(queries).to(self.device),
-                                 index.centroids, index.rotation, p)
-        nq, npr = probes.shape
-        flat_probes = probes.reshape(-1).cpu().numpy()
-        t0 = self._clock("cl_rc", t0)
         # one hash per valid query, reused across its nprobe cache keys;
         # the view generation salts the bucket, so entries of a superseded
         # generation (older centroids / codebooks) can never hit
         buckets = [(vgen, cache.bucket_of(queries[qi]))
                    for qi in range(n_valid)]
         luts, miss_rows = lut_miss_scan(cache, flat_probes, buckets, npr,
-                                        nq * npr)
+                                        len(flat_probes))
         t0 = self._clock("lut_scan", t0)
         if miss_rows:
             # the chunk's own residual rows, padded to a power of two
@@ -270,11 +287,109 @@ class LocalEngine:
                             flat_res.index_select(0, rows.to(self.device)))
             t0 = self._clock("lut_fill", t0)
         lut = stack_lut_bank(luts, device=self.device)
-        t0 = self._clock("bank", t0)
-        d, i = dc_ts(lut, probes, clusters, p)
-        out = d.cpu().numpy(), i.cpu().numpy()
-        self._clock("dc_ts", t0)
-        return out
+        self._clock("bank", t0)
+        return lut
+
+    def _route(self, queries: torch.Tensor, index: IVFPQIndex) -> torch.Tensor:
+        """CL, flat or two-level, for one chunk -> probes (Qc, P).  Flat
+        CL runs on the fixed (query_chunk, D) block, as ``cl_rc``; with a
+        :class:`~repro_torch.core.coarse2.Coarse2` routing scores
+        ``n_groups + nprobe1 * gmax`` centroid rows instead of all
+        ``nlist`` (at ``nprobe1 == n_groups`` the probe set is flat CL's
+        up to near-ties)."""
+        p = self.params
+        if self.coarse is None:
+            return cluster_locate(queries, index.centroids, p.nprobe,
+                                  block=p.query_chunk)[0]
+        from repro_torch.core.coarse2 import coarse2_locate
+        return coarse2_locate(self.coarse, queries, nprobe=p.nprobe,
+                              nprobe1=self.coarse_nprobe1,
+                              block=p.query_chunk)[0]
+
+    @torch.no_grad()
+    def _search_tasks(self, queries: np.ndarray, n_valid: Optional[int],
+                      budget_s: Optional[float], view: tuple):
+        """The cached, tiered and two-level path: route, then per chunk
+        the tables (cache or LC), the codes (the clusters, or the tier's
+        slab hit or batched spill read), DC + TS.
+
+        CL runs for the whole batch first, so the probe heat of the valid
+        rows feeds the tier's residency controller once per batch and
+        *before* the fetch (a sustained shift promotes clusters ahead of
+        the reads that want them), and the deadline check sees the whole
+        batch's cold clusters.  Then one ``query_chunk`` at a time: RC,
+        LC (the cache, or the LC kernels), the fetch (one deduplicated
+        spill read per chunk), DC + TS.  Padding rows (>= n_valid)
+        bypass the cache entirely (no LRU slot, no hit or miss), feed no
+        heat and are never shed.
+
+        Fail-operational: the fetch runs through ``TieredStore.
+        gather_degraded``; probes the tier cannot serve (quarantined
+        clusters, or *all* cold probes when ``budget_s`` says the
+        predicted cold-fetch cost would blow the deadline) come back with
+        size 0, so the scan is exact over what was scanned, and the batch
+        is reported degraded in ``last_batch_info``.
+        """
+        p = self.params
+        index, clusters, vgen = view
+        tier = self.tiered_store
+        qc = p.query_chunk
+        nq = len(queries)
+        nv = nq if n_valid is None else min(n_valid, nq)
+        t0 = time.perf_counter()
+        q_all = torch.from_numpy(queries).to(self.device)
+        chunks = [(s, q_all[s:s + qc]) for s in range(0, nq, qc)]
+        probes = [self._route(q, index) for _, q in chunks]
+        probes_np = (torch.cat(probes).cpu().numpy() if probes
+                     else np.zeros((0, p.nprobe), np.int64))
+        t0 = self._clock("route", t0)
+        resident_only = False
+        if tier is not None:
+            if nv > 0:
+                tier.observe(probes_np[:nv])
+            # deadline-at-risk check: if the predicted cold-fetch cost
+            # (online EWMA of measured cold fetches) would overrun the
+            # remaining budget, drop cold probes and serve resident-only
+            if budget_s is not None:
+                flat = probes_np[:nv].reshape(-1)   # padding is not shed
+                n_cold = int(np.unique(flat[~tier.resident_mask[flat]]).size)
+                resident_only = bool(n_cold) and (
+                    budget_s <= 0
+                    or tier.estimate_cold_seconds(n_cold) > budget_s)
+            t0 = self._clock("observe", t0)
+        outs, n_dropped = [], 0
+        for (s, q), pr in zip(chunks, probes):
+            nv_chunk = min(max(nv - s, 0), len(q))
+            flat_probes = probes_np[s:s + len(q)].reshape(-1)
+            t0 = time.perf_counter()
+            flat_res = rc_from_probes(q, index.centroids, index.rotation, pr)
+            if self.lut_cache is not None:    # clocks its own phases
+                self._clock("rc", t0)
+                lut = self._cached_lut(queries[s:s + qc], nv_chunk,
+                                       flat_probes, pr.shape[1], flat_res,
+                                       index, vgen)
+            else:
+                lut = lc(flat_res, index.codebook, p)
+                t0 = self._clock("rc_lc", t0)
+            t0 = time.perf_counter()
+            if tier is None:
+                d, i = dc_ts(lut, pr, clusters, p)
+            else:
+                codes, ids, sizes, dropped = tier.gather_degraded(
+                    flat_probes, resident_only=resident_only)
+                n_dropped += int(dropped[:nv_chunk * pr.shape[1]].sum())
+                t0 = self._clock("fetch", t0)
+                d, i = dc_ts_tasks(lut, codes, ids, sizes, len(q), p)
+            outs.append((d.cpu().numpy(), i.cpu().numpy()))
+            t0 = self._clock("dc_ts", t0)
+        if n_dropped:
+            self.last_batch_info = {"degraded": True,
+                                    "dropped_probes": n_dropped}
+        if not outs:
+            return (np.zeros((0, p.k), np.float32),
+                    np.zeros((0, p.k), np.int32))
+        return (np.concatenate([o[0] for o in outs]),
+                np.concatenate([o[1] for o in outs]))
 
 
 class ShardedEngine:
@@ -312,6 +427,10 @@ class ShardedEngine:
 
     def serving_info(self) -> dict:
         return self.engine.serving_info()
+
+    @property
+    def last_batch_info(self) -> dict:
+        return self.engine.last_batch_info
 
     def search_batch(self, queries: np.ndarray,
                      n_valid: Optional[int] = None,
@@ -430,6 +549,7 @@ class ServingStats:
         self.queue_depths: List[int] = []
         self.t_first_arrival: Optional[float] = None
         self.t_last_done: Optional[float] = None
+        self.degraded_requests = 0
         self.deadline_missed = 0
         self._lock = threading.Lock()
 
@@ -449,6 +569,8 @@ class ServingStats:
     def record_done(self, req: Request) -> None:
         with self._lock:
             self.latencies_s.append(req.latency_s)
+            if req.degraded:
+                self.degraded_requests += 1
             if req.deadline_missed:
                 self.deadline_missed += 1
             if self.t_last_done is None or req.t_done > self.t_last_done:
@@ -485,6 +607,7 @@ class ServingStats:
                 "max_queue_depth": (max(self.queue_depths)
                                     if self.queue_depths else 0),
                 "flushes": reasons,
+                "degraded_requests": self.degraded_requests,
                 "deadline_missed": self.deadline_missed,
             }
 
@@ -499,7 +622,7 @@ class ServingConfig:
 
     ``deadline_s`` > 0 arms deadline-bounded serving: each batch's budget
     is ``oldest arrival + deadline_s - service start``, passed to the
-    engine (only a tiered engine, not ported, degrades on it), and every
+    engine (a tiered engine sheds its cold probes on it), and every
     served request is stamped ``deadline_missed`` when its completion ran
     past its deadline.
     """
@@ -612,12 +735,17 @@ class ServingRuntime:
         service_s = time.perf_counter() - t0
         self.stats.record_batch(batch, service_s)
         t_done = t_start + service_s
+        # engines that can degrade report it per batch (set fresh on every
+        # search_batch call, so a stale read is impossible)
+        info = getattr(self.engine, "last_batch_info", None)
+        degraded = bool(info and info.get("degraded"))
         for row, req in enumerate(batch.requests):   # de-pad: rows [0, n)
             req.dists = np.asarray(d[row])
             req.ids = np.asarray(i[row])
             req.t_flush = batch.t_flush
             req.t_service_start = t_start
             req.t_done = t_done
+            req.degraded = degraded
             if self.config.deadline_s > 0:
                 req.deadline_missed = (
                     t_done > req.t_arrival + self.config.deadline_s)

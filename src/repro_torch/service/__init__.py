@@ -12,8 +12,9 @@ fleet inside ``[replicas, replicas_max]`` from queue-depth/p99 signals.
 
 ``python -m repro_torch.service --selftest`` runs an end-to-end smoke on
 both stream clocks; ``--spec deploy.json`` boots a fleet from a file.
-Tenancy, the live index, tiered storage, fault injection and the
-auto-tuner are not ported yet.
+The live index (``mutable=True``) and tiered storage (``storage=
+"tiered"``) are served; tenancy, fault injection and the auto-tuner are
+not ported yet.
 """
 
 from repro_torch.service.autoscale import Autoscaler, ScaleEvent, ScaleSignals

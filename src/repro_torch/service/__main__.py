@@ -2,7 +2,7 @@
 --selftest``.
 
 Builds a tiny corpus and index on ``--device`` (default the card), stands
-up AnnService four times and asserts the service invariants end to end:
+up AnnService five times and asserts the service invariants end to end:
 
   * 1-replica local search == direct ``search_ivfpq`` (same bits);
   * 2 replicas behind the cache-aware router with the LUT cache: streamed
@@ -15,10 +15,14 @@ up AnnService four times and asserts the service invariants end to end:
   * the live index (``ServiceSpec(mutable=True)``, 2 replicas): upserted
     ids retrieve themselves, deleted ids never surface, before or after a
     forced maintenance generation; then the skewed stream on ``--clock``
-    over the new generation equals a direct batch.
+    over the new generation equals a direct batch;
+  * tiered storage (``ServiceSpec(storage="tiered")``, a budget a quarter
+    of the index): search equals the all-resident service bit for bit,
+    before and after residency churn, the resident bytes stay within the
+    budget and cold fetches happened; then the skewed stream on
+    ``--clock`` equals a direct batch.
 
-The reference selftest's tiered-storage phase is not ported (ROADMAP
-item 7): the run says so and does not count it as passed.  ``--spec deploy.json`` boots the smoke fleet from a deploy
+``--spec deploy.json`` boots the smoke fleet from a deploy
 file instead (the same schema as ``repro.service``).  The reference CLI's
 ``--selftest-chaos``, ``--selftest-tenants`` and ``--autotune`` are not
 ported; asking for one prints the ROADMAP item it waits for and exits 2.
@@ -39,7 +43,6 @@ NOT_PORTED = {
     "selftest_tenants": ("--selftest-tenants (multi-tenant smoke)", 8),
     "autotune": ("--autotune (SLO-driven auto-tuner)", 10),
 }
-SKIPPED_PHASES = (("tiered storage (beyond-memory serving)", 7),)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -173,11 +176,56 @@ def selftest(clock: str = "virtual", device: str = "cuda") -> int:
           f"(clock={clock}): OK")
     svc4.shutdown()
 
-    for what, item in SKIPPED_PHASES:
-        print(f"[selftest] {what}: not ported, waits for ROADMAP item "
-              f"{item}; NOT RUN")
+    # -- tiered storage: beyond-memory serving, results unchanged ---------
+    import shutil
+    import tempfile
+
+    spec5_kw = dict(engine="local", replicas=1, nprobe=4, k=5,
+                    buckets=(1, 2, 4), max_wait_s=1e-3)
+    ref5 = AnnService.build(ServiceSpec(**spec5_kw), index=index)
+    d_r5, i_r5 = ref5.search(queries)
+    ref5.shutdown()
+    tdir = tempfile.mkdtemp(prefix="selftest_tier_")
+    try:
+        spec5 = ServiceSpec(storage="tiered", storage_dir=tdir,
+                            storage_budget_bytes=1, **spec5_kw)  # all cold
+        svc5 = AnnService.build(spec5, index=index)
+        tier = svc5.index.tiered_store
+        budget = max(tier.total_bytes // 4, tier.bytes_per_cluster)
+        svc5.shutdown()
+        spec5 = ServiceSpec(storage="tiered", storage_dir=tdir + "/q",
+                            storage_budget_bytes=budget, **spec5_kw)
+        svc5 = AnnService.build(spec5, index=index)
+        tier = svc5.index.tiered_store
+        _check(tier.total_bytes >= 4 * tier.budget_bytes >= 4,
+               f"budget {tier.budget_bytes} of {tier.total_bytes}")
+        d_t5, i_t5 = svc5.search(queries)
+        _check(np.array_equal(i_t5, i_r5) and np.array_equal(d_t5, d_r5),
+               "tiered search differs from the all-resident service")
+        for _ in range(4):                   # churn residency; stay exact
+            svc5.search(queries)
+        d_t6, i_t6 = svc5.search(queries)
+        _check(np.array_equal(i_t6, i_r5) and np.array_equal(d_t6, d_r5),
+               "tiered search differs after residency churn")
+        _check(tier.resident_bytes <= tier.budget_bytes,
+               f"resident {tier.resident_bytes} B over the budget")
+        reqs5 = svc5.stream(stream, clock=clock)
+        for i, r in enumerate(reqs5):
+            _check(np.array_equal(r.ids, i_r5[pool[i]]),
+                   f"streamed request {i} differs from the direct batch "
+                   f"on the tiered service")
+        tinfo = svc5.stats()["tier"]
+        _check(tinfo["cold_fetches"] > 0, f"no cold fetch: {tinfo}")
+        print(f"[selftest] tiered: {tinfo['total_bytes']}B index under "
+              f"{tinfo['budget_bytes']}B budget "
+              f"(resident={tinfo['resident_clusters']}/{index.nlist} "
+              f"hot_rate={tinfo['hot_rate']:.2f}), streamed {len(reqs5)} "
+              f"requests (clock={clock}); results == all-resident: OK")
+        svc5.shutdown()
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
     print(f"[selftest] repro_torch.service OK (clock={clock} "
-          f"device={device}; 4 of the reference's 5 phases)")
+          f"device={device})")
     return 0
 
 

@@ -134,10 +134,13 @@ class SearchFuture:
         return self._request.dists, self._request.ids
 
     def timing(self) -> dict:
-        """Queue/batch/engine breakdown plus routing provenance."""
+        """Queue/batch/engine breakdown plus routing provenance and
+        whether the result was degraded (a tiered engine shed cold
+        probes under deadline pressure)."""
         out = self._request.timing()
         out["replica"] = self._request.replica
         out["retried"] = self._request.retried
+        out["degraded"] = self._request.degraded
         return out
 
 

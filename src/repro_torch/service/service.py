@@ -51,9 +51,18 @@ path); with ``ServiceSpec.replicas_max`` set an
 :class:`~repro_torch.service.autoscale.Autoscaler` moves the live fleet
 between batches.
 
+With ``ServiceSpec(storage="tiered", storage_budget_bytes=...)`` the
+index's codes spill to ``storage_dir`` (when None, a fresh temporary
+directory that ``shutdown`` removes) and the replicas share one
+:class:`~repro_torch.storage.TieredStore` that keeps the hot clusters on
+the index's device: local replicas fetch probed clusters through it, sharded ones hold its
+resident clusters in their shards and scan the rest through it.
+``coarse_groups`` gives local replicas the two-level coarse quantizer
+(one :class:`~repro_torch.core.coarse2.Coarse2` per handle).
+
 Not ported yet, each raising ``NotImplementedError`` at ``build`` with
-its ROADMAP item: tiered storage and the two-level coarse quantizer (7),
-tenants, tags and weighted fair queueing (8), fault injection (9).
+its ROADMAP item: tenants, tags and weighted fair queueing (8), fault
+injection (9).
 
 Invariants (held in tests/test_torch_service.py):
   * 1 replica, local engine, no cache: ``search`` is exactly
@@ -66,6 +75,8 @@ Invariants (held in tests/test_torch_service.py):
 from __future__ import annotations
 
 import dataclasses
+import shutil
+import tempfile
 import threading
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -105,10 +116,6 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
 def _check_ported(spec: ServiceSpec, tenants, tags, fault_injector) -> None:
     """Refuse, by ROADMAP item, what the reference service offers and
     this one does not yet."""
-    if spec.storage == "tiered":
-        raise _not_ported("ServiceSpec(storage='tiered')", 7)
-    if spec.coarse_groups:
-        raise _not_ported("ServiceSpec(coarse_groups=...)", 7)
     if spec.tenants or spec.qos_wfq:
         raise _not_ported("ServiceSpec(tenants=..., qos_wfq=...)", 8)
     if tenants is not None or tags is not None:
@@ -177,6 +184,7 @@ class AnnService:
         self._sample_probes = None
         self._sample_queries = None       # re-probed after a generation
         self._serving_cfg = self._serving_config(spec)
+        self._own_spill_dir: Optional[str] = None    # set by build()
         # the mutation coordinator (wired by build() when spec.mutable)
         self.mutator = None
         for i, rep in enumerate(self.replicas):
@@ -196,27 +204,60 @@ class AnnService:
         it keeps its device).  With ``spec.mutable`` the service is built
         over a *mutable* handle (needs ``points``, or an already-mutable
         handle) and ``upsert`` / ``delete`` / ``run_maintenance`` come
-        alive.  ``sample_queries`` seeds the sharded engine's heat
-        estimate (falls back to a slice of the corpus).
-        ``tenants``, ``tags`` and ``fault_injector`` are not ported and
-        raise ``NotImplementedError``."""
+        alive.  With ``spec.storage == "tiered"`` the handle spills its
+        codes (a prebuilt handle must have been built that way).
+        ``sample_queries`` seeds the sharded engine's heat estimate
+        (falls back to a slice of the corpus).  ``tenants``, ``tags`` and
+        ``fault_injector`` are not ported and raise
+        ``NotImplementedError``."""
         spec.validate()
         _check_ported(spec, tenants, tags, fault_injector)
+        storage_kw = dict(storage=spec.storage, storage_dir=spec.storage_dir,
+                          storage_budget_bytes=spec.storage_budget_bytes,
+                          storage_promote_margin=spec.storage_promote_margin,
+                          storage_checksum=spec.checksum)
+        own_dir = None
+        if (spec.storage == "tiered" and spec.storage_dir is None
+                and not isinstance(index, Index)):
+            # a fresh spill directory per build, owned by the service:
+            # shutdown removes it (an explicit one is the caller's)
+            own_dir = storage_kw["storage_dir"] = tempfile.mkdtemp(
+                prefix="ann_tier_")
+        try:
+            svc = cls._build(spec, points, index, sample_queries, device,
+                             storage_kw)
+        except BaseException:
+            if own_dir is not None:
+                shutil.rmtree(own_dir, ignore_errors=True)
+            raise
+        svc._own_spill_dir = own_dir
+        return svc
+
+    @classmethod
+    def _build(cls, spec: ServiceSpec, points, index, sample_queries,
+               device, storage_kw: dict) -> "AnnService":
         if index is None:
             if points is None:
                 raise ValueError("AnnService.build needs points or index")
             handle = spec.index.build(points, device=device,
-                                      mutable=spec.mutable)
+                                      mutable=spec.mutable, **storage_kw)
         elif isinstance(index, Index):
             handle = index
             if spec.mutable and not handle.mutable:
                 raise ValueError(
                     "spec.mutable=True needs a mutable Index handle -- "
                     "build one with IndexSpec.build(points, mutable=True)")
+            if handle.storage != spec.storage:
+                raise ValueError(
+                    f"spec.storage={spec.storage!r} but the prebuilt Index "
+                    f"handle was built storage={handle.storage!r} -- build "
+                    f"it with IndexSpec.build(points, storage=...) to "
+                    f"match")
         elif isinstance(index, IVFPQIndex):
             # identity-preserving for the static case; with spec.mutable
             # the raw points must come along so maintenance can re-encode
-            handle = Index(index, points=points, mutable=spec.mutable)
+            handle = Index(index, points=points, mutable=spec.mutable,
+                           **storage_kw)
         else:
             raise TypeError(f"index must be an Index or an IVFPQIndex, got "
                             f"{type(index).__name__}")
@@ -283,11 +324,16 @@ class AnnService:
         def pace(engine):
             """PIM-paced serving: wrap the engine so batches take their
             Eq. 15 modeled time on a ``pim_paced_ranks``-rank fleet
-            (results unchanged; see runtime.serving.PimPacedEngine)."""
+            (results unchanged; see runtime.serving.PimPacedEngine).
+            With tiered storage the per-task latency also carries the
+            disk tier's expected cold-probe cost (Eq. 15 + seek/bw), at
+            the steady-state cold prior 1 - budget/total."""
             if not spec.pim_paced_ranks:
                 return engine
             from repro_torch.core.perf_model import (IndexParams,
+                                                     NVME_PROFILE,
                                                      UPMEM_PROFILE,
+                                                     cold_probe_seconds,
                                                      lut_width_bytes,
                                                      make_task_latency_model)
             sizes = index.sizes
@@ -296,23 +342,47 @@ class AnnService:
                               m=index.codebook.m, cb=index.codebook.cb,
                               b_lut=lut_width_bytes(spec.lut_dtype))
             model = make_task_latency_model(ixp, UPMEM_PROFILE)
+            task_s = model.task_latency(float(sizes.mean()))
+            tier = index.tiered_store
+            if tier is not None:
+                cold_prior = max(
+                    0.0, 1.0 - tier.budget_bytes / max(tier.total_bytes, 1))
+                task_s += cold_prior * cold_probe_seconds(ixp, NVME_PROFILE)
             return PimPacedEngine(
                 engine, nprobe=spec.nprobe, ranks=spec.pim_paced_ranks,
-                task_latency_s=model.task_latency(float(sizes.mean())))
+                task_latency_s=task_s)
 
         if spec.engine == "local":
             cache = make_cache()
+            coarse = None
+            if spec.coarse_groups:
+                # one Coarse2 per handle (replicas share it; routing is
+                # deterministic in the index seed)
+                coarse = getattr(index, "_coarse2_cache", None)
+                if coarse is None:
+                    import torch
+
+                    from repro_torch.core.coarse2 import build_coarse2
+                    coarse = build_coarse2(
+                        torch.Generator().manual_seed(spec.index.seed),
+                        index.centroids, n_groups=spec.coarse_groups)
+                    index._coarse2_cache = coarse
             # the static handle's search_view is the wrapped IVFPQIndex
             # itself: bit-exact identity with a direct search_ivfpq; a
             # mutable one's is the current generation's lean view, and
-            # clusters its current snapshot;
+            # clusters its current snapshot; a tiered one holds no
+            # clusters (the engine fetches probed rows through the tier);
             # use_kernels: the device picks kernel (card) or plain version
-            core = LocalEngine(index.search_view, index.clusters,
+            tier = index.tiered_store
+            core = LocalEngine(index.search_view,
+                               None if tier is not None else index.clusters,
                                SearchParams(nprobe=spec.nprobe, k=spec.k,
                                             strategy=spec.strategy,
                                             use_kernels=True,
                                             lut_dtype=spec.lut_dtype),
-                               lut_cache=cache)
+                               lut_cache=cache, tiered_store=tier,
+                               coarse=coarse,
+                               coarse_nprobe1=spec.coarse_nprobe1)
             return Replica(ServingRuntime(pace(core), serving_cfg), core,
                            core, cache, None)
         est = None
@@ -325,7 +395,8 @@ class AnnService:
         core = DistributedEngine(index.to_ivfpq(),
                                  EngineConfig(**spec.engine_config_kwargs()),
                                  sample_probes, lut_cache=cache,
-                                 heat_estimator=est)
+                                 heat_estimator=est,
+                                 tiered_store=index.tiered_store)
         if spec.tune_tasks_per_shard:
             core.tasks_controller = core.make_tasks_controller()
         adapter = ShardedEngine(core)
@@ -390,7 +461,9 @@ class AnnService:
         shutdown of the rest of the fleet: it is counted in
         ``stats()['aggregate']['wedged_workers']`` and the first wedge
         error is re-raised after every executor had its chance.  An
-        in-flight maintenance cycle is joined first."""
+        in-flight maintenance cycle is joined first.  A spill directory
+        that ``build`` created (tiered storage, no ``storage_dir``) is
+        removed."""
         if self.mutator is not None:
             self.mutator.close()
         first_err: Optional[BaseException] = None
@@ -402,6 +475,8 @@ class AnnService:
                     first_err = err
         out = self.stats()
         self._closed = True
+        if self._own_spill_dir is not None:
+            shutil.rmtree(self._own_spill_dir, ignore_errors=True)
         if first_err is not None:
             raise first_err
         return out
@@ -745,6 +820,8 @@ class AnnService:
             out["autoscaler"] = self.autoscaler.stats()
         if self.mutator is not None:
             out["mutation"] = self.mutator.stats()
+        if self.index.tiered_store is not None:
+            out["tier"] = self.index.tiered_store.serving_info()
         return out
 
 

@@ -125,14 +125,18 @@ class IndexSpec:
         return self
 
     def build(self, points, *, device="cuda", mutable: bool = False,
-              storage: str = "resident"):
+              storage: str = "resident", storage_dir=None,
+              storage_budget_bytes: int = 0,
+              storage_promote_margin: float = 1.25,
+              storage_checksum: bool = True):
         """The unified index front door: build an
         :class:`~repro_torch.core.mutable_index.Index` handle from raw
         (N, D) points on ``device`` (default the card; without CUDA that
         raises), drawing from a ``torch.Generator`` seeded with ``seed``.
         ``mutable=True`` keeps the raw points for upserts, deletes and
-        generation maintenance; ``storage="tiered"`` (ROADMAP item 7) is
-        not ported and raises ``NotImplementedError``."""
+        generation maintenance; ``storage="tiered"`` spills the codes to
+        ``storage_dir`` and keeps ``storage_budget_bytes`` of hot clusters
+        on ``device`` (static indexes only)."""
         import torch
 
         from repro_torch.core.mutable_index import Index
@@ -142,7 +146,10 @@ class IndexSpec:
                            kmeans_iters=self.kmeans_iters,
                            pq_iters=self.pq_iters, opq=self.opq,
                            train_sample=self.train_sample, mutable=mutable,
-                           storage=storage, device=device)
+                           storage=storage, storage_dir=storage_dir,
+                           storage_budget_bytes=storage_budget_bytes,
+                           storage_promote_margin=storage_promote_margin,
+                           storage_checksum=storage_checksum, device=device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -537,3 +537,147 @@ def test_live_sharded_service_goes_through_fused_kernels(cuda):
     assert np.mean([8016 + r in i[16 + r] for r in range(16)]) >= 0.9
     assert svc.core_engine().serving_info()["generations"] >= 1
     svc.shutdown()
+
+
+def test_tier_on_the_card_gathers_pad_clusters(cuda, tmp_path):
+    """The slab lives on the card and cold rows come through the pinned
+    staging buffer: every gather, at every residency, equals pad_clusters'
+    rows; the CRC checks name a rotten cluster."""
+    from repro_torch.storage import CorruptClusterError, TieredStore
+    idx, _ = _service_index(cuda)
+    cl = pad_clusters(idx)
+    cids = np.random.default_rng(0).integers(0, idx.nlist, 500)
+    want = [x[torch.from_numpy(cids).to(cuda)] for x in cl]
+    for slots in (0, 9, 64):
+        tier = TieredStore.from_index(idx, tmp_path / str(slots),
+                                      budget_bytes=max(1, slots * cl.cmax
+                                                       * 20),
+                                      device=cuda)
+        assert tier._hot_codes.device.type == "cuda"
+        for _ in range(3):
+            got = tier.gather(cids)
+            assert all(g.device.type == "cuda" and torch.equal(g, w)
+                       for g, w in zip(got, want))
+            tier.observe(cids.reshape(-1, 10)[::-1])
+        assert tier.resident_bytes <= tier.budget_bytes
+    tier = TieredStore.from_index(idx, tmp_path / "rot", budget_bytes=1,
+                                  device=cuda)
+    tier.corrupt_spill(7)
+    with pytest.raises(CorruptClusterError) as ei:
+        tier.gather(np.array([3, 7]))
+    assert ei.value.cluster == 7
+
+
+@pytest.mark.parametrize("lut_dtype", ["f32", "uint8"])
+def test_tiered_engine_on_the_card(cuda, tmp_path, lut_dtype):
+    """A tiered LocalEngine on the card equals search_ivfpq bit for bit at
+    every residency and goes through the LC and DC kernels."""
+    from repro_torch.runtime import LocalEngine
+    from repro_torch.storage import TieredStore
+    idx, q = _service_index(cuda)
+    cl = pad_clusters(idx)
+    p = SearchParams(nprobe=8, k=10, use_kernels=True, lut_dtype=lut_dtype,
+                     query_chunk=24)
+    wd, wi = (x.cpu().numpy() for x in search_ivfpq(
+        idx, cl, torch.from_numpy(q).to(cuda), p))
+    lc, dc = (("lut_build_q", "pq_scan_dc_q") if lut_dtype == "uint8"
+              else ("lut_build", "pq_scan_dc"))
+    for slots in (0, 13, 64):
+        tier = TieredStore.from_index(idx, tmp_path / str(slots),
+                                      budget_bytes=max(1, slots * cl.cmax
+                                                       * 20), device=cuda)
+        eng = LocalEngine(idx, None, p, tiered_store=tier)
+        for _ in range(3):
+            ops.reset_launches()
+            d, i = eng.search_batch(q)
+            assert ops.launches[lc] > 0 and ops.launches[dc] > 0
+            np.testing.assert_array_equal(d, wd)
+            np.testing.assert_array_equal(i, wi)
+
+
+def test_two_streams_share_one_slab(cuda, tmp_path):
+    """Two threads, each on its own CUDA stream: one gathers while the
+    other churns residency (slab slots rewritten).  The lock plus the
+    stream synchronisation before it is released keep every gather equal
+    to pad_clusters' rows."""
+    import threading
+    from repro_torch.storage import TieredStore
+    idx, _ = _service_index(cuda)
+    cl = pad_clusters(idx)
+    tier = TieredStore.from_index(idx, tmp_path, budget_bytes=6 * cl.cmax
+                                  * 20, device=cuda)
+    cids = np.arange(idx.nlist)[::2]
+    want = [x[torch.from_numpy(cids).to(cuda)] for x in cl]
+    stop, bad = threading.Event(), []
+
+    def churn():
+        rng = np.random.default_rng(0)
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            while not stop.is_set():
+                tier.observe(rng.integers(0, idx.nlist, (4, 8)))
+
+    t = threading.Thread(target=churn)
+    t.start()
+    try:
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            for _ in range(200):
+                got = tier.gather(cids)
+                bad += [j for j, (g, w) in enumerate(zip(got, want))
+                        if not torch.equal(g, w)]
+    finally:
+        stop.set()
+        t.join()
+    assert not bad and tier.stats.promotions > 0
+
+
+@pytest.mark.parametrize("lut_dtype", ["f32", "uint8"])
+def test_tiered_sharded_cold_scan_goes_through_dense_fused(cuda, tmp_path,
+                                                           lut_dtype):
+    """The tiered sharded engine scans its cold probes with E/F in their
+    dense form; results equal the tiered local engine's."""
+    from repro_torch.core.sharded_search import (DistributedEngine,
+                                                 EngineConfig, locate_probes)
+    from repro_torch.runtime import LocalEngine
+    from repro_torch.storage import TieredStore
+    idx, q = _service_index(cuda)
+    cl = pad_clusters(idx)
+    budget = 16 * cl.cmax * 20
+    eng = DistributedEngine(
+        idx, EngineConfig(n_shards=8, nprobe=8, k=10, tasks_per_shard=256,
+                          split_max=64, lut_dtype=lut_dtype),
+        locate_probes(q, idx.centroids, 8),
+        tiered_store=TieredStore.from_index(idx, tmp_path / "s",
+                                            budget_bytes=budget,
+                                            device=cuda))
+    assert eng._cold_mask.any()
+    fused = "pq_scan_topk_q" if lut_dtype == "uint8" else "pq_scan_topk"
+    ops.reset_launches()
+    d, i, _ = eng.search(q)
+    assert ops.launches[fused] >= 2           # the shards' step + cold scan
+    local = LocalEngine(idx, None, SearchParams(
+        nprobe=8, k=10, use_kernels=True, lut_dtype=lut_dtype),
+        tiered_store=TieredStore.from_index(idx, tmp_path / "l",
+                                            budget_bytes=budget,
+                                            device=cuda))
+    ld, li = local.search_batch(q)
+    np.testing.assert_allclose(d, ld, rtol=RTOL, atol=ATOL)
+    assert np.mean([set(a) == set(b) for a, b in zip(i, li)]) >= 0.95
+
+
+def test_coarse2_on_the_card(cuda):
+    """Two-level CL on the card: full fan-out probes flat CL's sets up to
+    near-ties, and a query's probes do not depend on its batch."""
+    from repro_torch.core.coarse2 import build_coarse2, coarse2_locate
+    idx, q = _service_index(cuda)
+    qt = torch.from_numpy(q).to(cuda)
+    coarse = build_coarse2(torch.Generator().manual_seed(0), idx.centroids,
+                           n_groups=8)
+    flat, fd = cluster_locate(qt, idx.centroids, 8, block=256)
+    two, td = coarse2_locate(coarse, qt, nprobe=8, nprobe1=8)
+    differ = [r for r in range(len(q))
+              if set(flat[r].tolist()) != set(two[r].tolist())]
+    for r in differ:                         # only near-ties at the edge
+        assert torch.isclose(fd[r, -1], td[r, -1], rtol=1e-5, atol=1e-2)
+    for s in (0, 31):
+        one, _ = coarse2_locate(coarse, qt[s:s + 1], nprobe=8, nprobe1=8)
+        assert torch.equal(one[0], two[s])

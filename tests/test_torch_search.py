@@ -231,10 +231,12 @@ def test_batcher_flush_policy():
 def test_unported_engine_options_raise(port):
     idx, cl = port
     p = SearchParams(nprobe=2, k=3)
-    for kw in ({"tiered_store": object()}, {"coarse": object()},
-               {"meta": object()}):
-        with pytest.raises(NotImplementedError):
-            LocalEngine(idx, cl, p, **kw)
+    # tiered storage and the two-level CL are ported (ROADMAP item 7):
+    # only a tier may stand in for the clusters; tenancy is not ported
+    with pytest.raises(ValueError, match="tiered_store"):
+        LocalEngine(idx, None, p)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        LocalEngine(idx, cl, p, meta=object())
     # the LUT cache is ported; its dtype must match the scan's
     with pytest.raises(ValueError, match="lut_dtype"):
         LocalEngine(idx, cl, p, lut_cache=HotClusterLUTCache(

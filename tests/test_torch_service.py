@@ -644,8 +644,13 @@ NOT_PORTED = {
     # the live index is ported; a live index with per-vector tenants is not
     "mutable": (dict(mutable=True), dict(tenants=np.zeros(8000, np.int32)),
                 "item 8"),
-    "tiered": (dict(storage="tiered", storage_budget_bytes=1), {}, "item 7"),
-    "coarse": (dict(coarse_groups=4), {}, "item 7"),
+    # tiered storage and coarse_groups are ported (ROADMAP item 7); a
+    # tiered fleet with tenants, or a two-level one under fault
+    # injection, is not
+    "tiered": (dict(storage="tiered", storage_budget_bytes=1,
+                    tenants=(("a", 0, 1.0, 0.0, 1),)), {}, "item 8"),
+    "coarse": (dict(coarse_groups=4), dict(fault_injector=object()),
+               "item 9"),
     "tenants": (dict(tenants=(("a", 0, 1.0, 0.0, 1),)), {}, "item 8"),
     "tenant_rows": ({}, dict(tenants=np.zeros(8000, np.int32)), "item 8"),
     "faults": ({}, dict(fault_injector=object()), "item 9"),
@@ -694,7 +699,9 @@ def test_direct_construction_warns_once_service_does_not(port_index):
 def test_selftest_passes_on_the_cpu(clock, capsys):
     assert cli.selftest(clock=clock, device="cpu") == 0
     out = capsys.readouterr().out
-    assert "NOT RUN" in out and "OK (clock=" in out
+    # all five of the reference's phases run, the tiered one included
+    assert "NOT RUN" not in out and "OK (clock=" in out
+    assert out.count(": OK") == 5 and "[selftest] tiered:" in out
 
 
 @pytest.mark.parametrize("flag", ["--selftest-chaos", "--selftest-tenants",

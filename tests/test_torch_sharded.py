@@ -448,8 +448,7 @@ def test_sharded_recall_equals_reference_on_its_sample(small_index, port,
 
 def test_unported_options_raise(port, sample_probes):
     idx, _ = port
-    for extra in ({"mesh": object()}, {"tiered_store": object()},
-                  {"meta": object()}):
+    for extra in ({"mesh": object()}, {"meta": object()}):
         with pytest.raises(NotImplementedError):
             _engine(idx, sample_probes, extra=extra)
     eng = _engine(idx, sample_probes)
@@ -658,3 +657,43 @@ def test_periodic_relayout_in_serving(port, queries, sample_probes):
     for i, r in enumerate(reqs):
         assert set(r.ids.tolist()) == set(direct_i[i % 4].tolist())
     assert rt.metrics()["engine"]["relayouts"] == adapter.engine.relayouts
+
+
+def test_staged_index_survives_a_concurrent_swap(port, queries,
+                                                 sample_probes):
+    """A generation staged on one thread while a batch on another is
+    swapping an older pending placement in stays pending, and the next
+    batch installs it.  The reference loses it: its ``swap_layout``
+    clears ``_pending`` after installing, wiping a placement set in
+    between.  An event holds the swap inside its install to force that
+    interleaving."""
+    import threading
+    idx, _ = port
+    eng = _engine(idx, sample_probes)
+    eng.prepare_layout(heat=eng.heat)             # the older placement
+    in_install, release = threading.Event(), threading.Event()
+    install = eng._install
+
+    def held_install(placement):
+        in_install.set()
+        assert release.wait(30)
+        install(placement)
+
+    eng._install = held_install
+    swapper = threading.Thread(target=eng.swap_layout)
+    swapper.start()
+    assert in_install.wait(30)
+    eng._install = install
+    new_gen = idx._replace(centroids=idx.centroids.clone())
+    eng.stage_index(new_gen)                      # lands mid-swap
+    release.set()
+    swapper.join()
+    assert eng._pending is not None and eng._pending.index is new_gen
+    assert eng._swap_on_next_batch and eng.generations == 0
+    d, i, _ = eng.search(queries[:8])
+    assert eng.index is new_gen and eng.generations == 1
+    assert eng._pending is None and not eng._swap_on_next_batch
+    want_d, want_i, _ = _engine(idx, sample_probes).search(queries[:8])
+    np.testing.assert_array_equal(d, want_d)
+    for q in range(8):
+        assert set(i[q].tolist()) == set(want_i[q].tolist())
