@@ -78,11 +78,34 @@ paths once at the configuration below:
              rotten cold one raising CorruptClusterError by its id and
              dropped by gather_degraded); S8 one tiered AnnService replica
              on S2's Zipf trace, wall clock, == search_ivfpq bit for bit,
-             beside S5.
+             beside S5;
+    tenancy: multi-tenant serving on the same index: 8 tenants (a
+             vector's mixture component mod 8, redrawn from the seed)
+             and a ninth with 5 rows, one tag column (id % 16) in 4
+             fields, a query's tenant the majority tenant of its nearest
+             centroid (one in 8 unscoped): N1 the scoped LocalEngine over
+             the 10,000 queries at f32 and uint8, tenant only, tenant +
+             term (3) and tenant + terms (1, 5, 9, 13) (no id outside its
+             scope; every tenant == search_ivfpq over its tenant_subindex,
+             near-tie probe sets counted and checked; the post-filter
+             oracle on 256 queries; the unscoped rows == search_ivfpq bit
+             for bit; the 5-row tenant's (inf, -1) tail; the mask timed
+             alone); N2 one scoped DistributedEngine (64 shards), 1,000
+             queries at f32 and at uint8, == N1 at the sharded tolerance,
+             and C/D against their plain versions at the scoped step's
+             shape; N3 the tier (a quarter resident), two scoped passes
+             == N1 bit for bit; N4 a live Index with 1,024 upserts tagged
+             to tenant 2 (self-retrieved under tenant 2, never under
+             another, == the snapshot's sub-index); S9 one tenant-aware
+             local replica (t0 weight 4, t7 at 100 QPS burst 4, WFQ) on
+             the Poisson trace on both clocks (every served result == the
+             direct scoped search, only t7 shed, on the virtual clock as
+             many as the smoke's own token-bucket model says).
 
 The launch counters of the six kernels are reset just before each path
 and read just after it; every kernel of the path must have risen (the
-service, mutation and tiered paths run all six).
+service, mutation and tiered paths run all six; the tenancy path runs
+A-D: the fused E/F cannot take the scope mask).
 Recall@10 is taken against the port's exact_search; the sharded results
 are held to the local path's on the same queries, and served results to
 a direct search: every local service cell bit for bit to the uncached
@@ -91,7 +114,7 @@ JSON line and ``{"ok": true, "device": {...}}``; A's and B's rows carry
 their times at the sharded step's first LC launches too; ``launches``
 sums the local and sharded paths, as before the service existed, and
 ``launches_by_path`` gives each path's own count, the service's, the
-mutation's and the tiered path's included.  E's and F's
+mutation's, the tiered and the tenancy path's included.  E's and F's
 first sharded launches, with their LC inputs and those of the local
 path's first chunk, are written to ``build/sharded_launch.pt``, which
 ``tools/torch_fused_topk_bench.py`` and ``tools/torch_lut_build_bench.py``
@@ -1887,6 +1910,553 @@ def tiered_path(ops, index, clusters, queries, results, zipf, gt,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The tenancy path: tenant namespaces, predicate filters and tenant QoS
+# ---------------------------------------------------------------------------
+
+N_TENANTS, SCARCE_TENANT, SCARCE_ROWS = 8, 8, 5
+TAG_MOD, FILTER_WIDTH = 16, 4
+TENANCY_MODES = (("tenant", ()), ("tenant+(3)", (3,)),
+                 ("tenant+(1,5,9,13)", (1, 5, 9, 13)))
+N2_BATCH, N4_UPSERTS, POSTFILTER_QUERIES = 1_000, 1_024, 256
+ISO_TOL = 1e-5                 # the reference's isolation tolerance
+
+
+def tenancy_metadata(index, clusters, n: int, seed: int):
+    """The phase's VectorMeta: a vector's tenant is its mixture component
+    mod 8 (the corpus's first draw, redrawn exactly from the seed), so a
+    tenant owns whole topics; 5 seeded rows go to a ninth tenant; one tag
+    column, id % 16, in a table of FILTER_WIDTH fields; clusters from the
+    padded layout."""
+    from repro_torch.core.filter import VectorMeta
+    from repro_torch.data.vectors import _mixture
+    _, _, comp = _mixture(np.random.default_rng(seed), n, D, 64, 1.0)
+    tenant_of = (comp % N_TENANTS).astype(np.int32)
+    del comp
+    scarce = np.sort(np.random.default_rng(seed + 8).choice(
+        n, SCARCE_ROWS, replace=False))
+    tenant_of[scarce] = SCARCE_TENANT
+    tags = (np.arange(n) % TAG_MOD).astype(np.uint32)[:, None]
+    meta = VectorMeta(tag_fields=FILTER_WIDTH)
+    meta.set(np.arange(n), tenant=tenant_of, tags=tags)
+    meta.rebuild_clusters(clusters.ids.cpu().numpy(),
+                          clusters.sizes.cpu().numpy())
+    return meta, tenant_of, tags, scarce
+
+
+def query_tenants(index, queries, meta) -> np.ndarray:
+    """A query's tenant is the majority tenant of its nearest centroid,
+    so a tenant's queries land near its own data; one query in 8 is left
+    unscoped (-1)."""
+    from repro_torch.core.sharded_search import locate_probes
+    nearest = locate_probes(queries, index.centroids, 1)[:, 0]
+    ok = meta.cluster_of >= 0
+    counts = np.bincount(meta.cluster_of[ok].astype(np.int64)
+                         * (N_TENANTS + 1) + meta.tenant_of[ok],
+                         minlength=index.nlist * (N_TENANTS + 1))
+    major = counts.reshape(index.nlist, N_TENANTS + 1)[:, :N_TENANTS]
+    q_tenant = major.argmax(1)[nearest].astype(np.int32)
+    q_tenant[7::8] = -1
+    return q_tenant
+
+
+def hold_to_subindex(index, meta, tenant: int, qs: np.ndarray, got_d,
+                     got_i, p) -> tuple:
+    """The isolation oracle: tenant-scoped results over the shared index
+    against ``search_ivfpq`` over ``tenant_subindex`` at nprobe = min(32,
+    members).  CL over all centroids (masked) and CL over the members
+    alone are GEMMs of other shapes, so cuBLAS may round them apart and a
+    near-tie at the nprobe-th centroid may swap a probe: such queries are
+    counted, each differing probe checked to sit at the nprobe-th
+    distance within 1e-5 of ||q||^2 + ||c||^2 (float64, as T2), and every
+    other query is held to the reference's rule (distances at 1e-5, ids
+    equal up to exact ties).  Returns (queries, differing, worst gap)."""
+    from repro_torch.core.filter import tenant_subindex
+    from repro_torch.core.ivf import pad_clusters
+    from repro_torch.core.search import (cluster_locate,
+                                         cluster_locate_masked,
+                                         search_ivfpq)
+    sub, members = tenant_subindex(index, meta, tenant)
+    npr = min(NPROBE, len(members))
+    dev = index.centroids.device
+    q = torch.from_numpy(qs).to(dev)
+    sd, si = (x.cpu().numpy() for x in search_ivfpq(
+        sub, pad_clusters(sub), q, p._replace(nprobe=npr)))
+    mem_t = torch.from_numpy(members).to(dev)
+    shared, own = [], []
+    for s in range(0, len(qs), QUERY_CHUNK):
+        qb = q[s:s + QUERY_CHUNK]
+        allowed = meta.allowed_on(np.full(len(qb), tenant), index.nlist,
+                                  dev)
+        shared.append(cluster_locate_masked(
+            qb, index.centroids, NPROBE, allowed, block=QUERY_CHUNK)[0])
+        own.append(mem_t[cluster_locate(qb, sub.centroids, npr,
+                                        block=QUERY_CHUNK)[0]])
+    shared = torch.cat(shared)[:, :npr].cpu().numpy()
+    own = torch.cat(own).cpu().numpy()
+    cents = index.centroids.double()
+    c_sq = (cents * cents).sum(1)
+    differ, worst = [], 0.0
+    for r in range(len(qs)):
+        a, b = set(shared[r].tolist()), set(own[r].tolist())
+        if a == b:
+            continue
+        differ.append(r)
+        qr = q[r].double()
+        dist = ((qr[None] - cents[mem_t]) ** 2).sum(1)
+        edge = torch.sort(dist).values[npr - 1]
+        for c in a ^ b:
+            scale = float((qr * qr).sum() + c_sq[c])
+            dc = float(((qr - cents[c]) ** 2).sum())
+            worst = max(worst, abs(dc - float(edge)) / scale)
+    check(worst <= 1e-5, f"tenant {tenant}: a differing probe is "
+                         f"{worst:.2e} from the nprobe-th distance: not a "
+                         f"near-tie")
+    keep = np.setdiff1d(np.arange(len(qs)), differ)
+    fin = np.isfinite(sd[keep])
+    check(np.array_equal(fin, np.isfinite(got_d[keep]))
+          and np.allclose(got_d[keep][fin], sd[keep][fin], rtol=ISO_TOL,
+                          atol=ISO_TOL),
+          f"tenant {tenant}: scoped distances differ from the dedicated "
+          f"sub-index")
+    bad = tie_diff_rows(got_d[keep], got_i[keep], sd[keep], si[keep],
+                        ISO_TOL, ISO_TOL)
+    check(bad == 0 and np.array_equal(got_i[keep] < 0, si[keep] < 0),
+          f"tenant {tenant}: ids differ from the dedicated sub-index on "
+          f"{bad} queries beyond exact ties")
+    return len(qs), len(differ), worst
+
+
+def bucket_shed(times, rate: float, burst: int) -> int:
+    """The smoke's own model of a token bucket: requests refused at the
+    given arrival times (seconds)."""
+    tokens, last, shed = float(burst), None, 0
+    for t in times:
+        last = t if last is None else last
+        tokens = min(float(burst), tokens + max(t - last, 0.0) * rate)
+        last = t
+        if tokens >= 1.0:
+            tokens -= 1.0
+        else:
+            shed += 1
+    return shed
+
+
+def tenancy_path(ops, index, clusters, points, queries, results, trace,
+                 s5_runs, n: int, seed: int) -> dict:
+    """Multi-tenant serving on the main path's index: N1 scoped local
+    search, N2 the scoped sharded engine, N3 the tier, N4 the live index,
+    S9 the tenant-aware service on both clocks.  Oracle searches and
+    kernel checks restore the launch counts, so the path's counts are the
+    scoped traffic's own."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.core.adc import (QuantizedLUT, adc_distances,
+                                      adc_distances_quantized)
+    from repro_torch.core.filter import pad_terms
+    from repro_torch.core.mutable_index import Index
+    from repro_torch.core.search import SearchParams, search_ivfpq
+    from repro_torch.core.sharded_search import (DistributedEngine,
+                                                 EngineConfig, locate_probes)
+    from repro_torch.runtime import LocalEngine
+    from repro_torch.service import AnnService, ServiceSpec
+    from repro_torch.storage import TieredStore
+
+    out: dict = {}
+    dev = index.centroids.device
+    q_np = queries.cpu().numpy()
+    nq = len(q_np)
+    n_chunks = -(-nq // QUERY_CHUNK)
+    params = {dt: SearchParams(nprobe=NPROBE, k=K, query_chunk=QUERY_CHUNK,
+                               use_kernels=True, lut_dtype=dt)
+              for dt in ("f32", "uint8")}
+    t0 = time.perf_counter()
+    meta, tenant_of, tags, scarce = tenancy_metadata(index, clusters, n,
+                                                     seed)
+    q_tenant = query_tenants(index, queries, meta)
+    mt, mg = meta.device_tables(dev)
+    dev_bytes = mt.numel() * mt.element_size() + mg.numel() * \
+        mg.element_size()
+    rows_per = np.bincount(tenant_of, minlength=N_TENANTS + 1)
+    q_per = np.bincount(q_tenant[q_tenant >= 0], minlength=N_TENANTS + 1)
+    members = meta.bitmap(index.nlist).sum(1)
+    log(f"  metadata {time.perf_counter() - t0:.2f} s: rows per tenant "
+        f"{rows_per.tolist()}, member clusters {members.tolist()} of "
+        f"{index.nlist}, queries per tenant {q_per.tolist()} (+ "
+        f"{int((q_tenant < 0).sum())} unscoped); tables {meta.nbytes} B on "
+        f"the host, {dev_bytes} B on the card")
+    out["meta"] = {"rows_per_tenant": rows_per.tolist(),
+                   "member_clusters": members.tolist(),
+                   "queries_per_tenant": q_per.tolist(),
+                   "host_bytes": meta.nbytes, "device_bytes": dev_bytes}
+
+    def counted_out(fn):
+        """Run an oracle or a check whose launches do not count."""
+        kept = dict(ops.launches)
+        try:
+            return fn()
+        finally:
+            ops.launches.update(kept)
+
+    # -- N1: scoped LocalEngine over the 10,000 queries ------------------
+    engines = {dt: LocalEngine(index, clusters, p, meta=meta)
+               for dt, p in params.items()}
+    n1, res = {"passes": []}, {}
+    for dt in ("f32", "uint8"):
+        eng = engines[dt]
+        eng.search_batch(q_np[:QUERY_CHUNK], tenants=q_tenant[:QUERY_CHUNK])
+        (_, _), unsc = counted_out(lambda: sync_time(lambda: search_ivfpq(
+            index, clusters, queries, params[dt])))
+        for label, terms in TENANCY_MODES:
+            g = pad_terms([terms] * nq, FILTER_WIDTH)
+            (d, i), secs = sync_time(lambda: eng.search_batch(
+                q_np, tenants=q_tenant, terms=g))
+            res[dt, label] = (d, i)
+            live = i >= 0
+            ii = np.clip(i, 0, None)
+            tt = q_tenant[:, None]
+            ok = (tt < 0) | (meta.tenant_of[ii] == tt)
+            if terms:
+                ok &= np.isin(meta.tags[ii, 0], terms)
+            check(bool((~live | ok).all()), f"N1 {dt} {label}: a result "
+                                            f"leaves its tenant or predicate")
+            check(bool(np.isfinite(d[live]).all())
+                  and not np.isfinite(d[~live]).any(),
+                  f"N1 {dt} {label}: the (inf, -1) tail is broken")
+            if not terms:
+                free = q_tenant < 0
+                ud, ui = (x.cpu().numpy() for x in results[dt])
+                check(np.array_equal(d[free], ud[free])
+                      and np.array_equal(i[free], ui[free]),
+                      f"N1 {dt}: unscoped rows of the mixed batch differ "
+                      f"from search_ivfpq")
+            rec = {"lut": dt, "mode": label, "s": secs,
+                   "ms_per_chunk": secs / n_chunks * 1e3,
+                   "unscoped_ms_per_chunk": unsc / n_chunks * 1e3,
+                   "live_fraction": float(live.mean())}
+            n1["passes"].append(rec)
+            log(f"  N1 lut={dt} {label}: {nq} queries {secs:.3f} s, "
+                f"{rec['ms_per_chunk']:.3f} ms a {QUERY_CHUNK}-query chunk "
+                f"(unscoped search_ivfpq {rec['unscoped_ms_per_chunk']:.3f});"
+                f" {live.mean():.4f} of the slots filled; scope held"
+                + ("; unscoped rows == search_ivfpq bit for bit"
+                   if not terms else ""))
+    # the isolation oracle, every tenant, both LUT dtypes
+    iso = []
+    for dt in ("f32", "uint8"):
+        d, i = res[dt, "tenant"]
+        for t in range(N_TENANTS):
+            rows = np.nonzero(q_tenant == t)[0]
+            if rows.size == 0:
+                continue
+            nq_t, diff, worst = counted_out(lambda: hold_to_subindex(
+                index, meta, t, q_np[rows], d[rows], i[rows], params[dt]))
+            iso.append({"lut": dt, "tenant": t, "queries": nq_t,
+                        "probe_sets_differ": diff, "worst_gap": worst})
+        # the ninth tenant, 5 rows: 16 queries, a 5-row result and a tail
+        qs = q_np[:16]
+        sd_, si_ = engines[dt].search_batch(
+            qs, tenants=np.full(16, SCARCE_TENANT, np.int32))
+        check(all(set(r[r >= 0].tolist()) == set(scarce.tolist())
+                  and np.all(r[SCARCE_ROWS:] == -1) for r in si_)
+              and np.isinf(sd_[:, SCARCE_ROWS:]).all()
+              and np.isfinite(sd_[:, :SCARCE_ROWS]).all(),
+              f"N1 {dt}: the 5-row tenant's result is not its 5 rows and "
+              f"an (inf, -1) tail")
+        nq_t, diff, worst = counted_out(lambda: hold_to_subindex(
+            index, meta, SCARCE_TENANT, qs, sd_, si_, params[dt]))
+        iso.append({"lut": dt, "tenant": SCARCE_TENANT, "queries": nq_t,
+                    "probe_sets_differ": diff, "worst_gap": worst})
+    n1["isolation"] = iso
+    n_diff = sum(r["probe_sets_differ"] for r in iso)
+    log(f"  N1 isolation: {sum(r['queries'] for r in iso)} scoped queries "
+        f"over 9 tenants x 2 LUT dtypes == search_ivfpq over each tenant's "
+        f"sub-index; {n_diff} with a probe set of their own, each a "
+        f"near-tie (worst gap {max(r['worst_gap'] for r in iso):.2e}); "
+        f"the 5-row tenant gets its 5 rows and an (inf, -1) tail")
+    # the brute-force post-filter oracle on 256 queries, predicate only
+    qb = q_np[:POSTFILTER_QUERIES]
+    kbig = NPROBE * clusters.cmax
+    for dt in ("f32", "uint8"):
+        d_all, i_all = counted_out(lambda: tuple(
+            x.cpu().numpy() for x in search_ivfpq(
+                index, clusters, queries[:POSTFILTER_QUERIES],
+                params[dt]._replace(k=kbig))))
+        for terms in ((3,), (1, 5, 9, 13)):
+            g = pad_terms([terms] * len(qb), FILTER_WIDTH)
+            d, i = engines[dt].search_batch(qb, terms=g)
+            keep = meta.match_host(i_all, terms=terms)
+            rd = np.full((len(qb), K), np.inf, np.float32)
+            ri = np.full((len(qb), K), -1, np.int32)
+            for r in range(len(qb)):
+                sel = np.flatnonzero(keep[r])[:K]
+                rd[r, :sel.size], ri[r, :sel.size] = (d_all[r, sel],
+                                                      i_all[r, sel])
+            check(np.allclose(d, rd, rtol=ISO_TOL, atol=ISO_TOL)
+                  and tie_diff_rows(d, i, rd, ri, ISO_TOL, ISO_TOL) == 0,
+                  f"N1 {dt} terms {terms}: differs from the brute-force "
+                  f"post-filter")
+        del d_all, i_all
+    log(f"  N1 post-filter: {len(qb)} queries, terms (3) and (1,5,9,13), "
+        f"f32 and uint8 == ranking all {kbig} candidates of the same probes"
+        f", dropping rows without a term, keeping {K}")
+    # the mask alone on one chunk's candidates (CUDA events)
+    from repro_torch.core.filter import Scope
+    from repro_torch.core.search import cluster_locate
+    probes0 = cluster_locate(queries[:QUERY_CHUNK], index.centroids,
+                             NPROBE, block=QUERY_CHUNK)[0]
+    ids0 = clusters.ids.index_select(0, probes0.reshape(-1)).reshape(
+        QUERY_CHUNK, -1)
+    d0 = torch.rand(ids0.shape, device=dev)
+    mask_ms = {}
+    for label, terms in TENANCY_MODES:
+        sc = Scope(meta, q_tenant[:QUERY_CHUNK],
+                   pad_terms([terms] * QUERY_CHUNK, FILTER_WIDTH), dev)
+        fn = sc.masker(slice(0, QUERY_CHUNK))
+        mask_ms[label] = event_ms(lambda: fn(d0, ids0), reps=10)
+    del d0, ids0
+    n1["mask_ms"] = mask_ms
+    log(f"  N1 the scope mask alone on one chunk's {QUERY_CHUNK} x "
+        f"{NPROBE * clusters.cmax} candidates (CUDA events): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in mask_ms.items()))
+    out["N1"] = n1
+
+    # -- N2: one scoped sharded engine, f32 then uint8 -------------------
+    sample = locate_probes(queries, index.centroids, NPROBE)
+    dup = int(0.10 * n * (M + 4))
+    cfg = EngineConfig(n_shards=N_SHARDS, nprobe=NPROBE, k=K,
+                       split_max=SPLIT_MAX, dup_budget_bytes=dup,
+                       tasks_per_shard=TASKS_PER_SHARD, lut_dtype="f32")
+    se, t_build = sync_time(lambda: DistributedEngine(index, cfg, sample,
+                                                      meta=meta))
+    log(f"  N2 DistributedEngine(meta=...) {t_build:.2f} s: "
+        f"{len(se.sindex.slot_of_instance)} instances in {N_SHARDS} shards")
+    captured = {}
+    launch = ops.pq_scan_dc
+
+    def capture(lut, codes, sizes=None, **kw):
+        name = ("pq_scan_dc_q" if isinstance(lut, QuantizedLUT)
+                else "pq_scan_dc")
+        captured.setdefault(name, (lut, codes, sizes))
+        return launch(lut, codes, sizes, **kw)
+
+    n2 = []
+    ops.pq_scan_dc = capture
+    try:
+        for dt, (label, terms) in (("f32", TENANCY_MODES[0]),
+                                   ("uint8", TENANCY_MODES[1])):
+            # one engine for both LUT dtypes: the placement was priced at
+            # f32 LUT widths; a LUT dtype changes no candidate
+            se.cfg = dataclasses.replace(se.cfg, lut_dtype=dt)
+            se.phase_s.clear()
+            rows = slice(0, N2_BATCH)
+            g = pad_terms([terms] * N2_BATCH, FILTER_WIDTH)
+            (d, i, _), secs = sync_time(lambda: se.search(
+                q_np[rows], tenants=q_tenant[rows], terms=g))
+            ld, li = res[dt, label][0][rows], res[dt, label][1][rows]
+            check(np.array_equal(np.isfinite(d), np.isfinite(ld))
+                  and np.allclose(np.where(np.isfinite(d), d, 0),
+                                  np.where(np.isfinite(ld), ld, 0),
+                                  rtol=RTOL, atol=ATOL),
+                  f"N2 lut={dt}: distances differ from N1's")
+            bad = tie_diff_rows(d, i, ld, li, RTOL, ATOL)
+            check(bad == 0, f"N2 lut={dt}: ids differ from N1's on {bad} "
+                            f"queries beyond k-th-place ties")
+            n2.append({"lut": dt, "mode": label, "queries": N2_BATCH,
+                       "s": secs, "phase_s": dict(se.phase_s)})
+            log(f"  N2 lut={dt} {label}: {N2_BATCH} queries {secs:.3f} s, "
+                f"== N1 (rtol {RTOL}, atol {ATOL}, ties allowed); host s: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in se.phase_s.items()))
+    finally:
+        ops.pq_scan_dc = launch
+    del se
+    torch.cuda.empty_cache()
+    check(set(captured) == {"pq_scan_dc", "pq_scan_dc_q"},
+          f"N2: the scoped step launched {sorted(captured)}")
+    log("kernels vs plain, the scoped sharded step's first DC launches:")
+    lut, codes, sizes = captured["pq_scan_dc"]
+    qlut, qcodes, qsizes = captured["pq_scan_dc_q"]
+    where = (f"scoped sharded step T={codes.shape[0]} C={codes.shape[1]}")
+    errs = {}
+    for name, table, cc, sz, plain in (
+            ("pq_scan_dc", lut, codes, sizes, adc_distances),
+            ("pq_scan_dc_q", qlut, qcodes, qsizes, adc_distances_quantized)):
+        got = counted_out(lambda: ops.pq_scan_dc(table, cc, sz))
+        want = plain(table, cc, sz)
+        fin = torch.isfinite(want)
+        check(torch.equal(fin, torch.isfinite(got)),
+              f"{name} {where}: +inf mask differs")
+        errs[name] = float((got[fin] - want[fin]).abs().max())
+        check(torch.allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL),
+              f"{name} {where}: max |err| {errs[name]}")
+    log(f"  {where}: pq_scan_dc max|err| {errs['pq_scan_dc']:.3e}, "
+        f"pq_scan_dc_q max|err| {errs['pq_scan_dc_q']:.3e}")
+    del captured, lut, codes, sizes, qlut, qcodes, qsizes
+    out["N2"] = {"build_s": t_build, "batches": n2, "dc_check": errs}
+
+    # -- N3: the tier, a quarter resident, one scoped pass at f32 ---------
+    total = clusters.codes.numel() + clusters.ids.numel() * 4
+    shutil.rmtree(TIER_DIR, ignore_errors=True)
+    TIER_DIR.mkdir(parents=True)
+    check(shutil.disk_usage(TIER_DIR).free >= 1.5 * total,
+          f"N3: short of {1.5 * total:.0f} B under {TIER_DIR}")
+    try:
+        tier = TieredStore.from_clusters(clusters, TIER_DIR / "n3",
+                                         budget_bytes=total // 4,
+                                         device=dev)
+        teng = LocalEngine(index, None, params["f32"], tiered_store=tier,
+                           meta=meta)
+        n3 = []
+        want = res["f32", "tenant"]
+        for j in range(2):        # the second pass at its own residency
+            before = tier.stats.as_dict()
+            (d, i), secs = sync_time(lambda: teng.search_batch(
+                q_np, tenants=q_tenant))
+            check(np.array_equal(d, want[0]) and np.array_equal(i, want[1]),
+                  f"N3 pass {j}: the tiered scoped search differs from "
+                  f"N1's resident one")
+            after = tier.stats.as_dict()
+            n3.append({"pass": j, "s": secs,
+                       "ms_per_chunk": secs / n_chunks * 1e3,
+                       "promotions": after["promotions"]
+                       - before["promotions"],
+                       "cold_fetches": after["cold_fetches"]
+                       - before["cold_fetches"]})
+            log(f"  N3 tiered pass {j}, lut=f32 tenant: {secs:.3f} s "
+                f"({n3[-1]['ms_per_chunk']:.3f} ms a chunk), promotions "
+                f"{n3[-1]['promotions']}, cold fetches "
+                f"{n3[-1]['cold_fetches']}; == N1 bit for bit")
+        out["N3"] = n3
+        del teng, tier
+    finally:
+        shutil.rmtree(TIER_DIR, ignore_errors=True)
+
+    # -- N4: the live index, 1,024 upserts tagged to tenant 2 -------------
+    handle, t_wrap = sync_time(lambda: Index(index, points=points,
+                                             mutable=True))
+    handle.meta = meta
+    rng = np.random.default_rng(seed + 4)
+    src = rng.choice(np.nonzero(tenant_of == 2)[0], N4_UPSERTS,
+                     replace=False)
+    vecs = (points[torch.from_numpy(src).to(dev)].float().cpu().numpy()
+            + rng.normal(0, 1.0, (N4_UPSERTS, D)).astype(np.float32))
+    new = np.arange(n, n + N4_UPSERTS)
+    info, t_up = sync_time(lambda: handle.upsert(
+        new, vecs, tenant=2, tags=(new % TAG_MOD).astype(np.uint32)[:, None]))
+    leng = LocalEngine(handle.search_view, handle.clusters, params["f32"],
+                       meta=meta)
+    (d2, i2), t_s = sync_time(lambda: leng.search_batch(
+        vecs, tenants=np.full(N4_UPSERTS, 2, np.int32)))
+    self_hit = float(np.mean([new[j] in i2[j] for j in range(N4_UPSERTS)]))
+    check(self_hit >= 0.9, f"N4: upserts in their own top-{K} under tenant "
+                           f"2 at {self_hit:.4f} < 0.9")
+    for t in range(N_TENANTS + 1):
+        if t == 2:
+            continue
+        _, io = leng.search_batch(vecs, tenants=np.full(N4_UPSERTS, t,
+                                                        np.int32))
+        check(not np.isin(io, new).any(), f"N4: an upsert of tenant 2 "
+                                          f"surfaced under tenant {t}")
+    rows2 = np.nonzero(q_tenant == 2)[0]
+    qs = np.concatenate([vecs, q_np[rows2]])
+    dq, iq = leng.search_batch(qs, tenants=np.full(len(qs), 2, np.int32))
+    snap = handle.to_ivfpq()
+    nq4, diff4, worst4 = counted_out(lambda: hold_to_subindex(
+        snap, meta, 2, qs, dq, iq, params["f32"]))
+    out["N4"] = {"wrap_s": t_wrap, "upsert_s": t_up, "search_s": t_s,
+                 "self_hit": self_hit, "queries": nq4,
+                 "probe_sets_differ": diff4, "worst_gap": worst4,
+                 "inserted": info["inserted"]}
+    log(f"  N4 live: wrap {t_wrap:.2f} s, {N4_UPSERTS} upserts tagged to "
+        f"tenant 2 in {t_up * 1e3:.1f} ms; self-retrieved in their top-{K} "
+        f"under tenant 2 at {self_hit:.4f}, never under the other 8 "
+        f"tenants; {nq4} tenant-2 queries == search_ivfpq over the "
+        f"snapshot's sub-index ({diff4} near-tie probe sets, worst gap "
+        f"{worst4:.2e})")
+    del leng, handle, snap
+    torch.cuda.empty_cache()
+
+    # -- S9: the tenant-aware service, virtual and wall clocks ------------
+    names = [f"t{t}" for t in range(N_TENANTS)]
+    spec = ServiceSpec(
+        engine="local", replicas=1, nprobe=NPROBE, k=K,
+        buckets=SERVICE_BUCKETS, filter_width=FILTER_WIDTH, qos_wfq=True,
+        tenants=tuple((names[t], t, 4.0 if t == 0 else 1.0,
+                       100.0 if t == 7 else 0.0, 4 if t == 7 else 1)
+                      for t in range(N_TENANTS)))
+    row_of = {qq.tobytes(): j for j, qq in enumerate(q_np)}
+    arr_rows = np.array([row_of[q.tobytes()] for _, q in trace])
+    arr_ten = q_tenant[arr_rows]
+    arrivals = [(t, q, None if arr_ten[j] < 0 else names[arr_ten[j]])
+                for j, (t, q) in enumerate(trace)]
+    t7 = [t for j, (t, _) in enumerate(trace) if arr_ten[j] == 7]
+    model_shed = bucket_shed(t7, 100.0, 4)
+    handle = Index(index)
+    s9 = []
+    for clock in ("virtual", "wall"):
+        svc, secs = sync_time(lambda: AnnService.build(
+            spec, index=handle, tenants=tenant_of, tags=tags))
+        svc.warmup()
+        reqs = svc.stream(arrivals, clock=clock)
+        st = svc.stats()
+        ten = st["tenants"]
+        shed = {nm: ten[nm]["shed"] for nm in names}
+        check(all(v == 0 for nm, v in shed.items() if nm != "t7"),
+              f"S9 {clock}: a tenant other than t7 was shed: {shed}")
+        check(len(reqs) + sum(shed.values()) == len(arrivals),
+              f"S9 {clock}: {len(reqs)} served + {sum(shed.values())} shed "
+              f"!= {len(arrivals)}")
+        if clock == "virtual":
+            check(shed["t7"] == model_shed, f"S9 virtual: t7 shed "
+                                            f"{shed['t7']}, the bucket model "
+                                            f"says {model_shed}")
+        else:
+            check(shed["t7"] <= len(t7), f"S9 wall: t7 shed {shed['t7']}")
+            q = st["qos"]
+            check(sum(q["dispatched"].values()) == len(reqs)
+                  and q["queued"] == 0,
+                  f"S9 wall: WFQ dispatched {q['dispatched']}")
+            check(bool(st["router"].get("tenant_picks")),
+                  "S9 wall: no per-tenant router picks")
+        check(all(r.done for r in reqs), f"S9 {clock}: unserved requests")
+        for t in sorted({r.tenant for r in reqs}):
+            mine = [r for r in reqs if r.tenant == t]
+            qs = np.stack([r.query for r in mine])
+            dd, di = svc.search(qs, tenant=None if t < 0 else t)
+            check(np.array_equal(np.stack([r.dists for r in mine]), dd)
+                  and np.array_equal(np.stack([r.ids for r in mine]), di),
+                  f"S9 {clock}: tenant {t}'s served results differ from "
+                  f"the direct scoped search")
+        rep = service_report("S9 local x1 tenants, Poisson", svc, secs,
+                             clock)
+        rep["tenants"] = {nm: {k: ten[nm].get(k) for k in
+                               ("requests", "p50_ms", "p99_ms", "shed",
+                                "weight")} for nm in names}
+        rep["model_shed_t7"] = model_shed
+        if clock == "wall":
+            rep["qos"] = st["qos"]
+            rep["tenant_picks"] = st["router"]["tenant_picks"]
+        s5 = next(r for r in s5_runs if r.get("clock") == clock
+                  and r["label"].startswith("S5"))
+        rep["S5"] = {k: s5[k] for k in ("p50_ms", "p99_ms", "qps")}
+        log(f"    S9 {clock} beside S5: p50 {s5['p50_ms']:.3f}, p99 "
+            f"{s5['p99_ms']:.3f}, QPS {s5['qps']:.1f}; per tenant "
+            f"(requests / p50 / p99 ms / shed): " + "; ".join(
+                f"{nm} {ten[nm]['requests']} / {ten[nm]['p50_ms']:.3f} / "
+                f"{ten[nm]['p99_ms']:.3f} / {ten[nm]['shed']}"
+                for nm in names)
+            + (f"; t7 offered {len(t7)}, the bucket model sheds "
+               f"{model_shed}")
+            + (f"; WFQ max_queued {st['qos']['max_queued']}, dispatched "
+               f"{st['qos']['dispatched']}" if clock == "wall" else "")
+            + "; every served result == the direct scoped search")
+        s9.append(rep)
+        svc.shutdown()
+    out["S9"] = s9
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-points", type=int, default=10_000_000)
@@ -2234,14 +2804,32 @@ def main() -> int:
     for name in KERNELS:
         check(tiered_launches[name] > 0,
               f"{name} never launched on the tiered path")
+    # -- 9. multi-tenant serving on the same index -----------------------
+    log(f"tenancy path: {N_TENANTS} tenants (mixture component mod "
+        f"{N_TENANTS}) + a {SCARCE_ROWS}-row one, tag id % {TAG_MOD}; N1 "
+        f"scoped LocalEngine (f32, uint8), N2 scoped DistributedEngine, N3 "
+        f"the tier, N4 the live index, S9 the tenant-aware service")
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tenancy_run = tenancy_path(ops, index, clusters, ds.points, queries,
+                               results, trace, service_runs, n, args.seed)
+    tenancy_launches = dict(ops.launches)
+    log(f"  tenancy path {time.perf_counter() - t0:.1f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {tenancy_launches}")
+    for name in LOCAL_KERNELS:
+        check(tenancy_launches[name] > 0,
+              f"{name} never launched on the tenancy path")
     by_path = {"local": launches, "sharded": sharded_launches,
                "service": service_launches, "mutation": mutation_launches,
-               "tiered": tiered_launches}
+               "tiered": tiered_launches, "tenancy": tenancy_launches}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
     log(json.dumps({"service": service_runs}))
     log(json.dumps({"mutation": mutation_run}))
     log(json.dumps({"tiered": tiered_run}))
+    log(json.dumps({"tenancy": tenancy_run}))
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

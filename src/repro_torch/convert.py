@@ -6,7 +6,9 @@ Both packages can then search the same index: the arrays of a reference
 a ``_Generation`` it built, come across whole (store rows, locator, raw
 vectors, quantizers, counters), read attribute by attribute through
 numpy, so both packages can then apply the same mutations.  A reference
-``Coarse2`` comes across through ``coarse2_from_numpy``.  ``uint16``
+``Coarse2`` comes across through ``coarse2_from_numpy``, and a
+reference ``VectorMeta`` (per-vector tenants and tags) through
+``vector_meta_from_reference``.  ``uint16``
 codes (CB > 256) become ``int32``, because ``torch.uint16`` has few CUDA
 ops; ``uint8`` codes stay ``uint8``.
 """
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.coarse2 import Coarse2
+from repro_torch.core.filter import VectorMeta
 from repro_torch.core.ivf import IVFPQIndex, PaddedClusters
 from repro_torch.core.mutable_index import (Index, MutationStats, _Generation,
                                             _Store)
@@ -109,20 +112,17 @@ def mutable_index_from_reference(handle, *, device="cuda") -> Index:
     """A reference mutable ``repro.core.Index`` -> the port's mutable
     ``Index`` on ``device``, in the same state: store rows, locator, raw
     vectors, centroids, codebook, rotation, the touched set, generation,
-    counters and compaction threshold."""
+    counters and compaction threshold; a handle's ``meta`` comes across
+    with :func:`vector_meta_from_reference`."""
     if not handle.mutable:
         raise ValueError("mutable_index_from_reference needs a mutable "
                          "handle (wrap a static index with Index(ivf))")
-    if handle.meta is not None:
-        raise NotImplementedError("a handle with per-vector metadata needs "
-                                  "tenancy, not ported to repro_torch yet "
-                                  "(ROADMAP item 8)")
     dev = resolve_device(device)
     pids = np.array(sorted(handle._vecs), np.int64)
     vecs = (np.stack([handle._vecs[p] for p in pids.tolist()]) if len(pids)
             else np.zeros((0, handle.dim), np.float32))
     rot = handle._rotation
-    return Index._restore(
+    out = Index._restore(
         _t(handle._centroids, np.float32, dev),
         _codebook(handle._codebook, dev),
         None if rot is None else _t(rot, np.float32, dev),
@@ -132,6 +132,23 @@ def mutable_index_from_reference(handle, *, device="cuda") -> Index:
         generation=handle.generation,
         stats=MutationStats(**handle.stats.as_dict()),
         compact_threshold=handle.compact_threshold)
+    if handle.meta is not None:
+        out.meta = vector_meta_from_reference(handle.meta)
+    return out
+
+
+def vector_meta_from_reference(meta) -> VectorMeta:
+    """A reference ``VectorMeta`` -> the port's, with the same host tables
+    (tenant_of, tags, cluster_of), ``tag_fields`` and ``version``.  The
+    tables are read through numpy, so this takes any object with those
+    attributes."""
+    out = VectorMeta(tag_fields=int(meta.tag_fields))
+    out.tenant_of = np.array(meta.tenant_of, np.int32)
+    out.tags = np.array(meta.tags, np.uint32).reshape(
+        len(out.tenant_of), out.tag_fields)
+    out.cluster_of = np.array(meta.cluster_of, np.int32)
+    out.version = int(meta.version)
+    return out
 
 
 def generation_from_reference(gen, *, device="cuda") -> _Generation:

@@ -14,7 +14,7 @@ from repro_torch.core.adc import (build_lut, build_lut_batch, scan_codes,
 from repro_torch.core.topk import topk_smallest, merge_topk
 from repro_torch.core.search import (SearchParams, search_ivfpq,
                                      exact_search, recall_at_k,
-                                     cluster_locate)
+                                     cluster_locate, cluster_locate_masked)
 from repro_torch.core.perf_model import (IndexParams, HardwareProfile,
                                          UPMEM_PROFILE, TaskLatencyModel,
                                          make_task_latency_model)
@@ -35,7 +35,7 @@ __all__ = [
     "scan_codes_quantized", "adc_distances_quantized",
     "topk_smallest", "merge_topk",
     "SearchParams", "search_ivfpq", "exact_search", "recall_at_k",
-    "cluster_locate",
+    "cluster_locate", "cluster_locate_masked",
     "IndexParams", "HardwareProfile", "UPMEM_PROFILE", "TaskLatencyModel",
     "make_task_latency_model",
     "Layout", "build_layout", "estimate_heat",

@@ -66,8 +66,11 @@ index's device; the handle then drops the codes and keeps a lean view
 (empty codes and ids, real offsets), and engines fetch probed clusters
 through ``tiered_store``.
 
-Not ported: per-vector tenant / tag metadata (``meta``; ROADMAP item 8),
-which raises ``NotImplementedError``.
+Per-vector tenant / tag metadata: the service attaches a
+:class:`~repro_torch.core.filter.VectorMeta` as ``Index.meta``; upserts
+then stamp each row's scope and cluster (``upsert(tenant=, tags=)``,
+with no defaults carried over from an id's earlier owner), and a
+generation install rebuilds the id -> cluster map from the new layout.
 """
 
 from __future__ import annotations
@@ -438,7 +441,9 @@ class Index:
     for the mutation and maintenance contracts.
     """
 
-    # per-vector tenant / tag metadata (tenancy, ROADMAP item 8)
+    # per-vector tenant / tag metadata (core.filter.VectorMeta), attached
+    # by the service when the spec declares tenants or tagged upserts are
+    # expected; None = single-tenant handle
     meta = None
 
     def __init__(self, ivf: IVFPQIndex, *, points=None, mutable: bool = False,
@@ -773,12 +778,16 @@ class Index:
         the cluster's padded rows (an existing id's old row is
         swap-compacted out first).  Rows of one call apply in order, so a
         repeated id's later row wins.  Returns insert/replace counts.
-        ``tenant`` / ``tags`` need per-vector metadata (ROADMAP item 8)."""
+
+        With a ``meta`` table attached, ``tenant`` (scalar or per-row) and
+        ``tags`` stamp the vectors' scope, and their clusters are
+        recorded; omitting them stamps tenant -1 / no tags -- a re-upsert
+        must re-supply its scope, so a recycled id never inherits a
+        previous owner's tenant."""
         self._require_mutable("upsert")
-        if tenant is not None or tags is not None:
-            raise NotImplementedError("upsert(tenant=/tags=) needs per-"
-                                      "vector metadata, not ported to "
-                                      "repro_torch yet (ROADMAP item 8)")
+        if self.meta is None and (tenant is not None or tags is not None):
+            raise ValueError("upsert(tenant=/tags=) needs a meta table "
+                             "attached to the index (Index.meta)")
         pids = np.asarray(ids, np.int64).reshape(-1)
         vecs = np.asarray(vectors, np.float32)
         if vecs.ndim == 1:
@@ -815,6 +824,17 @@ class Index:
                 self._write_vectors(pids, vec_t)
                 self.stats.upserts += len(pids)
                 self.stats.replaced += replaced
+                if self.meta is not None:
+                    # stamp scope + cluster membership; no defaults
+                    # carried over from a prior owner of a recycled id
+                    from repro_torch.core.filter import NO_TAG, NO_TENANT
+                    self.meta.set(
+                        pids,
+                        tenant=NO_TENANT if tenant is None else tenant,
+                        tags=(np.full((len(pids), self.meta.tag_fields),
+                                      NO_TAG, np.uint32)
+                              if tags is None else tags),
+                        cluster=assign)
                 self._dirty()
                 _settle(self.device)
                 return {"n": len(pids), "inserted": len(pids) - replaced,
@@ -1000,6 +1020,12 @@ class Index:
             self.stats.generations += 1
             self._dirty()
             self._view_cache = None
+            if self.meta is not None:
+                # the generation re-clustered every vector: rebuild the
+                # id -> cluster map (and so the tenant bitmap) from the
+                # new store layout
+                self.meta.rebuild_clusters(self._store.ids_h,
+                                           self._store.sizes)
             _settle(self.device)
             return {"generation": self.generation,
                     "nlist": self.nlist,

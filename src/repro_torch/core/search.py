@@ -53,6 +53,28 @@ def cluster_locate(queries: torch.Tensor, centroids: torch.Tensor,
     return idx, dist
 
 
+def cluster_locate_masked(queries: torch.Tensor, centroids: torch.Tensor,
+                          nprobe: int, allowed: torch.Tensor,
+                          block: Optional[int] = None):
+    """CL over a per-query cluster mask (tenant namespaces).
+
+    ``allowed`` (Q, nlist) bool: disallowed centroids rank ``+inf``, so a
+    tenant's probes land on its member clusters first; allowed clusters
+    keep their distances, so the ranking is that of a dedicated index
+    holding only those clusters.  The GEMM runs on the same fixed block as
+    :func:`cluster_locate`'s, so an all-true row gives plain CL's probes
+    bit for bit.  When nprobe exceeds a tenant's member count the surplus
+    probes fall on disallowed clusters, whose rows the scope mask strikes
+    anyway."""
+    q = queries
+    if block is not None:
+        q = torch.nn.functional.pad(queries, (0, 0, 0, block - len(queries)))
+    d = l2_sq(q, centroids)[:len(queries)].masked_fill(~allowed,
+                                                        float("inf"))
+    dist, idx = torch.topk(d, nprobe, dim=-1, largest=False, sorted=True)
+    return idx, dist
+
+
 def cl_rc(queries: torch.Tensor, centroids: torch.Tensor, rotation,
           params: SearchParams):
     """CL + RC for one chunk of at most ``params.query_chunk`` queries:
@@ -80,10 +102,11 @@ def lc(flat_res: torch.Tensor, codebook, params: SearchParams):
 
 
 def dc_ts(lut, probes: torch.Tensor, clusters: PaddedClusters,
-          params: SearchParams):
+          params: SearchParams, mask=None):
     """DC + TS over one chunk's tables: ``lut`` (Qc*P, M, CB) f32 or a
     (Qc*P,)-batched QuantizedLUT, one row per (query, probe) in
-    ``probes`` order -> ((Qc, k) dists, (Qc, k) ids)."""
+    ``probes`` order -> ((Qc, k) dists, (Qc, k) ids).  ``mask``: as
+    :func:`dc_ts_tasks`'."""
     qc, p = probes.shape
     flat_probes = probes.reshape(-1)
     # gather the probed clusters' codes/ids/sizes; codes keep their
@@ -91,16 +114,23 @@ def dc_ts(lut, probes: torch.Tensor, clusters: PaddedClusters,
     codes = clusters.codes.index_select(0, flat_probes)           # (QcP, C, M)
     ids = clusters.ids.index_select(0, flat_probes)               # (QcP, C)
     sizes = clusters.sizes.index_select(0, flat_probes)           # (QcP,)
-    return dc_ts_tasks(lut, codes, ids, sizes, qc, params)
+    return dc_ts_tasks(lut, codes, ids, sizes, qc, params, mask)
 
 
 def dc_ts_tasks(lut, codes: torch.Tensor, ids: torch.Tensor,
-                sizes: torch.Tensor, qc: int, params: SearchParams):
+                sizes: torch.Tensor, qc: int, params: SearchParams,
+                mask=None):
     """DC + TS over pre-gathered task tensors: codes (Qc*P, C, M), ids
     (Qc*P, C), sizes (Qc*P,), one task per (query, probe) in probe order
     -> ((Qc, k) dists, (Qc, k) ids).  The tiered path fetches these rows
     from its store; bytes equal to ``dc_ts``'s gather give equal
-    results."""
+    results.
+
+    ``mask`` (a function of the (Qc, P*C) candidate distances and ids
+    returning the distances with out-of-scope rows at ``+inf``, e.g. a
+    :class:`repro_torch.core.filter.Scope`'s) runs between DC and TS, and
+    the ids of non-finite winners become -1: the reference's scoped
+    DC/TS (tenant namespaces and predicate filters)."""
     if params.use_kernels:
         from repro_torch.kernels import ops as kops
         dists = kops.pq_scan_dc(lut, codes, sizes, strategy=params.strategy)
@@ -111,7 +141,10 @@ def dc_ts_tasks(lut, codes: torch.Tensor, ids: torch.Tensor,
     # TS: per query over all probed candidates
     cand_d = dists.reshape(qc, -1)
     cand_i = ids.reshape(qc, -1)
-    return topk_smallest(cand_d, cand_i, params.k)
+    if mask is None:
+        return topk_smallest(cand_d, cand_i, params.k)
+    bd, bi = topk_smallest(mask(cand_d, cand_i), cand_i, params.k)
+    return bd, bi.masked_fill(~torch.isfinite(bd), -1)
 
 
 def rc_from_probes(queries: torch.Tensor, centroids: torch.Tensor, rotation,

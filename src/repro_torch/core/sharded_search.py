@@ -49,9 +49,19 @@ deduplicated fetch, LC from the cache's bank or the LC kernels, then the
 fused DC+TS kernel in its dense form), and their candidates join the
 host merge.
 
-Not ported yet, each raises ``NotImplementedError``: ``mesh=`` (the
-``shard_map`` steps become ``torch.distributed`` across cards),
-``meta=`` and tenant/predicate scoped search.
+Tenant namespaces and predicate filters (``meta=``, a :class:`~
+repro_torch.core.filter.VectorMeta`; ``search(tenants=, terms=)``): CL
+ranks only the tenants' member clusters, and the scoped steps
+(:func:`run_shards_scoped`, and the cold scan) run RC, LC through the LC
+kernels (or the cache's bank rows) and DC through the DC kernels over
+each task's gathered codes, then the scope mask and a per-task TS.  The
+fused DC+TS kernels cannot interpose the mask, so scoped batches never
+run them, as in the reference.  The step runs ``SCOPED_TASK_CHUNK``
+tasks at a time, which bounds the gathered codes and the (T, cpart)
+distances.
+
+Not ported yet, raising ``NotImplementedError``: ``mesh=`` (the
+``shard_map`` steps become ``torch.distributed`` across cards).
 
 Shapes and units: queries (Q, D) f32; probes (Q, P) cluster ids; task
 tables (S, T) i32 with -1 padding; step outputs (S, T, k); heat is
@@ -79,7 +89,8 @@ from repro_torch.core.perf_model import (IndexParams, TaskLatencyModel,
 from repro_torch.core.pq import PQCodebook
 from repro_torch.core.scheduler import (ShardSchedule, schedule_batch,
                                         schedule_naive)
-from repro_torch.core.search import cluster_locate
+from repro_torch.core.filter import Scope, VectorMeta
+from repro_torch.core.search import cluster_locate, cluster_locate_masked
 from repro_torch.core.topk import topk_smallest
 from repro_torch.util import ieee_f32_matmul, next_pow2
 
@@ -87,16 +98,29 @@ from repro_torch.util import ieee_f32_matmul, next_pow2
 # SearchParams.query_chunk's default, so local and sharded engines probe
 # alike and a query's probes do not depend on its batch.
 CL_BLOCK = 256
+# tasks per call of the scoped step's body: one call holds the tasks'
+# gathered codes (T, cpart, M) and their (T, cpart) distances and mask
+SCOPED_TASK_CHUNK = 16384
 
 
-def locate_probes(queries, centroids: torch.Tensor,
-                  nprobe: int) -> np.ndarray:
+def locate_probes(queries, centroids: torch.Tensor, nprobe: int,
+                  scope: Optional[Scope] = None) -> np.ndarray:
     """CL for (Q, D) queries on fixed (CL_BLOCK, D) blocks on the
-    centroids' device -> (Q, nprobe) probe ids on the host."""
+    centroids' device -> (Q, nprobe) probe ids on the host.  With
+    ``scope`` each block's CL is masked to its queries' tenants' member
+    clusters (an unscoped row probes as without)."""
     q = torch.as_tensor(queries).to(centroids.device).float()
-    parts = [cluster_locate(q[s:s + CL_BLOCK], centroids, nprobe,
-                            block=CL_BLOCK)[0]
-             for s in range(0, q.shape[0], CL_BLOCK)]
+    nlist = centroids.shape[0]
+
+    def block(s):
+        if scope is None:
+            return cluster_locate(q[s:s + CL_BLOCK], centroids, nprobe,
+                                  block=CL_BLOCK)[0]
+        rows = slice(s, min(s + CL_BLOCK, q.shape[0]))
+        return cluster_locate_masked(q[rows], centroids, nprobe,
+                                     scope.allowed(rows, nlist),
+                                     block=CL_BLOCK)[0]
+    parts = [block(s) for s in range(0, q.shape[0], CL_BLOCK)]
     if not parts:
         return np.zeros((0, nprobe), np.int64)
     return torch.cat(parts).cpu().numpy()
@@ -251,8 +275,22 @@ def _shard_tasks_fn(codes, ids, sizes, cluster_of, qidx, sidx, queries,
     its slot in place (``slots=``); nothing is gathered."""
     from repro_torch.kernels import ops as kops
     valid = qidx >= 0
-    qi = qidx.clamp(0, queries.shape[0] - 1).long()
     si = sidx.clamp(0, codes.shape[0] - 1).long()
+    lut = _task_lut(cluster_of, qidx, si, queries, centroids, codebook,
+                    rotation, quantize)                           # RC + LC
+    bd, bi = kops.pq_scan_topk(lut, codes, ids, sizes, k, strategy=strategy,
+                               slots=_task_slots(si, valid))      # DC + TS
+    return bd, bi.masked_fill(~torch.isfinite(bd), -1)
+
+
+def _task_lut(cluster_of, qidx, si, queries, centroids, codebook: PQCodebook,
+              rotation, quantize: bool):
+    """RC + LC of a flat task table: each task's query minus its slot's
+    centroid (rotated under OPQ), then the LC kernel (``lut_build_q`` on
+    the uint8 path).  Padding tasks get some row's table; their size 0
+    keeps it out of every result."""
+    from repro_torch.kernels import ops as kops
+    qi = qidx.clamp(0, queries.shape[0] - 1).long()
     q = queries.index_select(0, qi).float()                   # (T, D)
     cl = cluster_of.index_select(0, si).clamp(0, centroids.shape[0] - 1)
     residual = q - centroids.index_select(0, cl.long())       # RC
@@ -261,9 +299,33 @@ def _shard_tasks_fn(codes, ids, sizes, cluster_of, qidx, sidx, queries,
         residual = residual @ rotation
     residual = residual.contiguous()
     lc = kops.lut_build_q if quantize else kops.lut_build
-    lut = lc(residual, codebook.codebooks, codebook.sqnorms)      # LC
-    bd, bi = kops.pq_scan_topk(lut, codes, ids, sizes, k, strategy=strategy,
-                               slots=_task_slots(si, valid))      # DC + TS
+    return lc(residual, codebook.codebooks, codebook.sqnorms)     # LC
+
+
+def _bank_rows(lut_bank, li: torch.Tensor):
+    """Rows ``li`` of an f32 (R, M, CB) bank or a QuantizedLUT bank."""
+    if isinstance(lut_bank, QuantizedLUT):
+        return QuantizedLUT(*(a.index_select(0, li) for a in lut_bank))
+    return lut_bank.index_select(0, li)
+
+
+def scoped_dc_ts(lut, codes, ids, sizes, mask, k: int,
+                 slots: Optional[torch.Tensor] = None):
+    """DC + scope mask + TS for a table of tasks: DC through the DC
+    kernels (``ops.pq_scan_dc``; ``pq_scan_dc_q`` for a QuantizedLUT) on
+    each task's codes (gathered from its slot with ``slots``), then
+    ``mask(d, ids)`` strikes out-of-scope rows to ``+inf``, then each
+    task's k smallest, ids of non-finite winners -1.  -> ((T, k), (T, k));
+    a task with fewer than k rows pads its tail with (+inf, -1)."""
+    from repro_torch.kernels import ops as kops
+    if slots is not None:
+        codes, ids, sizes = kops.gather_slots(codes, ids, sizes, slots)
+    d = mask(kops.pq_scan_dc(lut, codes, sizes), ids)             # DC
+    short = k - d.shape[1]
+    if short > 0:
+        d = torch.nn.functional.pad(d, (0, short), value=float("inf"))
+        ids = torch.nn.functional.pad(ids, (0, short), value=-1)
+    bd, bi = topk_smallest(d, ids, k)                             # TS
     return bd, bi.masked_fill(~torch.isfinite(bd), -1)
 
 
@@ -312,6 +374,54 @@ def run_shards_vmap(sindex: ShardedIndex, qidx: torch.Tensor,
     return bd.reshape(s, t, k), bi.reshape(s, t, k)
 
 
+def run_shards_scoped(sindex: ShardedIndex, qidx: np.ndarray,
+                      sidx: np.ndarray, queries: torch.Tensor, scope: Scope,
+                      *, k: int, quantize: bool = False,
+                      lidx: Optional[np.ndarray] = None, lut_bank=None):
+    """The scoped step over every shard: (S, T) host task tables ->
+    (S, T, k) candidates, ``SCOPED_TASK_CHUNK`` tasks at a time.
+
+    Tables come from RC + LC over the tasks (the LC kernels), or from the
+    cache's ``lut_bank`` rows ``lidx`` (-1: no row, the task is
+    invalidated).  Then :func:`scoped_dc_ts`: DC through the DC kernels
+    on each task's codes, the scope mask with the task's query's tenant
+    and terms, per-task TS.  Each task's result depends on its own row
+    only, so chunking does not change it.  Padding tasks take query 0's
+    scope; their size 0 already masks every row."""
+    s, t = qidx.shape
+    codes, ids, sizes, cluster_of = _flat(sindex)
+    dev = codes.device
+    q_flat = qidx.reshape(-1)
+    base = np.arange(s)[:, None] * sindex.slots
+    slot_flat = np.where(sidx >= 0, sidx + base, -1).reshape(-1)
+    valid = q_flat >= 0
+    if lut_bank is not None:
+        l_flat = lidx.reshape(-1)
+        valid &= l_flat >= 0
+    qrows = np.clip(q_flat, 0, queries.shape[0] - 1)
+    out_d, out_i = [], []
+    for a in range(0, q_flat.shape[0], SCOPED_TASK_CHUNK):
+        b = min(a + SCOPED_TASK_CHUNK, q_flat.shape[0])
+        slots = torch.from_numpy(np.where(valid[a:b], slot_flat[a:b], -1)
+                                 .astype(np.int32)).to(dev)
+        si = slots.long().clamp_min(0)
+        if lut_bank is None:
+            qi = torch.from_numpy(q_flat[a:b]).to(dev)
+            lut = _task_lut(cluster_of, qi, si, queries, sindex.centroids,
+                            sindex.codebook, sindex.rotation, quantize)
+        else:
+            n_rows = (lut_bank.lut_q if isinstance(lut_bank, QuantizedLUT)
+                      else lut_bank).shape[0]
+            li = np.clip(l_flat[a:b], 0, n_rows - 1).astype(np.int64)
+            lut = _bank_rows(lut_bank, torch.from_numpy(li).to(dev))
+        bd, bi = scoped_dc_ts(lut, codes, ids, sizes,
+                              scope.masker(qrows[a:b]), k, slots=slots)
+        out_d.append(bd)
+        out_i.append(bi)
+    return (torch.cat(out_d).reshape(s, t, k),
+            torch.cat(out_i).reshape(s, t, k))
+
+
 def make_sharded_step(mesh, sindex: ShardedIndex, **kw):
     """The reference's ``shard_map`` step over a device mesh."""
     raise NotImplementedError("make_sharded_step (mesh over torch.distributed "
@@ -349,10 +459,7 @@ def _shard_tasks_lut_fn(codes, ids, sizes, qidx, sidx, lidx, lut_bank, *,
     valid = (qidx >= 0) & (lidx >= 0)
     si = sidx.clamp(0, codes.shape[0] - 1).long()
     li = lidx.clamp(0, n_rows - 1).long()
-    if quantized:
-        lut = QuantizedLUT(*(a.index_select(0, li) for a in lut_bank))
-    else:
-        lut = lut_bank.index_select(0, li)                    # (T, M, CB)
+    lut = _bank_rows(lut_bank, li)                            # (T, M, CB)
     bd, bi = kops.pq_scan_topk(lut, codes, ids, sizes, k, strategy=strategy,
                                slots=_task_slots(si, valid))      # DC + TS
     return bd, bi.masked_fill(~torch.isfinite(bd), -1)
@@ -483,10 +590,10 @@ class DistributedEngine:
                  sample_probes: np.ndarray,
                  latency: Optional[TaskLatencyModel] = None,
                  mesh=None, lut_cache=None, heat_estimator=None,
-                 tasks_controller=None, tiered_store=None, meta=None):
-        for name, val in (("mesh", mesh), ("meta", meta)):
-            if val is not None:
-                raise _not_ported(f"{name}=...")
+                 tasks_controller=None, tiered_store=None,
+                 meta: Optional[VectorMeta] = None):
+        if mesh is not None:
+            raise _not_ported("mesh=...")
         if cfg.lut_dtype not in ("f32", "uint8"):
             raise ValueError(f"EngineConfig.lut_dtype must be 'f32' or "
                              f"'uint8', got {cfg.lut_dtype!r}")
@@ -511,6 +618,9 @@ class DistributedEngine:
         self.heat_estimator = heat_estimator
         self.tasks_controller = tasks_controller
         self.tiered_store = tiered_store
+        # per-vector metadata for tenant-scoped / predicate-filtered
+        # search; None = the single-tenant engine
+        self.meta = meta
         self._cold_mask: Optional[np.ndarray] = None
         # per-batch degrade report, read by the serving adapter after
         # search() returns (one worker serves a replica)
@@ -855,10 +965,13 @@ class DistributedEngine:
         self.carry = list(sched.deferred)
         return sched
 
-    def locate(self, queries: torch.Tensor) -> np.ndarray:
+    def locate(self, queries: torch.Tensor,
+               scope: Optional[Scope] = None) -> np.ndarray:
         """CL for (Q, D) queries on fixed (CL_BLOCK, D) blocks -> (Q, P)
-        probe ids on the host."""
-        return locate_probes(queries, self.sindex.centroids, self.cfg.nprobe)
+        probe ids on the host; masked to the tenants' member clusters
+        with ``scope``."""
+        return locate_probes(queries, self.sindex.centroids, self.cfg.nprobe,
+                             scope)
 
     def _lut_bank(self, queries_np: np.ndarray, probes: np.ndarray,
                   n_valid: int):
@@ -892,7 +1005,8 @@ class DistributedEngine:
         return stack_lut_bank(luts, device=self.device)
 
     def _scan_cold(self, q_dev: torch.Tensor, probes: np.ndarray, bank,
-                   budget_s: Optional[float], n_valid: int):
+                   budget_s: Optional[float], n_valid: int,
+                   scope: Optional[Scope] = None):
         """Scan this batch's snapshot-cold probes through the tier.
 
         (q, pos) pairs whose cluster is not in the shard tensors are
@@ -909,7 +1023,9 @@ class DistributedEngine:
         serve (quarantined clusters, or all of them when ``budget_s`` says
         the predicted cold cost would blow the deadline) come back with
         size 0, so the scan stays exact over what it scanned; the drop
-        count lands in ``last_batch_info``."""
+        count lands in ``last_batch_info``.  With ``scope`` the scan is
+        :func:`scoped_dc_ts` (the DC kernels, each task masked with its
+        query's scope, per-task TS) instead of the fused kernel."""
         from repro_torch.kernels import ops as kops
         mask = self._cold_mask
         if mask is None or not mask.any():
@@ -935,11 +1051,8 @@ class DistributedEngine:
                     self.last_batch_info.get("dropped_probes", 0)
                     + n_dropped}
         if bank is not None:
-            li = self._dev(cold_q.astype(np.int64) * self.cfg.nprobe
-                           + cold_pos)
-            lut = (QuantizedLUT(*(a.index_select(0, li) for a in bank))
-                   if isinstance(bank, QuantizedLUT)
-                   else bank.index_select(0, li))
+            lut = _bank_rows(bank, self._dev(
+                cold_q.astype(np.int64) * self.cfg.nprobe + cold_pos))
         else:
             res = miss_residuals(q_dev.index_select(0, self._dev(cold_q)),
                                  self.sindex.centroids,
@@ -949,9 +1062,13 @@ class DistributedEngine:
                   else kops.lut_build)
             cb = self.index.codebook
             lut = lc(res, cb.codebooks, cb.sqnorms)
-        bd, bi = kops.pq_scan_topk(lut, codes, ids, sizes, self.cfg.k,
-                                   strategy=self.cfg.strategy)   # DC + TS
-        bi = bi.masked_fill(~torch.isfinite(bd), -1)
+        if scope is not None:
+            bd, bi = scoped_dc_ts(lut, codes, ids, sizes,
+                                  scope.masker(cold_q), self.cfg.k)
+        else:
+            bd, bi = kops.pq_scan_topk(lut, codes, ids, sizes, self.cfg.k,
+                                       strategy=self.cfg.strategy)
+            bi = bi.masked_fill(~torch.isfinite(bd), -1)
         return bd.cpu().numpy(), bi.cpu().numpy(), cold_q
 
     def _probe_posmap(self, probes: np.ndarray) -> np.ndarray:
@@ -994,10 +1111,12 @@ class DistributedEngine:
         deadline budget; only the tiered cold scan consults it (when the
         predicted cold-read cost would blow it, the cold probes are
         dropped and the batch is reported degraded in
-        ``last_batch_info``)."""
-        if tenants is not None or terms is not None:
-            raise NotImplementedError("tenant / predicate scoped search is "
-                                      "not ported to repro_torch yet")
+        ``last_batch_info``).
+
+        ``tenants`` (Q,) i32 / ``terms`` (Q, W) u32: per-query tenant scope
+        (-1 = unscoped) and predicate tags (NO_TAG pad).  A scoped batch
+        probes only its tenants' member clusters and runs the scoped
+        steps (the scope mask before TS); it needs ``meta``."""
         self.last_batch_info = {"degraded": False, "dropped_probes": 0}
         if self._swap_on_next_batch:
             self._join_pending_relayout()
@@ -1007,7 +1126,8 @@ class DistributedEngine:
                                 else queries).to(self.device).float()
         nq = q_dev.shape[0]
         nv = nq if n_valid is None else min(n_valid, nq)
-        probes = self.locate(q_dev)
+        scope = Scope.make(self.meta, tenants, terms, nq, self.device)
+        probes = self.locate(q_dev, scope)
         t0 = self._clock("cl", t0)
         if nv > 0:      # all-padding warmup batches are not traffic
             if self.heat_estimator is not None:
@@ -1046,19 +1166,25 @@ class DistributedEngine:
                 full = bool((sched.n_tasks >= tps).any())
                 self.tasks_controller.observe(
                     nq, len(sched.deferred) if full else 0)
-            qidx = self._dev(sched.query_idx)
-            sidx = self._dev(sched.slot_idx)
-            t0 = self._clock("schedule", t0)
-            if bank is not None:
-                lidx = self._dev(self._lut_idx(sched, posmap,
-                                               self.cfg.nprobe))
-                bd, bi = run_shards_vmap_lut(
-                    self.sindex, qidx, sidx, lidx, bank, k=k,
-                    strategy=self.cfg.strategy)
+            lidx = (self._lut_idx(sched, posmap, self.cfg.nprobe)
+                    if bank is not None else None)
+            if scope is not None:       # the step uploads its own chunks
+                t0 = self._clock("schedule", t0)
+                bd, bi = run_shards_scoped(
+                    self.sindex, sched.query_idx, sched.slot_idx, q_dev,
+                    scope, k=k, quantize=quantize, lidx=lidx, lut_bank=bank)
             else:
-                bd, bi = run_shards_vmap(
-                    self.sindex, qidx, sidx, q_dev, k=k,
-                    strategy=self.cfg.strategy, quantize=quantize)
+                qidx = self._dev(sched.query_idx)
+                sidx = self._dev(sched.slot_idx)
+                t0 = self._clock("schedule", t0)
+                if bank is not None:
+                    bd, bi = run_shards_vmap_lut(
+                        self.sindex, qidx, sidx, self._dev(lidx), bank, k=k,
+                        strategy=self.cfg.strategy)
+                else:
+                    bd, bi = run_shards_vmap(
+                        self.sindex, qidx, sidx, q_dev, k=k,
+                        strategy=self.cfg.strategy, quantize=quantize)
             all_d.append(bd.cpu().numpy())
             all_i.append(bi.cpu().numpy())
             all_q.append(sched.query_idx)
@@ -1068,7 +1194,7 @@ class DistributedEngine:
                 break
             pending = np.zeros((0, 0), np.int64)   # only carry-in tasks
         if self.tiered_store is not None:
-            cold = self._scan_cold(q_dev, probes, bank, budget_s, nv)
+            cold = self._scan_cold(q_dev, probes, bank, budget_s, nv, scope)
             if cold is not None:
                 for out, part in zip((all_d, all_i, all_q), cold):
                     out.append(part)

@@ -86,6 +86,12 @@ class Request:
     retries: int = 0               # how many times it was re-routed
     degraded: bool = False         # served from resident-only probes
     deadline_missed: bool = False  # t_done exceeded the deadline budget
+    tenant: int = -1               # tenant scope (-1 = unscoped)
+    terms: tuple = ()              # predicate terms (u32 tags; () = none)
+
+    @property
+    def scoped(self) -> bool:
+        return self.tenant >= 0 or bool(self.terms)
 
     @property
     def done(self) -> bool:
@@ -123,6 +129,24 @@ class MicroBatch:
     def n_valid(self) -> int:
         return len(self.requests)
 
+    @property
+    def scoped(self) -> bool:
+        """Whether any rider carries a tenant / predicate scope: the
+        runtime then passes the batch's scope arrays to the engine."""
+        return any(r.scoped for r in self.requests)
+
+    def scope_arrays(self, width: int):
+        """(tenants (bucket,) i32, terms (bucket, width) u32) for the
+        scoped scans.  Padding rows (and unscoped riders) get tenant -1
+        and all-NO_TAG terms, so they behave exactly like unscoped rows."""
+        from repro_torch.core.filter import pad_terms
+        tenants = np.full(self.bucket, -1, np.int32)
+        rows = [()] * self.bucket
+        for i, r in enumerate(self.requests):
+            tenants[i] = r.tenant
+            rows[i] = r.terms
+        return tenants, pad_terms(rows, width)
+
 
 class MicroBatcher:
     """Request queue + bucketed flush policy (no engine knowledge).
@@ -144,14 +168,16 @@ class MicroBatcher:
 
     # -- queue side --------------------------------------------------------
     def submit(self, query: np.ndarray, now: float,
-               attach: Optional[Callable[[Request], None]] = None
-               ) -> Request:
+               attach: Optional[Callable[[Request], None]] = None,
+               tenant: int = -1, terms: tuple = ()) -> Request:
         """Queue one request.  ``attach(req)``, when given, runs under
         the queue lock before the request becomes visible to a poller, so
-        the service binds a future without racing a replica's worker."""
+        the service binds a future without racing a replica's worker.
+        ``tenant`` / ``terms`` scope the request (see
+        :mod:`repro_torch.core.filter`)."""
         with self._lock:
             req = Request(self._next_id, np.asarray(query, np.float32),
-                          float(now))
+                          float(now), tenant=int(tenant), terms=tuple(terms))
             self._next_id += 1
             if attach is not None:
                 attach(req)

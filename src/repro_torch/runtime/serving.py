@@ -44,8 +44,10 @@ from typing import Callable, List, Optional, Protocol, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.filter import NO_TAG, Scope, VectorMeta
 from repro_torch.core.ivf import IVFPQIndex, PaddedClusters
-from repro_torch.core.search import (SearchParams, cluster_locate, dc_ts,
+from repro_torch.core.search import (SearchParams, cluster_locate,
+                                     cluster_locate_masked, dc_ts,
                                      dc_ts_tasks, lc, rc_from_probes,
                                      search_ivfpq)
 from repro_torch.runtime.batching import (BucketPolicy, MicroBatch,
@@ -142,19 +144,25 @@ class LocalEngine:
     pressure (``budget_s``) cold probes are shed and ``last_batch_info``
     reports the batch degraded.
 
-    Tenant / predicate scopes (``meta``) are not ported yet and raise
-    ``NotImplementedError`` (ROADMAP item 8).
+    Tenant namespaces and predicate filters: with ``meta`` (a
+    :class:`~repro_torch.core.filter.VectorMeta`) ``search_batch`` takes
+    per-query ``tenants`` and ``terms``.  A scoped batch ranks only its
+    tenants' member clusters in CL (``cluster_locate_masked``, on the
+    same fixed block, so an unscoped row of a mixed batch probes as the
+    unscoped path does) and strikes out-of-scope rows to ``+inf`` between
+    DC and TS: it runs :meth:`_search_tasks` (the reference's fused
+    scoped pipeline, one chunk at a time), with or without a cache or a
+    tier.  LC and DC go through the same kernels as unscoped traffic; the
+    fused DC+TS kernels cannot take the mask and are not used.  Scope
+    together with the two-level CL is refused, as in the reference.
     """
 
     def __init__(self, index: IVFPQIndex, clusters: Optional[PaddedClusters],
                  params: SearchParams,
                  lut_cache: Optional[HotClusterLUTCache] = None,
                  tiered_store=None, coarse=None, coarse_nprobe1: int = 0,
-                 meta=None):
+                 meta: Optional[VectorMeta] = None):
         _warn_direct_use("LocalEngine")
-        if meta is not None:
-            raise NotImplementedError("LocalEngine(meta=...) is not ported "
-                                      "to repro_torch yet (ROADMAP item 8)")
         if clusters is None and tiered_store is None:
             raise ValueError("clusters may be omitted only with a "
                              "tiered_store (codes then live in the tier)")
@@ -173,6 +181,9 @@ class LocalEngine:
                                      else 0))
         self.k = params.k
         self.device = index.centroids.device
+        # per-vector metadata for tenant-scoped / predicate-filtered
+        # search; None = the single-tenant engine
+        self.meta = meta
         self.phase_s: dict = {}
         # per-batch degrade report, re-stamped by every search_batch call;
         # the serving runtime reads it to flag requests as degraded
@@ -232,20 +243,31 @@ class LocalEngine:
                      ) -> Tuple[np.ndarray, np.ndarray]:
         """(B, D) queries -> ((B, k) f32 dists, (B, k) i32 ids) on the
         host.  ``budget_s`` (seconds left before the batch's deadline)
-        only matters to the tiered path."""
-        if tenants is not None or terms is not None:
-            raise NotImplementedError("tenant / predicate scoped search is "
-                                      "not ported to repro_torch yet "
-                                      "(ROADMAP item 8)")
+        only matters to the tiered path.  ``tenants`` (B,) i32 (-1 =
+        unscoped) / ``terms`` (B, W) u32 (NO_TAG pad) scope the rows; a
+        batch with neither runs the unscoped paths."""
         self.last_batch_info = {"degraded": False, "dropped_probes": 0}
         queries = np.asarray(queries, np.float32)
+        scope = self._make_scope(tenants, terms, len(queries))
         view = self._view                     # one atomic read per batch
-        if (self.lut_cache is not None or self.tiered_store is not None
+        if (scope is not None or self.lut_cache is not None
+                or self.tiered_store is not None
                 or self.coarse is not None):
-            return self._search_tasks(queries, n_valid, budget_s, view)
+            return self._search_tasks(queries, n_valid, budget_s, view,
+                                      scope)
         q = torch.from_numpy(queries).to(self.device)
         d, i = search_ivfpq(view[0], view[1], q, self.params)
         return d.cpu().numpy(), i.cpu().numpy()
+
+    def _make_scope(self, tenants, terms, n: int) -> Optional[Scope]:
+        """The batch's :class:`~repro_torch.core.filter.Scope`, or None
+        for unscoped traffic (which then stays on the unscoped paths)."""
+        scope = Scope.make(self.meta, tenants, terms, n, self.device)
+        if scope is not None and self.coarse is not None:
+            raise ValueError("scoped search is not supported with the "
+                             "two-level coarse router (spec validation "
+                             "rejects tenants + coarse_groups)")
+        return scope
 
     def serving_info(self) -> dict:
         """Engine-side metrics block (routing mode, tier residency)."""
@@ -308,10 +330,13 @@ class LocalEngine:
 
     @torch.no_grad()
     def _search_tasks(self, queries: np.ndarray, n_valid: Optional[int],
-                      budget_s: Optional[float], view: tuple):
-        """The cached, tiered and two-level path: route, then per chunk
-        the tables (cache or LC), the codes (the clusters, or the tier's
-        slab hit or batched spill read), DC + TS.
+                      budget_s: Optional[float], view: tuple,
+                      scope: Optional[Scope] = None):
+        """The cached, tiered, two-level and scoped path: route, then per
+        chunk the tables (cache or LC), the codes (the clusters, or the
+        tier's slab hit or batched spill read), DC + TS.  With ``scope``
+        CL is masked to the tenants' member clusters and the scope mask
+        runs between DC and TS.
 
         CL runs for the whole batch first, so the probe heat of the valid
         rows feeds the tier's residency controller once per batch and
@@ -339,7 +364,14 @@ class LocalEngine:
         t0 = time.perf_counter()
         q_all = torch.from_numpy(queries).to(self.device)
         chunks = [(s, q_all[s:s + qc]) for s in range(0, nq, qc)]
-        probes = [self._route(q, index) for _, q in chunks]
+        if scope is not None:
+            nlist = index.centroids.shape[0]
+            probes = [cluster_locate_masked(
+                q, index.centroids, p.nprobe,
+                scope.allowed(slice(s, s + len(q)), nlist), block=qc)[0]
+                for s, q in chunks]
+        else:
+            probes = [self._route(q, index) for _, q in chunks]
         probes_np = (torch.cat(probes).cpu().numpy() if probes
                      else np.zeros((0, p.nprobe), np.int64))
         t0 = self._clock("route", t0)
@@ -372,14 +404,16 @@ class LocalEngine:
                 lut = lc(flat_res, index.codebook, p)
                 t0 = self._clock("rc_lc", t0)
             t0 = time.perf_counter()
+            mask = (None if scope is None
+                    else scope.masker(slice(s, s + len(q))))
             if tier is None:
-                d, i = dc_ts(lut, pr, clusters, p)
+                d, i = dc_ts(lut, pr, clusters, p, mask)
             else:
                 codes, ids, sizes, dropped = tier.gather_degraded(
                     flat_probes, resident_only=resident_only)
                 n_dropped += int(dropped[:nv_chunk * pr.shape[1]].sum())
                 t0 = self._clock("fetch", t0)
-                d, i = dc_ts_tasks(lut, codes, ids, sizes, len(q), p)
+                d, i = dc_ts_tasks(lut, codes, ids, sizes, len(q), p, mask)
             outs.append((d.cpu().numpy(), i.cpu().numpy()))
             t0 = self._clock("dc_ts", t0)
         if n_dropped:
@@ -431,6 +465,10 @@ class ShardedEngine:
     @property
     def last_batch_info(self) -> dict:
         return self.engine.last_batch_info
+
+    @property
+    def meta(self):
+        return self.engine.meta
 
     def search_batch(self, queries: np.ndarray,
                      n_valid: Optional[int] = None,
@@ -551,6 +589,9 @@ class ServingStats:
         self.t_last_done: Optional[float] = None
         self.degraded_requests = 0
         self.deadline_missed = 0
+        # per-tenant latencies: tenant id -> latency list; unscoped
+        # requests (tenant -1) stay out of the breakdown
+        self.tenant_latencies: dict = {}
         self._lock = threading.Lock()
 
     def record_arrival(self, req: Request, depth: int) -> None:
@@ -569,6 +610,9 @@ class ServingStats:
     def record_done(self, req: Request) -> None:
         with self._lock:
             self.latencies_s.append(req.latency_s)
+            if req.tenant >= 0:
+                self.tenant_latencies.setdefault(req.tenant,
+                                                 []).append(req.latency_s)
             if req.degraded:
                 self.degraded_requests += 1
             if req.deadline_missed:
@@ -591,7 +635,15 @@ class ServingStats:
             reasons = {"full": 0, "deadline": 0, "drain": 0}
             for b in self.batches:
                 reasons[b.reason] += 1
+            tenants = {
+                int(t): {
+                    "requests": len(ls),
+                    "p50_ms": _percentile(ls, 50) * 1e3,
+                    "p99_ms": _percentile(ls, 99) * 1e3,
+                    "qps": len(ls) / span if span > 0 else float("nan"),
+                } for t, ls in sorted(self.tenant_latencies.items())}
             return {
+                **({"tenants": tenants} if tenants else {}),
                 "requests": n,
                 "batches": len(self.batches),
                 "p50_ms": _percentile(self.latencies_s, 50) * 1e3,
@@ -630,6 +682,7 @@ class ServingConfig:
     max_wait_s: float = 2e-3          # deadline flush bound
     max_batch: Optional[int] = None   # default: largest bucket
     deadline_s: float = 0.0           # 0 = no per-request deadline
+    filter_width: int = 4             # predicate terms per query
 
     def make_batcher(self) -> MicroBatcher:
         return MicroBatcher(BucketPolicy(self.buckets),
@@ -684,6 +737,15 @@ class ServingRuntime:
             for b in self.batcher.policy.buckets:
                 self.engine.search_batch(np.zeros((b, d), np.float32),
                                          n_valid=0)
+            if getattr(self.engine, "meta", None) is not None:
+                # scoped traffic runs its own steps (masked CL, the scope
+                # mask): run them per bucket too, with a tenant present
+                w = self.config.filter_width
+                for b in self.batcher.policy.buckets:
+                    self.engine.search_batch(
+                        np.zeros((b, d), np.float32), n_valid=0,
+                        tenants=np.zeros(b, np.int32),
+                        terms=np.full((b, w), NO_TAG, np.uint32))
             if cache is not None:
                 self.engine.precompile_lc(self.batcher.policy.max_batch
                                           * self.engine.nprobe)
@@ -693,11 +755,14 @@ class ServingRuntime:
 
     # -- online API --------------------------------------------------------
     def submit(self, query: np.ndarray, now: float,
-               attach: Optional[Callable[[Request], None]] = None
-               ) -> Request:
+               attach: Optional[Callable[[Request], None]] = None,
+               tenant: int = -1, terms: tuple = ()) -> Request:
         """Queue one request; ``attach(req)`` binds a future under the
-        batcher lock (see ``MicroBatcher.submit``)."""
-        req = self.batcher.submit(query, now, attach=attach)
+        batcher lock (see ``MicroBatcher.submit``).  ``tenant`` >= 0
+        scopes the search to that tenant's rows; ``terms`` are predicate
+        tags (OR semantics) filtered inside the scan's mask."""
+        req = self.batcher.submit(query, now, attach=attach, tenant=tenant,
+                                  terms=terms)
         self.stats.record_arrival(req, self.batcher.depth)
         return req
 
@@ -724,6 +789,11 @@ class ServingRuntime:
             deadline = (min(r.t_arrival for r in batch.requests)
                         + self.config.deadline_s)
             kwargs["budget_s"] = deadline - t_start
+        # scoped batches carry per-row tenant / term arrays; unscoped
+        # batches pass nothing, so the engine stays on its unscoped path
+        if batch.scoped:
+            kwargs["tenants"], kwargs["terms"] = batch.scope_arrays(
+                self.config.filter_width)
         t0 = time.perf_counter()
         try:
             d, i = self.engine.search_batch(batch.queries,

@@ -12,9 +12,13 @@ fleet inside ``[replicas, replicas_max]`` from queue-depth/p99 signals.
 
 ``python -m repro_torch.service --selftest`` runs an end-to-end smoke on
 both stream clocks; ``--spec deploy.json`` boots a fleet from a file.
-The live index (``mutable=True``) and tiered storage (``storage=
-"tiered"``) are served; tenancy, fault injection and the auto-tuner are
-not ported yet.
+The live index (``mutable=True``), tiered storage (``storage=
+"tiered"``) and multi-tenant serving are served: per-tenant namespaces
+and predicate filters (:mod:`repro_torch.core.filter`) under per-tenant
+QoS (:class:`TenantRegistry` token buckets and :class:`WFQScheduler`
+weighted fair queueing; an over-quota submit raises
+:class:`TenantThrottled`); ``--selftest-tenants`` runs the multi-tenant
+smoke.  Fault injection and the auto-tuner are not ported yet.
 """
 
 from repro_torch.service.autoscale import Autoscaler, ScaleEvent, ScaleSignals
@@ -22,11 +26,15 @@ from repro_torch.service.executor import ReplicaExecutor, SearchFuture
 from repro_torch.service.router import (CacheAwarePolicy, LeastQueuePolicy,
                                         RoundRobinPolicy, Router,
                                         RoutingPolicy, make_policy)
-from repro_torch.service.service import AnnService, Replica, ServiceOverloaded
+from repro_torch.service.service import (AnnService, Replica,
+                                         ServiceOverloaded, TenantThrottled)
 from repro_torch.service.spec import SPEC_VERSION, IndexSpec, ServiceSpec
+from repro_torch.service.tenancy import (TenantRegistry, TokenBucket,
+                                         WFQScheduler)
 
 __all__ = ["AnnService", "Autoscaler", "CacheAwarePolicy", "IndexSpec",
            "LeastQueuePolicy", "Replica", "ReplicaExecutor",
            "RoundRobinPolicy", "Router", "RoutingPolicy", "SPEC_VERSION",
            "ScaleEvent", "ScaleSignals", "SearchFuture", "ServiceOverloaded",
-           "ServiceSpec", "make_policy"]
+           "ServiceSpec", "TenantRegistry", "TenantThrottled", "TokenBucket",
+           "WFQScheduler", "make_policy"]

@@ -22,10 +22,13 @@ up AnnService five times and asserts the service invariants end to end:
     budget and cold fetches happened; then the skewed stream on
     ``--clock`` equals a direct batch.
 
-``--spec deploy.json`` boots the smoke fleet from a deploy
-file instead (the same schema as ``repro.service``).  The reference CLI's
-``--selftest-chaos``, ``--selftest-tenants`` and ``--autotune`` are not
-ported; asking for one prints the ROADMAP item it waits for and exits 2.
+``--selftest-tenants`` runs the multi-tenant smoke instead: two tenants
+with disjoint halves of the corpus on one shared index (isolation, the
+predicate filter, quotas and weighted fair queueing; see
+:func:`selftest_tenants`).  ``--spec deploy.json`` boots the smoke fleet
+from a deploy file instead (the same schema as ``repro.service``).  The
+reference CLI's ``--selftest-chaos`` and ``--autotune`` are not ported;
+asking for one prints the ROADMAP item it waits for and exits 2.
 
 Exit code 0 on success.
 """
@@ -40,7 +43,6 @@ import numpy as np
 #: what the reference CLI offers and this one does not run yet
 NOT_PORTED = {
     "selftest_chaos": ("--selftest-chaos (fault-injection smoke)", 9),
-    "selftest_tenants": ("--selftest-tenants (multi-tenant smoke)", 8),
     "autotune": ("--autotune (SLO-driven auto-tuner)", 10),
 }
 
@@ -229,6 +231,111 @@ def selftest(clock: str = "virtual", device: str = "cuda") -> int:
     return 0
 
 
+def _same_up_to_ties(d1, i1, d2, i2, rtol=1e-5, atol=1e-5) -> bool:
+    """(Q, k) results agree: distances within tolerance (an (inf, -1)
+    tail on both sides), ids equal except among rows tied at the k-th
+    distance (the top-k's tie order is the implementation's)."""
+    def fin(d):
+        return np.where(np.isfinite(d), d, 0.0)
+    if not (np.array_equal(np.isfinite(d1), np.isfinite(d2))
+            and np.allclose(fin(d1), fin(d2), rtol=rtol, atol=atol)):
+        return False
+    for r in np.nonzero((i1 != i2).any(axis=1))[0]:
+        tied = np.isclose(fin(d2[r]), fin(d2[r, -1]), rtol=rtol, atol=atol)
+        if set(i1[r][~tied].tolist()) != set(i2[r][~tied].tolist()):
+            return False
+    return True
+
+
+def selftest_tenants(device: str = "cuda") -> int:
+    """Multi-tenant serving smoke: two tenants with disjoint halves of the
+    corpus on one shared index.  Asserts isolation (a tenant's results
+    never hold the other's rows, and equal a dedicated single-tenant
+    index over the same rows, up to ties at the k-th place), the
+    predicate filter against the host-side reference mask, quotas (the
+    rate-limited tenant is shed, the unlimited one never), and the fair
+    queue's accounting in ``stats()``."""
+    import time
+
+    import torch
+
+    from repro_torch.core import SearchParams, pad_clusters, search_ivfpq
+    from repro_torch.core.filter import tenant_subindex
+    from repro_torch.service import AnnService, ServiceSpec, TenantThrottled
+
+    ds, index = _corpus_and_index(device)
+    queries = ds.queries.float().cpu().numpy()
+    n = len(ds.points)
+    tenants = np.zeros(n, np.int32)
+    tenants[n // 2:] = 1                        # disjoint halves
+    tags = (np.arange(n, dtype=np.uint32) % 3)[:, None]
+
+    spec = ServiceSpec(engine="local", replicas=2, nprobe=4, k=5,
+                       buckets=(1, 2, 4), max_wait_s=1e-3,
+                       tenants=(("anna", 0, 4.0, 0.0, 1),
+                                ("zoe", 1, 1.0, 25.0, 2)),
+                       qos_wfq=True)
+    svc = AnnService.build(spec, index=index, points=ds.points.cpu().numpy(),
+                           tenants=tenants, tags=tags)
+    svc.warmup()
+    meta = svc.index.meta
+
+    # isolation: scoped == dedicated single-tenant index
+    for name, tid in (("anna", 0), ("zoe", 1)):
+        d_s, i_s = svc.search(queries, tenant=name)
+        live = i_s[i_s >= 0]
+        _check(live.size > 0 and bool(np.all(tenants[live] == tid)),
+               f"tenant {name}: result holds another tenant's rows")
+        sub, members = tenant_subindex(index, meta, tid)
+        p = min(4, len(members))
+        d_ref, i_ref = (x.cpu().numpy() for x in search_ivfpq(
+            sub, pad_clusters(sub), torch.from_numpy(queries).to(device),
+            SearchParams(nprobe=p, k=5, use_kernels=True)))
+        _check(_same_up_to_ties(d_s, i_s, d_ref, i_ref),
+               f"tenant {name}: scoped search differs from the dedicated "
+               f"sub-index")
+    print("[tenants] isolation: scoped == dedicated subindex (both "
+          "tenants): OK")
+
+    # predicate filtering: every returned row carries a requested term
+    _, i_f = svc.search(queries, tenant="anna", terms=(1,))
+    live = i_f[i_f >= 0]
+    _check(live.size > 0
+           and bool(np.all(meta.match_host(live, tenant=0, terms=(1,)))),
+           "filtered result row fails the predicate")
+    print("[tenants] predicate filter (tag==1 under tenant anna): OK")
+
+    # quotas + WFQ on the executor path: anna unlimited, zoe 25 qps
+    shed = 0
+    futs = []
+    for j in range(150):
+        who = "anna" if j % 2 else "zoe"
+        try:
+            futs.append((who, svc.submit_async(queries[j % len(queries)],
+                                               tenant=who)))
+        except TenantThrottled:
+            shed += 1
+    for _, f in futs:
+        f.result(timeout=60.0)
+    deadline = time.monotonic() + 10.0     # the done callbacks run last
+    while svc.wfq.stats()["in_flight"] and time.monotonic() < deadline:
+        time.sleep(0.001)
+    st = svc.stats()
+    ten = st["tenants"]
+    _check(ten["anna"]["shed"] == 0, f"{ten}")
+    _check(ten["zoe"]["shed"] == shed > 0, f"shed {shed}, {ten}")
+    _check(ten["anna"]["requests"] + ten["zoe"]["requests"] == len(futs),
+           f"{ten}")
+    _check(st["qos"]["queued"] == 0 and st["qos"]["in_flight"] == 0,
+           f"{st['qos']}")
+    _check({w for w, _ in futs} == {"anna", "zoe"}, "a tenant went unserved")
+    print(f"[tenants] quotas: zoe shed {shed} over-rate submits, anna 0; "
+          f"WFQ dispatched {st['qos']['dispatched']}: OK")
+    svc.shutdown()
+    print(f"[tenants] multi-tenant serving OK (device={device})")
+    return 0
+
+
 def spec_smoke(spec_path: str, clock: str, device: str = "cuda") -> int:
     """Boot the selftest fleet from a durable deploy file and stream the
     same skewed trace through it."""
@@ -266,6 +373,8 @@ def main(argv=None) -> int:
                          "simulation or wall-clock executors")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the smoke's index and engines live")
+    ap.add_argument("--selftest-tenants", action="store_true",
+                    help="run the multi-tenant serving smoke test")
     ap.add_argument("--spec", metavar="PATH",
                     help="boot the smoke fleet from a ServiceSpec deploy "
                          "file (.json/.yaml) instead of built-in specs")
@@ -279,6 +388,8 @@ def main(argv=None) -> int:
             print(f"{what} is not ported to repro_torch yet: it waits for "
                   f"ROADMAP item {item}", file=sys.stderr)
             return 2
+    if args.selftest_tenants:
+        return selftest_tenants(args.device)
     if args.spec:
         return spec_smoke(args.spec, args.clock, args.device)
     if not args.selftest:

@@ -197,15 +197,17 @@ class ReplicaExecutor:
         return self
 
     def submit(self, query: np.ndarray, now: Optional[float] = None,
-               attach=None) -> Request:
+               attach=None, tenant: int = -1,
+               terms: Tuple[int, ...] = ()) -> Request:
         """Enqueue one query (router thread); wakes the worker so a
         flush-on-full fires immediately rather than at the deadline.
         ``attach(req)`` binds a future before the worker can see the
-        request (it runs under the batcher lock)."""
+        request (it runs under the batcher lock).  ``tenant`` / ``terms``
+        scope the request (see :mod:`repro_torch.core.filter`)."""
         req = self.runtime.submit(
             np.asarray(query, np.float32),
             float(now) if now is not None else self.clock(),
-            attach=attach)
+            attach=attach, tenant=tenant, terms=terms)
         with self._cond:
             self._cond.notify()
         return req

@@ -69,9 +69,9 @@ class MutationCoordinator:
         self.propagations = 0
 
     # -- mutation fan-out --------------------------------------------------
-    def upsert(self, ids, vectors) -> dict:
+    def upsert(self, ids, vectors, tenant=None, tags=None) -> dict:
         self._raise_pending_error()
-        info = self.index.upsert(ids, vectors)
+        info = self.index.upsert(ids, vectors, tenant=tenant, tags=tags)
         self._after_mutation()
         return info
 

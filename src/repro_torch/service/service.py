@@ -1,7 +1,6 @@
 """AnnService: the one front door to the DRIM-ANN serving stack.
 
-The port of ``repro/service/service.py`` for the static, untenanted,
-fault-free service:
+The port of ``repro/service/service.py`` for the fault-free service:
 
     spec = ServiceSpec(engine="sharded", replicas=3, router="cache_aware",
                        cache_capacity=4096, nprobe=8, k=10)
@@ -60,9 +59,21 @@ resident clusters in their shards and scan the rest through it.
 ``coarse_groups`` gives local replicas the two-level coarse quantizer
 (one :class:`~repro_torch.core.coarse2.Coarse2` per handle).
 
-Not ported yet, each raising ``NotImplementedError`` at ``build`` with
-its ROADMAP item: tenants, tags and weighted fair queueing (8), fault
-injection (9).
+Multi-tenant serving: ``build(tenants=, tags=)`` (or a spec with a
+``tenants`` section) attaches a :class:`~repro_torch.core.filter.
+VectorMeta` to the index handle, and ``search`` / ``submit`` /
+``submit_async`` / ``stream`` take a ``tenant`` (name or id) and
+``terms`` (predicate tags): each engine ranks only the tenant's member
+clusters and masks out-of-scope rows before top-k.  Per-tenant QoS rides
+in front (:mod:`repro_torch.service.tenancy`): a registered tenant over
+its token-bucket quota is refused with :class:`TenantThrottled`, and with
+``spec.qos_wfq`` the executor path holds requests in a
+:class:`~repro_torch.service.tenancy.WFQScheduler` and dispatches them
+in weighted fair order.  ``stats()`` gains per-tenant p50 / p99 / QPS /
+shed counts and the scheduler's counters.
+
+Not ported yet, raising ``NotImplementedError`` at ``build`` with its
+ROADMAP item: fault injection (9).
 
 Invariants (held in tests/test_torch_service.py):
   * 1 replica, local engine, no cache: ``search`` is exactly
@@ -83,6 +94,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core.filter import VectorMeta, pad_terms
 from repro_torch.core.ivf import IVFPQIndex
 from repro_torch.core.mutable_index import Index
 from repro_torch.core.search import SearchParams
@@ -100,6 +112,7 @@ from repro_torch.service.autoscale import Autoscaler, ScaleSignals
 from repro_torch.service.executor import ReplicaExecutor, SearchFuture
 from repro_torch.service.router import Router, make_policy
 from repro_torch.service.spec import ServiceSpec
+from repro_torch.service.tenancy import TenantRegistry, WFQScheduler
 
 
 class ServiceOverloaded(RuntimeError):
@@ -108,18 +121,22 @@ class ServiceOverloaded(RuntimeError):
     fast rejection instead of letting the queue grow without bound."""
 
 
+class TenantThrottled(ServiceOverloaded):
+    """Raised by the submit path when a tenant's token bucket is out of
+    tokens (``ServiceSpec.tenants`` rate_qps / burst): per-tenant
+    admission control sheds that tenant's excess instead of letting it
+    queue ahead of everyone else.  A :class:`ServiceOverloaded`, so
+    overload-aware callers need no new handler."""
+
+
 def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to repro_torch yet "
                                f"(ROADMAP item {item})")
 
 
-def _check_ported(spec: ServiceSpec, tenants, tags, fault_injector) -> None:
+def _check_ported(fault_injector) -> None:
     """Refuse, by ROADMAP item, what the reference service offers and
     this one does not yet."""
-    if spec.tenants or spec.qos_wfq:
-        raise _not_ported("ServiceSpec(tenants=..., qos_wfq=...)", 8)
-    if tenants is not None or tags is not None:
-        raise _not_ported("AnnService.build(tenants=..., tags=...)", 8)
     if fault_injector is not None:
         raise _not_ported("AnnService.build(fault_injector=...)", 9)
 
@@ -185,6 +202,18 @@ class AnnService:
         self._sample_queries = None       # re-probed after a generation
         self._serving_cfg = self._serving_config(spec)
         self._own_spill_dir: Optional[str] = None    # set by build()
+        # multi-tenant QoS: name <-> id registry + token buckets, and
+        # (qos_wfq) weighted fair queueing on the executor path
+        self.tenancy: Optional[TenantRegistry] = (
+            TenantRegistry(spec.tenants) if spec.tenants else None)
+        self.wfq: Optional[WFQScheduler] = None
+        if spec.qos_wfq:
+            window = spec.qos_window or (
+                len(self.replicas) * max(spec.buckets))
+            self.wfq = WFQScheduler(self.tenancy, window)
+        # sticky WFQ dispatch anchor: (replica, dispatches left), see
+        # _dispatch_executor
+        self._wfq_anchor = (-1, 0)
         # the mutation coordinator (wired by build() when spec.mutable)
         self.mutator = None
         for i, rep in enumerate(self.replicas):
@@ -207,11 +236,17 @@ class AnnService:
         alive.  With ``spec.storage == "tiered"`` the handle spills its
         codes (a prebuilt handle must have been built that way).
         ``sample_queries`` seeds the sharded engine's heat estimate
-        (falls back to a slice of the corpus).  ``tenants``, ``tags`` and
-        ``fault_injector`` are not ported and raise
+        (falls back to a slice of the corpus).
+
+        ``tenants`` (per-vector owning tenant ids, (N,) int, -1 =
+        unscoped) and ``tags`` (per-vector predicate tags, (N, <=
+        filter_width) u32) attach a :class:`~repro_torch.core.filter.
+        VectorMeta` to the index handle; with ``spec.tenants`` set it is
+        attached even when both are None (rows are then scoped by tagged
+        upserts).  ``fault_injector`` is not ported and raises
         ``NotImplementedError``."""
         spec.validate()
-        _check_ported(spec, tenants, tags, fault_injector)
+        _check_ported(fault_injector)
         storage_kw = dict(storage=spec.storage, storage_dir=spec.storage_dir,
                           storage_budget_bytes=spec.storage_budget_bytes,
                           storage_promote_margin=spec.storage_promote_margin,
@@ -225,7 +260,7 @@ class AnnService:
                 prefix="ann_tier_")
         try:
             svc = cls._build(spec, points, index, sample_queries, device,
-                             storage_kw)
+                             storage_kw, tenants, tags)
         except BaseException:
             if own_dir is not None:
                 shutil.rmtree(own_dir, ignore_errors=True)
@@ -235,7 +270,8 @@ class AnnService:
 
     @classmethod
     def _build(cls, spec: ServiceSpec, points, index, sample_queries,
-               device, storage_kw: dict) -> "AnnService":
+               device, storage_kw: dict, tenants=None,
+               tags=None) -> "AnnService":
         if index is None:
             if points is None:
                 raise ValueError("AnnService.build needs points or index")
@@ -261,6 +297,9 @@ class AnnService:
         else:
             raise TypeError(f"index must be an Index or an IVFPQIndex, got "
                             f"{type(index).__name__}")
+
+        if spec.tenants or tenants is not None or tags is not None:
+            cls._attach_meta(spec, handle, tenants, tags)
 
         sample = sample_probes = None
         if spec.engine == "sharded":
@@ -303,10 +342,50 @@ class AnnService:
         return svc
 
     @staticmethod
+    def _attach_meta(spec: ServiceSpec, handle: Index,
+                     tenants, tags) -> VectorMeta:
+        """Build the id-keyed :class:`VectorMeta` tables for the handle:
+        per-vector tenant / tags from the caller's arrays (row i = vector
+        id i, the build's id assignment), cluster_of from the handle's
+        layout (the padded clusters, or the tier's per-cluster id rows;
+        the tables stay on the host either way)."""
+        meta = VectorMeta(tag_fields=spec.filter_width)
+        n = None
+        if tenants is not None:
+            tenants = np.asarray(tenants, np.int32).reshape(-1)
+            n = tenants.size
+        if tags is not None:
+            tags = np.asarray(tags, np.uint32)
+            if tags.ndim == 1:
+                tags = tags[:, None]
+            if n is not None and len(tags) != n:
+                raise ValueError(
+                    f"tenants ({n}) and tags ({len(tags)}) must describe "
+                    f"the same vectors")
+            n = len(tags)
+        if n:
+            meta.set(np.arange(n), tenant=tenants, tags=tags)
+        tier = handle.tiered_store
+        if tier is not None:
+            for c in range(handle.nlist):
+                _, ids_c = tier.peek(c)
+                row = np.asarray(ids_c)[:int(tier.sizes[c])]
+                row = row[row >= 0]
+                if row.size:
+                    meta.set(row, cluster=c)
+        else:
+            cl = handle.clusters
+            meta.rebuild_clusters(cl.ids.cpu().numpy(),
+                                  cl.sizes.cpu().numpy())
+        handle.meta = meta
+        return meta
+
+    @staticmethod
     def _serving_config(spec: ServiceSpec) -> ServingConfig:
         return ServingConfig(buckets=tuple(spec.buckets),
                              max_wait_s=spec.max_wait_s,
-                             deadline_s=spec.deadline_ms * 1e-3)
+                             deadline_s=spec.deadline_ms * 1e-3,
+                             filter_width=spec.filter_width)
 
     @staticmethod
     def _build_replica(spec: ServiceSpec, index: Index,
@@ -382,7 +461,8 @@ class AnnService:
                                             lut_dtype=spec.lut_dtype),
                                lut_cache=cache, tiered_store=tier,
                                coarse=coarse,
-                               coarse_nprobe1=spec.coarse_nprobe1)
+                               coarse_nprobe1=spec.coarse_nprobe1,
+                               meta=index.meta)
             return Replica(ServingRuntime(pace(core), serving_cfg), core,
                            core, cache, None)
         est = None
@@ -396,7 +476,8 @@ class AnnService:
                                  EngineConfig(**spec.engine_config_kwargs()),
                                  sample_probes, lut_cache=cache,
                                  heat_estimator=est,
-                                 tiered_store=index.tiered_store)
+                                 tiered_store=index.tiered_store,
+                                 meta=index.meta)
         if spec.tune_tasks_per_shard:
             core.tasks_controller = core.make_tasks_controller()
         adapter = ShardedEngine(core)
@@ -495,13 +576,18 @@ class AnnService:
         per-cluster code rows, and install the new tensors on every
         replica (centroids / codebooks unchanged, so LUT caches stay
         valid).  Visible to the next search batch.  Returns insert /
-        replace counts (see :meth:`Index.upsert`).  Scoped upserts
-        (``tenant`` / ``tags``) wait for tenancy (ROADMAP item 8)."""
+        replace counts (see :meth:`Index.upsert`).
+
+        ``tenant`` (name or id) / ``tags`` scope the upserted vectors
+        (needs a service built with per-vector metadata); omitting them
+        stamps the rows unscoped -- a recycled id never inherits its
+        previous owner's scope."""
         self._check_open()
         mut = self._require_mutable("upsert")
-        if tenant is not None or tags is not None:
-            raise _not_ported("upsert(tenant=..., tags=...)", 8)
-        return mut.upsert(ids, vectors)
+        if tenant is None and tags is None:
+            return mut.upsert(ids, vectors)
+        return mut.upsert(ids, vectors,
+                          tenant=self._resolve_tenant(tenant), tags=tags)
 
     def delete(self, ids) -> int:
         """Remove ids from the live index (swap-compacted out of the scan
@@ -522,25 +608,48 @@ class AnnService:
         return self._require_mutable("run_maintenance").run_maintenance(
             force=force, wait=wait)
 
+    # -- tenant scoping ------------------------------------------------------
+    def _resolve_tenant(self, tenant) -> int:
+        """Tenant name / int / None -> int id (-1 = unscoped)."""
+        if self.tenancy is not None:
+            return self.tenancy.resolve(tenant)
+        if tenant is None:
+            return -1
+        if isinstance(tenant, str):
+            raise KeyError(f"tenant names need ServiceSpec.tenants; got "
+                           f"{tenant!r} on a spec without a tenants "
+                           f"section (pass the int tenant id instead)")
+        return int(tenant)
+
     # -- synchronous batch API ---------------------------------------------
     def search(self, queries, tenant=None,
                terms=()) -> Tuple[np.ndarray, np.ndarray]:
         """One batched search, bypassing the micro-batcher (offline /
         bulk callers).  Batches rotate over live replicas round-robin;
         results are replica-independent.  With 1 replica, a local engine
-        and no cache this is exactly ``search_ivfpq``.  Tenant / predicate
-        scopes are not ported (ROADMAP item 8)."""
+        and no cache this is exactly ``search_ivfpq``.
+
+        ``tenant`` (name or int id) scopes every query of the batch to
+        that tenant's rows; ``terms`` (u32 tags, OR semantics) keeps rows
+        carrying any of them.  Needs a service built with per-vector
+        metadata.  Quotas do not apply on this offline path (admission
+        control guards the online submit paths)."""
         self._check_open()
-        if tenant is not None or len(tuple(terms)):
-            raise _not_ported("tenant / predicate scoped search", 8)
         r = self._batch_rr % self.n_replicas
         self._batch_rr += 1
+        q = np.asarray(queries, np.float32)
+        tid = self._resolve_tenant(tenant)
+        if tid < 0 and not len(tuple(terms)):
+            return self.replicas[r].engine.search_batch(q)
+        tenants_arr = np.full(len(q), tid, np.int32)
+        terms_arr = pad_terms([tuple(terms)] * len(q),
+                              self.spec.filter_width)
         return self.replicas[r].engine.search_batch(
-            np.asarray(queries, np.float32))
+            q, tenants=tenants_arr, terms=terms_arr)
 
     # -- async request lifecycle --------------------------------------------
-    def _route_and_submit(self, query, now: float,
-                          executor: bool) -> SearchFuture:
+    def _route_and_submit(self, query, now: float, executor: bool,
+                          tenant: int = -1, terms=()) -> SearchFuture:
         """The one submit path: route, enqueue, bind a future.  The future
         is attached under the batcher lock, so an executor worker can
         never serve the request before the future exists.
@@ -550,8 +659,19 @@ class AnnService:
         healthiest shallowest alternative.  With ``spec.queue_bound`` set
         the executor path is admission controlled: once that many
         requests are in flight fleet-wide, submits fail fast with
-        :class:`ServiceOverloaded`."""
+        :class:`ServiceOverloaded`.
+
+        Per-tenant QoS layers in front: a scoped request first passes its
+        tenant's token bucket (over quota: :class:`TenantThrottled`, on
+        both clock paths), and with ``spec.qos_wfq`` the executor path
+        holds the request in the :class:`WFQScheduler`; routing then
+        happens at dispatch time (:meth:`_dispatch_executor`)."""
         q = np.asarray(query, np.float32)
+        if tenant >= 0 and self.tenancy is not None \
+                and not self.tenancy.admit(tenant, now):
+            raise TenantThrottled(
+                f"tenant {self.tenancy.name_of(tenant)!r} is over its "
+                f"token-bucket quota; shedding")
         bound = self.spec.queue_bound
         if bound and executor:
             depth = sum(rep.queue_depth for rep in self.live_replicas)
@@ -560,7 +680,19 @@ class AnnService:
                 raise ServiceOverloaded(
                     f"queue_bound={bound} in-flight requests already "
                     f"queued (depth={depth}); shedding")
-        r = self.router.route(q)
+        if executor and self.wfq is not None:
+            fut = SearchFuture()
+            fut.add_done_callback(self.wfq.on_complete)
+
+            def dispatch(fut=fut, q=q, now=now, tenant=tenant,
+                         terms=terms) -> None:
+                try:
+                    self._dispatch_executor(q, now, tenant, terms, fut)
+                except BaseException as err:    # noqa: BLE001 -- the done
+                    fut._fail(err)              # callback frees the slot
+            self.wfq.submit(tenant, dispatch)
+            return fut
+        r = self.router.route(q, tenant=tenant)
         if executor and not self.health.allow(r):
             with self._scale_lock:
                 alt = self._retry_target(exclude=r)
@@ -572,10 +704,43 @@ class AnnService:
             cell.append(SearchFuture(req, r))
 
         if executor:
-            self._executors[r].submit(q, now=now, attach=attach)
+            self._executors[r].submit(q, now=now, attach=attach,
+                                      tenant=tenant, terms=terms)
         else:
-            self.replicas[r].runtime.submit(q, now, attach=attach)
+            self.replicas[r].runtime.submit(q, now, attach=attach,
+                                            tenant=tenant, terms=terms)
         return cell[0]
+
+    def _dispatch_executor(self, q: np.ndarray, now: float, tenant: int,
+                           terms, fut: SearchFuture) -> None:
+        """WFQ dispatch: route (now, not at submit), steer around open
+        breakers, bind the held future to the enqueued request.
+
+        WFQ dispatches route by chunked round-robin instead of the spec's
+        policy: the fair queue releases requests one per completion, and
+        per-request depth-aware routing would march across the fleet with
+        every pick, shredding the batches the micro-batcher wants to
+        form.  A bucket's worth of consecutive dispatches goes to one
+        replica (full batches), then the anchor moves to the next (even
+        spread).  Health steering still applies and pick accounting stays
+        complete (``Router.record``)."""
+        r, left = self._wfq_anchor
+        if not (0 <= r < self._live) or left <= 0:
+            r = (r + 1) % self._live
+            if not self.health.allow(r):
+                with self._scale_lock:
+                    alt = self._retry_target(exclude=r)
+                if alt is not None:
+                    r = alt
+            left = max(self.spec.buckets)
+        self.router.record(r, tenant=tenant)
+        self._wfq_anchor = (r, left - 1)
+
+        def attach(req: Request, r=r) -> None:
+            fut._bind(req, r)
+
+        self._executors[r].submit(q, now=now, attach=attach,
+                                  tenant=tenant, terms=terms)
 
     def _ensure_executors(self, upto: Optional[int] = None) -> None:
         """Stand up (or top up, after growth) one executor per replica
@@ -591,25 +756,35 @@ class AnnService:
         for ex in self._executors[:self._live if upto is None else upto]:
             ex.start()
 
-    def submit_async(self, query, now: Optional[float] = None
-                     ) -> SearchFuture:
+    def submit_async(self, query, now: Optional[float] = None, *,
+                     tenant=None, terms=()) -> SearchFuture:
         """Route one query onto an executor-backed replica; returns a
         :class:`SearchFuture` (``result(timeout)``, ``done()``,
-        ``timing()``).  The first call starts the replica workers."""
+        ``timing()``).  The first call starts the replica workers.
+        ``tenant`` (name or id) / ``terms`` scope the request; a scoped
+        submit may raise :class:`TenantThrottled` (quota) and, under
+        ``spec.qos_wfq``, may be held by the fair queue before it reaches
+        a replica."""
         self._check_open()
         self._check_wall_ok("submit_async()")
         self._ensure_executors()
         t = float(now) if now is not None else time.monotonic()
-        return self._route_and_submit(query, t, executor=True)
+        return self._route_and_submit(query, t, executor=True,
+                                      tenant=self._resolve_tenant(tenant),
+                                      terms=tuple(terms))
 
-    def submit(self, query, now: float) -> Request:
+    def submit(self, query, now: float, *, tenant=None,
+               terms=()) -> Request:
         """Route one query and enqueue it on the chosen replica's
         micro-batcher under the caller's (virtual) clock.  Returns the
         live Request (stamped when served; its ``future`` resolves then
         too); drive completion with :meth:`step`."""
         self._check_open()
         self._check_virtual_ok("submit()")
-        return self._route_and_submit(query, now, executor=False).request
+        return self._route_and_submit(
+            query, now, executor=False,
+            tenant=self._resolve_tenant(tenant),
+            terms=tuple(terms)).request
 
     def step(self, now: float, drain: bool = False) -> List[Request]:
         """Advance every live replica's flush policy to time ``now``
@@ -668,10 +843,13 @@ class AnnService:
                 # keep the original arrival stamp: the caller has been
                 # waiting since then, and stats/autoscaling must see the
                 # failover's real latency (the stale deadline also makes
-                # the retry flush immediately)
+                # the retry flush immediately); the scope rides along --
+                # a retried tenant query stays that tenant's
                 self._executors[target].submit(req.query,
                                                now=req.t_arrival,
-                                               attach=attach)
+                                               attach=attach,
+                                               tenant=req.tenant,
+                                               terms=req.terms)
 
     # -- autoscaling ---------------------------------------------------------
     def scale_to(self, n: int) -> None:
@@ -739,7 +917,7 @@ class AnnService:
     # -- stream drivers ------------------------------------------------------
     def stream(self, arrivals: Sequence[Tuple],
                clock: str = "virtual") -> List[Request]:
-        """Replay (t_arrival, query) arrivals across the fleet.
+        """Replay (t_arrival, query[, tenant]) arrivals across the fleet.
 
         One submit loop, two drivers:
 
@@ -753,15 +931,16 @@ class AnnService:
             replica workers overlap, and (with ``replicas_max`` set) the
             autoscaler moves the live fleet between batches.
 
-        An arrival carrying a third element (a tenant) is refused:
-        tenancy is not ported (ROADMAP item 8).  Returns served requests
-        in arrival order (same neighbour sets under either clock)."""
+        An arrival may carry a third element, its tenant (name or int
+        id).  A tenant over its token-bucket quota has that arrival shed
+        (counted in ``stats()['tenants'][name]['shed']``, absent from the
+        returned list) rather than aborting the replay.  Returns served
+        requests in arrival order (same neighbour sets under either
+        clock)."""
         self._check_open()
         if clock not in ("virtual", "wall"):
             raise ValueError(f"stream clock must be 'virtual' or 'wall', "
                              f"got {clock!r}")
-        if any(len(a) > 2 and a[2] is not None for a in arrivals):
-            raise _not_ported("a tenant-scoped stream", 8)
         if clock == "virtual":
             self._check_virtual_ok("stream(clock='virtual')")
         else:
@@ -772,8 +951,12 @@ class AnnService:
         interval = self.spec.autoscale_interval
         for i, arrival in enumerate(arrivals):
             t, query = arrival[0], arrival[1]
+            tenant = arrival[2] if len(arrival) > 2 else None
             driver.advance_to(t)
-            driver.submit(query, t)
+            try:
+                driver.submit(query, t, tenant=tenant)
+            except TenantThrottled:
+                pass                    # shed: counted in tenancy stats
             if clock == "wall" and (i + 1) % interval == 0:
                 self._autoscale_tick()
         return driver.finish()
@@ -783,7 +966,8 @@ class AnnService:
         """Per-replica runtime metrics plus a fleet-level rollup:
         aggregate p50/p99 over all served requests, QPS over the global
         span, summed LUT-cache hit rate, the router's pick counts, retry
-        and replica-health counters, and the autoscaler's event log."""
+        and replica-health counters, per-tenant latency and shed counts,
+        the fair queue's counters, and the autoscaler's event log."""
         per = [rep.runtime.metrics() for rep in self.replicas]
         lat: List[float] = []
         t0s, t1s = [], []
@@ -816,12 +1000,52 @@ class AnnService:
             agg["lut_hit_rate"] = hits / lookups
         out = {"aggregate": agg, "router": self.router.stats(),
                "health": self.health.stats(), "replicas": per}
+        tenants = self._tenant_rollup(span)
+        if tenants:
+            out["tenants"] = tenants
+        if self.wfq is not None:
+            out["qos"] = self.wfq.stats()
         if self.autoscaler is not None:
             out["autoscaler"] = self.autoscaler.stats()
         if self.mutator is not None:
             out["mutation"] = self.mutator.stats()
         if self.index.tiered_store is not None:
             out["tier"] = self.index.tiered_store.serving_info()
+        return out
+
+    def _tenant_rollup(self, span: float) -> dict:
+        """Fleet-wide per-tenant p50 / p99 / QPS / shed: every replica
+        runtime's per-tenant latencies merged, then the registry's quota
+        shed counts laid over them (a registered tenant appears even if
+        every one of its requests was shed)."""
+        lat: dict = {}
+        for rep in self.replicas:
+            with rep.runtime.stats._lock:
+                items = [(t, list(ls)) for t, ls in
+                         rep.runtime.stats.tenant_latencies.items()]
+            for tid, ls in items:
+                lat.setdefault(int(tid), []).extend(ls)
+        if not lat and self.tenancy is None:
+            return {}
+        name_of = (self.tenancy.name_of if self.tenancy is not None
+                   else lambda t: str(t))
+        out = {}
+        for tid, ls in sorted(lat.items()):
+            out[name_of(tid)] = {
+                "id": tid,
+                "requests": len(ls),
+                "p50_ms": _percentile(ls, 50) * 1e3,
+                "p99_ms": _percentile(ls, 99) * 1e3,
+                "qps": len(ls) / span if span > 0 else float("nan"),
+                "shed": 0,
+            }
+        if self.tenancy is not None:
+            for name, info in self.tenancy.stats().items():
+                row = out.setdefault(name, {
+                    "id": info["id"], "requests": 0, "p50_ms": 0.0,
+                    "p99_ms": 0.0, "qps": 0.0, "shed": 0})
+                row["shed"] = info["shed"]
+                row["weight"] = info["weight"]
         return out
 
 
@@ -865,8 +1089,10 @@ class _VirtualStreamDriver:
     def advance_to(self, t: float) -> None:
         self._fire_deadlines(until=t)
 
-    def submit(self, query, t: float) -> None:
-        req = self.svc._route_and_submit(query, t, executor=False).request
+    def submit(self, query, t: float, tenant=None) -> None:
+        req = self.svc._route_and_submit(
+            query, t, executor=False,
+            tenant=self.svc._resolve_tenant(tenant)).request
         self.reqs.append(req)
         r = req.replica
         batch = self.svc.replicas[r].runtime.batcher.poll(t)  # flush-on-full
@@ -897,11 +1123,17 @@ class _WallStreamDriver:
         if dt > 0:
             time.sleep(dt)
 
-    def submit(self, query, t: float) -> None:
-        self.futures.append(self.svc.submit_async(query))
+    def submit(self, query, t: float, tenant=None) -> None:
+        self.futures.append(self.svc.submit_async(query, tenant=tenant))
 
     def finish(self) -> List[Request]:
         svc = self.svc
+        # WFQ holds a backlog outside the batchers: keep force-flushing so
+        # completions keep pulling the queue until it runs dry
+        while svc.wfq is not None and svc.wfq.pending:
+            for ex in svc._executors[:svc._live]:
+                ex.flush()
+            time.sleep(0.002)
         for ex in svc._executors[:svc._live]:
             ex.flush()
         for fut in self.futures:

@@ -681,3 +681,78 @@ def test_coarse2_on_the_card(cuda):
     for s in (0, 31):
         one, _ = coarse2_locate(coarse, qt[s:s + 1], nprobe=8, nprobe1=8)
         assert torch.equal(one[0], two[s])
+
+
+def _tenant_meta(idx):
+    """Tenants striped over 3, one tag column mod 5, clusters from the
+    padded layout."""
+    from repro_torch.core.filter import VectorMeta
+    n = idx.ids.shape[0]
+    meta = VectorMeta(tag_fields=2)
+    meta.set(np.arange(n), tenant=(np.arange(n) % 3).astype(np.int32),
+             tags=(np.arange(n) % 5).astype(np.uint32)[:, None])
+    cl = pad_clusters(idx)
+    meta.rebuild_clusters(cl.ids.cpu().numpy(), cl.sizes.cpu().numpy())
+    return meta, cl
+
+
+@pytest.mark.parametrize("lut_dtype", ["f32", "uint8"])
+def test_scoped_local_search_goes_through_kernels(cuda, lut_dtype):
+    """Tenant-scoped search on the card: LC (A or B) and DC (C or D)
+    launch and the fused kernels do not; no id leaves its tenant, every
+    id carries the term, and each tenant's result equals search_ivfpq
+    over its dedicated sub-index (ids up to ties at the k-th place)."""
+    from repro_torch.core.filter import pad_terms, tenant_subindex
+    from repro_torch.runtime import LocalEngine
+    idx, q = _service_index(cuda)
+    meta, cl = _tenant_meta(idx)
+    p = SearchParams(nprobe=8, k=10, use_kernels=True, lut_dtype=lut_dtype)
+    eng = LocalEngine(idx, cl, p, meta=meta)
+    lc, dc = (("lut_build_q", "pq_scan_dc_q") if lut_dtype == "uint8"
+              else ("lut_build", "pq_scan_dc"))
+    tenants = (np.arange(len(q)) % 3).astype(np.int32)
+    ops.reset_launches()
+    d, i = eng.search_batch(q, tenants=tenants)
+    assert ops.launches[lc] > 0 and ops.launches[dc] > 0
+    assert ops.launches["pq_scan_topk"] == ops.launches["pq_scan_topk_q"] == 0
+    assert np.all(meta.tenant_of[i] == tenants[:, None])
+    _, i_f = eng.search_batch(q, tenants=tenants,
+                              terms=pad_terms([(2,)] * len(q), 2))
+    assert np.all(meta.match_host(i_f[i_f >= 0], terms=(2,)))
+    for tid in range(3):
+        sub, members = tenant_subindex(idx, meta, tid)
+        rows = tenants == tid
+        sd, si = (x.cpu().numpy() for x in search_ivfpq(
+            sub, pad_clusters(sub), torch.from_numpy(q[rows]).to(cuda),
+            p._replace(nprobe=min(8, len(members)))))
+        np.testing.assert_allclose(d[rows], sd, rtol=RTOL, atol=ATOL)
+        assert np.mean([set(a) == set(b)
+                        for a, b in zip(i[rows], si)]) >= 0.95
+
+
+@pytest.mark.parametrize("lut_dtype", ["f32", "uint8"])
+def test_scoped_sharded_search_goes_through_kernels(cuda, lut_dtype):
+    """The scoped sharded step runs LC and the DC kernels (not the fused
+    ones, which cannot take the mask) and agrees with the scoped local
+    engine."""
+    from repro_torch.core.sharded_search import (DistributedEngine,
+                                                 EngineConfig, locate_probes)
+    from repro_torch.runtime import LocalEngine
+    idx, q = _service_index(cuda)
+    meta, cl = _tenant_meta(idx)
+    eng = DistributedEngine(
+        idx, EngineConfig(n_shards=8, nprobe=8, k=10, tasks_per_shard=256,
+                          split_max=64, lut_dtype=lut_dtype),
+        locate_probes(q, idx.centroids, 8), meta=meta)
+    tenants = (np.arange(len(q)) % 3).astype(np.int32)
+    ops.reset_launches()
+    d, i, _ = eng.search(q, tenants=tenants)
+    lc, dc = (("lut_build_q", "pq_scan_dc_q") if lut_dtype == "uint8"
+              else ("lut_build", "pq_scan_dc"))
+    assert ops.launches[lc] > 0 and ops.launches[dc] > 0
+    assert ops.launches["pq_scan_topk"] == ops.launches["pq_scan_topk_q"] == 0
+    local = LocalEngine(idx, cl, SearchParams(
+        nprobe=8, k=10, use_kernels=True, lut_dtype=lut_dtype), meta=meta)
+    ld, li = local.search_batch(q, tenants=tenants)
+    np.testing.assert_allclose(d, ld, rtol=RTOL, atol=ATOL)
+    assert np.mean([set(a) == set(b) for a, b in zip(i, li)]) >= 0.95

@@ -189,8 +189,11 @@ def test_validation_matches_reference(ref_ivf, points):
             call()
     with pytest.raises(ValueError, match="raw points"):
         Index(static.ivf, mutable=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port.upsert([0], points[:1], tenant=0)
+    # tenancy is ported (ROADMAP item 8): a scoped upsert needs a meta
+    # table on the handle, as in the reference
+    for h in (ref, port):
+        with pytest.raises(ValueError, match="meta"):
+            h.upsert([0], points[:1], tenant=0)
 
 
 @pytest.mark.parametrize("band", [None, (40, 200)])

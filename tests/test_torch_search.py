@@ -232,17 +232,17 @@ def test_unported_engine_options_raise(port):
     idx, cl = port
     p = SearchParams(nprobe=2, k=3)
     # tiered storage and the two-level CL are ported (ROADMAP item 7):
-    # only a tier may stand in for the clusters; tenancy is not ported
+    # only a tier may stand in for the clusters
     with pytest.raises(ValueError, match="tiered_store"):
         LocalEngine(idx, None, p)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        LocalEngine(idx, cl, p, meta=object())
     # the LUT cache is ported; its dtype must match the scan's
     with pytest.raises(ValueError, match="lut_dtype"):
         LocalEngine(idx, cl, p, lut_cache=HotClusterLUTCache(
             capacity=8, lut_dtype="uint8"))
+    # tenancy is ported (ROADMAP item 8): scoped search needs an engine
+    # built with per-vector metadata, as in the reference
     eng = LocalEngine(idx, cl, p)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="meta=None"):
         eng.search_batch(np.zeros((1, idx.dim), np.float32),
                          tenants=np.zeros(1, np.int32))
 

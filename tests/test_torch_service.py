@@ -641,18 +641,21 @@ def test_sharded_service_stream_equals_direct(port_index, small_index,
 # ---------------------------------------------------------------------------
 
 NOT_PORTED = {
-    # the live index is ported; a live index with per-vector tenants is not
-    "mutable": (dict(mutable=True), dict(tenants=np.zeros(8000, np.int32)),
-                "item 8"),
-    # tiered storage and coarse_groups are ported (ROADMAP item 7); a
-    # tiered fleet with tenants, or a two-level one under fault
-    # injection, is not
+    # the live index, tiered storage, coarse_groups (ROADMAP item 7) and
+    # tenancy (item 8) are ported; each of them under fault injection
+    # (item 9) is not
+    "mutable": (dict(mutable=True), dict(tenants=np.zeros(8000, np.int32),
+                                         fault_injector=object()),
+                "item 9"),
     "tiered": (dict(storage="tiered", storage_budget_bytes=1,
-                    tenants=(("a", 0, 1.0, 0.0, 1),)), {}, "item 8"),
+                    tenants=(("a", 0, 1.0, 0.0, 1),)),
+               dict(fault_injector=object()), "item 9"),
     "coarse": (dict(coarse_groups=4), dict(fault_injector=object()),
                "item 9"),
-    "tenants": (dict(tenants=(("a", 0, 1.0, 0.0, 1),)), {}, "item 8"),
-    "tenant_rows": ({}, dict(tenants=np.zeros(8000, np.int32)), "item 8"),
+    "tenants": (dict(tenants=(("a", 0, 1.0, 0.0, 1),), qos_wfq=True),
+                dict(fault_injector=object()), "item 9"),
+    "tenant_rows": ({}, dict(tenants=np.zeros(8000, np.int32),
+                             fault_injector=object()), "item 9"),
     "faults": ({}, dict(fault_injector=object()), "item 9"),
 }
 
@@ -666,19 +669,23 @@ def test_reference_only_features_raise(port_index, case):
 
 
 def test_reference_only_calls_raise(port_index, queries):
+    # tenancy is ported (ROADMAP item 8): scoped calls on a service, an
+    # index or an engine without per-vector metadata are refused as the
+    # reference refuses them
     svc = _port(port_index)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="meta=None"):
         svc.search(queries[:2], tenant=0)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(KeyError, match="tenants section"):
         svc.stream([(0.0, queries[0], "anna")])
     live = IndexSpec(nlist=4, m=8, cb=16, kmeans_iters=2, pq_iters=2).build(
         np.random.default_rng(0).normal(size=(64, 32)).astype(np.float32),
         device="cpu", mutable=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="meta"):
         live.upsert([64], np.zeros((1, 32), np.float32), tenant=0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        LocalEngine(port_index, pad_clusters(port_index),
-                    SearchParams(nprobe=NPROBE, k=K), meta=object())
+    eng = LocalEngine(port_index, pad_clusters(port_index),
+                      SearchParams(nprobe=NPROBE, k=K))
+    with pytest.raises(ValueError, match="meta=None"):
+        eng.search_batch(queries[:2], terms=np.zeros((2, 4), np.uint32))
     svc.shutdown()
 
 
@@ -707,6 +714,15 @@ def test_selftest_passes_on_the_cpu(clock, capsys):
 @pytest.mark.parametrize("flag", ["--selftest-chaos", "--selftest-tenants",
                                   "--autotune"])
 def test_cli_refuses_what_is_not_ported(flag, capsys):
+    if flag == "--selftest-tenants":
+        # ported (ROADMAP item 8): no longer refused; it runs in
+        # test_torch_tenancy.py::test_selftest_tenants_on_the_cpu
+        assert "selftest_tenants" not in cli.NOT_PORTED
+        with pytest.raises(SystemExit) as ex:
+            cli.main(["--help"])
+        assert ex.value.code == 0
+        assert "multi-tenant serving smoke" in capsys.readouterr().out
+        return
     assert cli.main([flag]) == 2
     assert "ROADMAP item" in capsys.readouterr().err
 

@@ -448,16 +448,18 @@ def test_sharded_recall_equals_reference_on_its_sample(small_index, port,
 
 def test_unported_options_raise(port, sample_probes):
     idx, _ = port
-    for extra in ({"mesh": object()}, {"meta": object()}):
-        with pytest.raises(NotImplementedError):
-            _engine(idx, sample_probes, extra=extra)
+    with pytest.raises(NotImplementedError):
+        _engine(idx, sample_probes, extra={"mesh": object()})
     eng = _engine(idx, sample_probes)
-    for call in (lambda: eng.search(np.zeros((1, idx.dim), np.float32),
-                                    tenants=np.zeros(1, np.int32)),
-                 lambda: ss.make_sharded_step(None, eng.sindex),
+    for call in (lambda: ss.make_sharded_step(None, eng.sindex),
                  lambda: ss.make_sharded_step_lut(None, eng.sindex)):
         with pytest.raises(NotImplementedError):
             call()
+    # tenancy is ported (ROADMAP item 8): scoped search needs an engine
+    # built with per-vector metadata, as in the reference
+    with pytest.raises(ValueError, match="meta=None"):
+        eng.search(np.zeros((1, idx.dim), np.float32),
+                   tenants=np.zeros(1, np.int32))
     with pytest.raises(ValueError):
         _engine(idx, sample_probes, lut_dtype="bf16")
     with pytest.raises(ValueError):
