@@ -100,12 +100,51 @@ paths once at the configuration below:
              local replica (t0 weight 4, t7 at 100 QPS burst 4, WFQ) on
              the Poisson trace on both clocks (every served result == the
              direct scoped search, only t7 shed, on the virtual clock as
-             many as the smoke's own token-bucket model says).
+             many as the smoke's own token-bucket model says);
+    chaos:   the chaos harness's canonical experiment
+             (service/chaos.py::chaos_experiment) on the same index: X two
+             tiered local replicas with a quarter of the padded clusters
+             on the card, the harness's spec (nprobe 8, buckets 1..8,
+             deadline 50 ms, 2 retries with 1 ms backoff, breaker at 3,
+             checksums) armed with default_plan(seed) (2% batch failures,
+             5% cold-read IOErrors, 5% stragglers of 5 ms, one spill
+             corruption after 4 consultations), 1,000 Zipf(1.1) draws
+             from the 10,000 queries offered on the wall clock at 200 QPS,
+             f32 then uint8, then f32 on 1,000 uniform draws over a
+             sixteenth resident at a promote margin of 1e6 (a hot set
+             past the budget, read from the host: cold reads must fire,
+             the tier drop probes and answers come back degraded), each
+             held to its own fault-free fleet (the
+             reference's floors: availability >= 0.95, every non-degraded
+             answer bit for bit the fault-free one, engine.batch fired,
+             the one rotted cluster healed; and every failed batch an
+             injected one); then A-D against their plain versions at one
+             served batch's shape (8 queries x nprobe 8);
+    autotune: the SLO autotuner (autotune_service) on its own corpus at
+             the main path's width, U: N = 1M, D = 128, 64 components,
+             256 queries, nlist 4,096, CB 256, TuneSpace m (16, 32, 64) x
+             nprobe (8, 32, 96) x LUT (uint8, f32) x cache (0, 16 MiB),
+             SLO recall@10 >= 0.8 and p99 <= 50 ms, 8 candidates measured
+             on 400 calibration requests at 2,000 QPS (skew 1.1); either
+             outcome is a result: a winner's spec validated, saved and
+             loaded equal, meeting the SLO, its service == search_ivfpq
+             over the tuned index bit for bit; or SLOInfeasible with a
+             frontier of 8 measured entries, none meeting it, and then a
+             second run under recall@10 >= 0.15 (p99 unbounded), which
+             the frontier meets, so the winner's checks run too.  The
+             shortlist (36 modeled, 18 survivors, 18 pruned) is the one
+             tests/test_torch_autotune.py pins against the reference.
+             After each run, A-D against their plain versions on every
+             index it built (32 queries at the largest nprobe measured;
+             dsub 8, 4 and 2).  Its latencies are PIM-paced: modeled
+             UPMEM time, not the card's.
 
 The launch counters of the six kernels are reset just before each path
 and read just after it; every kernel of the path must have risen (the
 service, mutation and tiered paths run all six; the tenancy path runs
-A-D: the fused E/F cannot take the scope mask).
+A-D: the fused E/F cannot take the scope mask; the chaos path A-D, A and
+C on its f32 runs and B and D on its uint8 run; the autotune path the LC
+and DC kernels of the LUT dtypes it measured).
 Recall@10 is taken against the port's exact_search; the sharded results
 are held to the local path's on the same queries, and served results to
 a direct search: every local service cell bit for bit to the uncached
@@ -114,7 +153,8 @@ JSON line and ``{"ok": true, "device": {...}}``; A's and B's rows carry
 their times at the sharded step's first LC launches too; ``launches``
 sums the local and sharded paths, as before the service existed, and
 ``launches_by_path`` gives each path's own count, the service's, the
-mutation's, the tiered and the tenancy path's included.  E's and F's
+mutation's, the tiered, the tenancy, the chaos and the autotune path's
+included.  E's and F's
 first sharded launches, with their LC inputs and those of the local
 path's first chunk, are written to ``build/sharded_launch.pt``, which
 ``tools/torch_fused_topk_bench.py`` and ``tools/torch_lut_build_bench.py``
@@ -2457,6 +2497,310 @@ def tenancy_path(ops, index, clusters, points, queries, results, trace,
     return out
 
 
+
+# -- X: the chaos harness at N = 10M -----------------------------------------
+CHAOS_QUERIES, CHAOS_INTERVAL_S, CHAOS_NPROBE, CHAOS_BATCH = (
+    1_000, 5e-3, 8, 8)
+# (label, LUT dtype, stream skew, resident share, promote margin): the
+# reference's Zipf stream at the tiered phase's quarter budget and the
+# spec's margin, at f32 and uint8.  There every batch's cold probes are
+# promoted before its own gather (the slab holds 4,096 clusters, a batch
+# probes at most 64), so the stream never reads a cold row.  Then uniform
+# draws over a sixteenth at a margin of 1e6 (a probed cluster displaces
+# only never-probed ones): a hot set past the budget, read from the host,
+# which loads the degraded path (cold reads fire, dropped probes,
+# degraded answers)
+CHAOS_RUNS = (("f32", "f32", 1.1, 4, 1.25), ("uint8", "uint8", 1.1, 4, 1.25),
+              ("f32 past the budget", "f32", 0.0, 16, 1e6))
+
+
+def chaos_path(ops, ref, adc, index, clusters, points, queries,
+               seed: int) -> dict:
+    """The chaos harness's canonical experiment (service/chaos.py) on the
+    main path's index: two tiered local replicas with a quarter of the
+    padded clusters on the card, the harness's spec (nprobe 8, buckets
+    1..8, deadline 50 ms, 2 retries, breaker at 3, checksums) under
+    default_plan(seed), 1,000 Zipf(1.1) draws from the 10,000 queries
+    offered on the wall clock at one per 5 ms; f32, then uint8, then f32
+    on uniform draws over a sixteenth resident (the degraded path), each
+    held to its own fault-free fleet.  Spills under build/tier (free
+    space checked first), removed at the end.  Returns the phase's
+    report and its launch counts (all runs)."""
+    import shutil
+
+    from repro_torch.core.search import cluster_locate, exact_search
+    from repro_torch.service.chaos import (chaos_experiment, check_floors,
+                                           zipf_stream)
+
+    q_np = queries.cpu().numpy()
+    total = clusters.codes.numel() + clusters.ids.numel() * 4
+    # exact ids for every pool row a stream draws
+    drawn = np.unique(np.concatenate([
+        zipf_stream(CHAOS_QUERIES, len(q_np), seed, skew)
+        for skew in sorted({r[2] for r in CHAOS_RUNS})]))
+    gt = np.full((len(q_np), K), -1, np.int64)
+    _, g = exact_search(points,
+                        queries[torch.from_numpy(drawn).to(queries.device)],
+                        k=K, chunk=64)
+    gt[drawn] = g.cpu().numpy()
+    shutil.rmtree(TIER_DIR, ignore_errors=True)
+    TIER_DIR.mkdir(parents=True)
+    free = shutil.disk_usage(TIER_DIR).free
+    check(free >= 1.5 * total, f"chaos path: {free} B free under "
+                               f"{TIER_DIR}, short of {1.5 * total:.0f}")
+    log(f"  padded clusters {total} B; {drawn.size} distinct queries "
+        f"drawn; {free / 2**30:.2f} GiB free under {TIER_DIR}")
+    out: dict = {}
+    counts = {name: 0 for name in KERNELS}
+    try:
+        for label, dt, skew, share, margin in CHAOS_RUNS:
+            past = share > 4
+            ops.reset_launches()
+            rep, secs = sync_time(lambda: chaos_experiment(
+                index, q_np, gt, seed=seed, n_queries=CHAOS_QUERIES,
+                replicas=2, deadline_ms=50.0, interval_s=CHAOS_INTERVAL_S,
+                budget_bytes=total // share, lut_dtype=dt,
+                nprobe=CHAOS_NPROBE, k=K, skew=skew, promote_margin=margin,
+                spill_root=TIER_DIR))
+            run_launches = dict(ops.launches)
+            try:
+                check_floors(rep, degraded=past)
+            except RuntimeError as e:
+                raise SmokeFailure(f"X {label}: {e}") from e
+            lc, dc = (("lut_build_q", "pq_scan_dc_q") if dt == "uint8"
+                      else ("lut_build", "pq_scan_dc"))
+            check(run_launches[lc] > 0 and run_launches[dc] > 0,
+                  f"X {label}: {lc} / {dc} never launched: {run_launches}")
+            for name in KERNELS:
+                counts[name] += run_launches[name]
+            check(list(TIER_DIR.iterdir()) == [],
+                  f"X {label}: spills left under {TIER_DIR}")
+            fs = rep["fault_stats"]
+            log(f"  X {label} ({'uniform' if skew == 0 else f'Zipf({skew})'}"
+                f" draws, 1/{share} resident, {total // share} B, promote "
+                f"margin {margin:g}): "
+                f"availability {rep['availability']:.4f}, "
+                f"answered {rep['answered']}, failed {rep['failed']}, shed "
+                f"{rep['shed']}, degraded {rep['degraded']}, deadline "
+                f"missed {rep['deadline_missed']}, retries "
+                f"{rep['retries']}, failed batches {rep['batch_failures']}, "
+                f"breakers {rep['breaker']}; corrupt_results 0 (every "
+                f"non-degraded answer == the fault-free fleet's, bit for "
+                f"bit); recall@{K} {rep['recall']:.4f}, non-degraded "
+                f"{rep['recall_non_degraded']:.4f}; wall p50 "
+                f"{rep['p50_ms']:.3f} ms, p99 {rep['p99_ms']:.3f} ms; "
+                f"cluster {rep['corrupted']} rotted, healed by "
+                f"{rep['healed_by']}, verify {rep['verify']['corrupt']} "
+                f"corrupt / {rep['verify']['rebuilt']} rebuilt, "
+                f"quarantined {rep['quarantined']}; tier degraded gathers "
+                f"{rep['degraded_gathers']}, dropped probes "
+                f"{rep['dropped_probes']}; {secs:.1f} s; launches "
+                f"{run_launches}")
+            log(f"    fault_stats {fs}")
+            out[label] = {k: v for k, v in rep.items() if k != "verify"}
+            out[label]["verify"] = {k: rep["verify"][k] for k in
+                                    ("corrupt", "rebuilt", "quarantined")}
+            out[label].update(secs=secs, launches=run_launches, skew=skew,
+                              budget_bytes=total // share,
+                              promote_margin=margin)
+    finally:
+        shutil.rmtree(TIER_DIR, ignore_errors=True)
+    # A-D at one served batch's shape (8 queries x nprobe 8), after the
+    # counts were read
+    q8 = queries[:CHAOS_BATCH]
+    probes, _ = cluster_locate(q8, index.centroids, CHAOS_NPROBE,
+                               block=QUERY_CHUNK)
+    res = (q8[:, None, :] - index.centroids[probes]).reshape(-1, D)
+    flat = probes.reshape(-1)
+    where = f"chaos batch T={res.shape[0]} C={clusters.cmax}"
+    log("kernels vs plain, one served chaos batch:")
+    lut, qlut, err_a, _ = check_lut(ops, ref, adc, res.contiguous(),
+                                    index.codebook.codebooks,
+                                    index.codebook.sqnorms, where)
+    errs = check_scan(ops, adc.adc_distances, adc.adc_distances_quantized,
+                      lut, qlut, clusters.codes.index_select(0, flat),
+                      clusters.sizes.index_select(0, flat), where)
+    out["batch_check"] = {"T": int(res.shape[0]), "lut_build": err_a,
+                          **errs}
+    return out, counts
+
+
+# -- U: the SLO autotuner at N = 1M, D = 128 ----------------------------------
+U_N, U_NLIST, U_QUERIES, U_BUDGET, U_BATCH = 1_000_000, 4096, 256, 8, 32
+U_SPACE = dict(m=(16, 32, 64), nprobe=(8, 32, 96), lut_dtype=("uint8", "f32"),
+               buckets=((1, 2, 4, 8, 16, 32),), tasks_per_shard=(1024,),
+               cache_capacity_bytes=(0, 1 << 24))
+# (modeled, survivors, pruned) for U_SPACE at U's pricing, as
+# tests/test_torch_autotune.py pins them against the reference
+U_SHORTLIST = (36, 18, 18)
+# the paper's bar, then one the frontier meets (m=16 reads recall@10
+# ~0.10 on this corpus, m=32 ~0.20), so the winner's branch runs too
+U_SLOS = {"paper": (0.8, 50.0), "met": (0.15, math.inf)}
+
+
+def tuner_kernel_checks(ops, ref, adc, indexes, frontier, queries) -> dict:
+    """A-D against their plain versions on each index the tuner built, at
+    one full calibration batch (32 queries) and the largest nprobe
+    measured at that m: the widths (dsub 8, 4, 2) and padded clusters
+    of the tuner's builds, which no other phase gives the kernels."""
+    from repro_torch.core.search import cluster_locate
+    out = {}
+    q = queries[:U_BATCH].float()
+    for m in sorted(indexes):
+        view, cl = indexes[m].search_view, indexes[m].clusters
+        nprobe = max(e["nprobe"] for e in frontier if e["m"] == m)
+        probes, _ = cluster_locate(q, view.centroids, nprobe,
+                                   block=QUERY_CHUNK)
+        res = (q[:, None, :] - view.centroids[probes]).reshape(-1, D)
+        flat = probes.reshape(-1)
+        where = (f"tuner m={m} dsub={D // m} T={res.shape[0]} "
+                 f"C={cl.cmax}")
+        lut, qlut, err_a, _ = check_lut(ops, ref, adc, res.contiguous(),
+                                        view.codebook.codebooks,
+                                        view.codebook.sqnorms, where)
+        errs = check_scan(ops, adc.adc_distances,
+                          adc.adc_distances_quantized, lut, qlut,
+                          cl.codes.index_select(0, flat),
+                          cl.sizes.index_select(0, flat), where)
+        out[str(m)] = {"T": int(res.shape[0]), "C": int(cl.cmax),
+                       "nprobe": nprobe, "lut_build": err_a, **errs}
+    return out
+
+
+def autotune_path(ops, ref, adc, seed: int, device: str = "cuda"):
+    """The SLO-driven tuner (core/autotune.py through autotune_service) on
+    a corpus at the main path's width: N = 1M, D = 128, 64 components,
+    256 queries with exact ground truth, nlist 4,096, CB 256, at most 8
+    candidates measured, 400 calibration requests at 2,000 QPS, skew
+    1.1.  First under the paper's bar SLO(recall@10 >= 0.8, p99 <= 50
+    ms), where either outcome is a result (a validated spec that meets
+    the SLO, or SLOInfeasible with its frontier); then, if that was
+    infeasible, under one the frontier meets, so the winner's checks
+    (spec, save -> load, served == search_ivfpq) run on the card.  After
+    each run's counts were read, A-D are held to their plain versions on
+    every index it built.  The latencies are PIM-paced: each batch is
+    charged its modeled UPMEM time, not the card's.  Returns the report
+    and the phase's launch counts (both runs)."""
+    from repro_torch.core.search import SearchParams, search_ivfpq
+    from repro_torch.data import make_clustered_corpus
+    from repro_torch.service import (SLO, ServiceSpec, SLOInfeasible,
+                                     TuneSpace, autotune_service)
+
+    ds, t_corpus = sync_time(lambda: make_clustered_corpus(
+        seed, U_N, D, n_queries=U_QUERIES, n_components=64, k_gt=K,
+        device=device))
+    space = TuneSpace(**U_SPACE)
+    log(f"  corpus {t_corpus:.1f} s")
+    out = {"corpus_s": t_corpus}
+    counts = {name: 0 for name in KERNELS}
+    for run, (recall, p99) in U_SLOS.items():
+        slo = SLO(recall_at_k=recall, p99_ms=p99)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        svc = None
+        try:
+            svc, res = autotune_service(
+                ds.points, slo, queries=ds.queries,
+                groundtruth=ds.groundtruth, space=space, nlist=U_NLIST,
+                cb=CB, ranks=4, calibration_requests=N_SERVE,
+                calibration_qps=2000.0, calibration_skew=1.1,
+                max_wait_s=2e-3, validate_budget=U_BUDGET, seed=seed,
+                device=device)
+            outcome, detail = "winner", res.report()
+        except SLOInfeasible as e:
+            res, outcome, detail = e, "infeasible", str(e)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        run_launches = dict(ops.launches)
+        frontier = res.frontier
+        log(f"  U {run} SLO {slo}: {outcome}, {res.modeled} candidates "
+            f"modeled, {len(res.survivors)} survivors, {res.pruned} "
+            f"pruned; {secs:.1f} s")
+        for e in frontier:
+            log(f"    m={e['m']} nprobe={e['nprobe']} lut={e['lut_dtype']} "
+                f"cache={e['cache_capacity_bytes']}: predicted "
+                f"{e['predicted_ms']:.3f} ms, recall@{K} {e['recall']:.4f}, "
+                f"paced p50 {e['p50_ms']:.3f} / p99 {e['p99_ms']:.3f} ms, "
+                f"QPS {e['qps']:.1f} (modeled UPMEM time), meets SLO "
+                f"{e['meets_slo']}")
+        log("    index builds (s): " + ", ".join(
+            f"m={m} {t:.2f}" for m, t in sorted(res.build_s.items())))
+        shortlist = (res.modeled, len(res.survivors), res.pruned)
+        check(shortlist == U_SHORTLIST, f"U {run}: shortlist {shortlist} "
+                                        f"!= the pinned {U_SHORTLIST}")
+        pms = [e["predicted_ms"] for e in frontier]
+        check(pms == sorted(pms), f"U {run}: predicted ms not "
+                                  f"non-decreasing: {pms}")
+        check([(e["m"], e["nprobe"], e["lut_dtype"],
+                e["cache_capacity_bytes"]) for e in frontier]
+              == [(c.m, c.nprobe, c.lut_dtype, c.cache_capacity_bytes)
+                  for c in res.survivors[:len(frontier)]],
+              f"U {run}: the frontier is not the shortlist's "
+              f"cheapest-first order")
+        for dt in {e["lut_dtype"] for e in frontier}:
+            lc, dc = (("lut_build_q", "pq_scan_dc_q") if dt == "uint8"
+                      else ("lut_build", "pq_scan_dc"))
+            check(run_launches[lc] > 0 and run_launches[dc] > 0,
+                  f"U {run}: {lc} / {dc} never launched: {run_launches}")
+        rep = {"slo": [recall, None if math.isinf(p99) else p99],
+               "outcome": outcome, "detail": detail, "secs": secs,
+               "modeled": res.modeled, "survivors": len(res.survivors),
+               "pruned": res.pruned, "frontier": frontier,
+               "build_s": {str(m): t for m, t in res.build_s.items()},
+               "launches": run_launches}
+        if outcome == "winner":
+            spec, m = res.spec, res.measured
+            check(spec.validate() is spec, f"U {run}: the emitted spec "
+                                           f"does not validate")
+            path = spec.save(ROOT / "build" / "autotune_spec.json")
+            check(ServiceSpec.load(path) == spec, f"U {run}: save -> load "
+                                                  f"changed the spec")
+            path.unlink()
+            check(slo.met_by(m["recall"], m["p99_ms"]),
+                  f"U {run}: the winner misses the SLO: {m}")
+            d, i = svc.search(ds.queries.float().cpu().numpy())
+            view = res.index
+            wd, wi = (x.cpu().numpy() for x in search_ivfpq(
+                view.search_view, view.clusters, ds.queries.float(),
+                SearchParams(nprobe=spec.nprobe, k=K, use_kernels=True,
+                             lut_dtype=spec.lut_dtype)))
+            check(np.array_equal(d, wd) and np.array_equal(i, wi),
+                  f"U {run}: autotune_service's search differs from "
+                  f"search_ivfpq over result.index")
+            svc.shutdown()
+            log(f"  U {run}: winner m={spec.index.m} nprobe={spec.nprobe} "
+                f"lut={spec.lut_dtype} cache={spec.cache_capacity_bytes} "
+                f"buckets {spec.buckets}: recall@{K} {m['recall']:.4f}, "
+                f"paced p50 {m['p50_ms']:.3f} / p99 {m['p99_ms']:.3f} ms, "
+                f"QPS {m['qps']:.1f}; spec validated, save -> load equal, "
+                f"the service's search == search_ivfpq bit for bit")
+            rep.update(winner=spec.to_dict(), measured=m)
+        else:
+            check(len(frontier) == min(U_BUDGET, len(res.survivors)),
+                  f"U {run}: the frontier holds {len(frontier)} entries")
+            check(not any(e["meets_slo"] for e in frontier),
+                  f"U {run}: SLOInfeasible with a frontier entry that "
+                  f"meets the SLO")
+            log(f"  U {run}: SLOInfeasible: {detail}")
+        # after the counts were read
+        log(f"kernels vs plain, the tuner's builds ({run} SLO):")
+        rep["kernel_checks"] = tuner_kernel_checks(
+            ops, ref, adc, res.indexes, frontier, ds.queries)
+        for name in KERNELS:
+            counts[name] += run_launches[name]
+        out[run] = rep
+        del svc, res
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        if outcome == "winner":
+            break                 # the winner's branch has run
+    out.update(outcome=out["paper"]["outcome"], launches=counts,
+               secs=sum(out[r]["secs"] for r in U_SLOS if r in out))
+    log(f"  U launches {counts}")
+    return out, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-points", type=int, default=10_000_000)
@@ -2821,15 +3165,46 @@ def main() -> int:
     for name in LOCAL_KERNELS:
         check(tenancy_launches[name] > 0,
               f"{name} never launched on the tenancy path")
+    # -- 10. the chaos harness on the same index -------------------------
+    log(f"chaos path: two tiered local replicas (a quarter resident), "
+        f"default_plan({args.seed}), {CHAOS_QUERIES} Zipf(1.1) requests at "
+        f"{1 / CHAOS_INTERVAL_S:.0f} QPS on the wall clock, f32 then uint8, "
+        f"then f32 on uniform draws over a sixteenth resident, promote "
+        f"margin 1e6")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chaos_run, chaos_launches = chaos_path(ops, ref, adc, index, clusters,
+                                           ds.points, queries, args.seed)
+    chaos_run["secs"] = time.perf_counter() - t0
+    log(f"  chaos path {chaos_run['secs']:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{chaos_launches}")
+    for name in LOCAL_KERNELS:
+        check(chaos_launches[name] > 0,
+              f"{name} never launched on the chaos path")
+    # -- 11. the SLO autotuner on a 1M corpus at the same width ----------
+    log(f"autotune path: N={U_N} D={D} nlist={U_NLIST} CB={CB}, "
+        f"TuneSpace {U_SPACE}, SLO recall@{K} >= 0.8 and p99 <= 50 ms "
+        f"(then recall@{K} >= 0.15 if infeasible), validate_budget "
+        f"{U_BUDGET}")
+    torch.cuda.reset_peak_memory_stats()
+    autotune_run, autotune_launches = autotune_path(ops, ref, adc,
+                                                    args.seed)
+    u_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  autotune path {autotune_run['secs']:.1f} s "
+        f"({autotune_run['outcome']}); peak device memory {u_peak:.2f} GiB")
     by_path = {"local": launches, "sharded": sharded_launches,
                "service": service_launches, "mutation": mutation_launches,
-               "tiered": tiered_launches, "tenancy": tenancy_launches}
+               "tiered": tiered_launches, "tenancy": tenancy_launches,
+               "chaos": chaos_launches, "autotune": autotune_launches}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
     log(json.dumps({"service": service_runs}))
     log(json.dumps({"mutation": mutation_run}))
     log(json.dumps({"tiered": tiered_run}))
     log(json.dumps({"tenancy": tenancy_run}))
+    log(json.dumps({"chaos": chaos_run}))
+    log(json.dumps({"autotune": autotune_run}))
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,9 @@
 """IVF-PQ core: k-means, PQ/OPQ, index build, ADC, the search pipeline,
-and the sharded engine (perf model, layout, scheduler, sharded search)."""
+and the sharded engine (perf model, layout, scheduler, sharded search).
+The design-space exploration and the SLO-driven auto-tuner live in
+``core.dse`` and ``core.autotune``; the tuner's names are exported by
+``repro_torch.service`` (a function ``autotune`` here would hide the
+``core.autotune`` module)."""
 
 from repro_torch.core.kmeans import (kmeans, kmeans_multi, l2_sq,
                                      assign_chunked)

@@ -1,5 +1,5 @@
 """Serving runtime: micro-batching, the LUT cache, the local and sharded
-engines, PIM pacing and per-replica health."""
+engines, PIM pacing, per-replica health and fault injection."""
 
 from repro_torch.runtime.batching import (BucketPolicy, MicroBatch,
                                           MicroBatcher, Request,
@@ -9,6 +9,8 @@ from repro_torch.runtime.cache import (AdmissionPolicy, CacheStats,
                                        LRUCache, OnlineHeatEstimator,
                                        query_hash_bucket)
 from repro_torch.runtime.fault_tolerance import ReplicaHealth
+from repro_torch.runtime.faults import (SITES, FaultInjector, FaultPlan,
+                                        FaultRule, InjectedFault)
 from repro_torch.runtime.serving import (BatchServeError, LocalEngine,
                                          PimPacedEngine, SearchEngine,
                                          ServingConfig, ServingRuntime,
@@ -21,6 +23,8 @@ __all__ = ["BucketPolicy", "MicroBatch", "MicroBatcher", "Request",
            "HotClusterLUTCache", "LRUCache", "OnlineHeatEstimator",
            "query_hash_bucket",
            "ReplicaHealth",
+           "SITES", "FaultPlan", "FaultRule", "FaultInjector",
+           "InjectedFault",
            "BatchServeError", "LocalEngine", "PimPacedEngine", "SearchEngine",
            "ServingConfig", "ServingRuntime", "ServingStats", "ShardedEngine",
            "service_construction"]

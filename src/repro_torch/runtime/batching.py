@@ -104,7 +104,8 @@ class Request:
         return self.t_done - self.t_arrival
 
     def timing(self) -> dict:
-        """Lifecycle breakdown (seconds): queue / batch / engine / total."""
+        """Lifecycle breakdown (seconds): queue / batch / engine / total,
+        and whether the result was degraded or missed its deadline."""
         if self.t_done is None:
             raise RuntimeError(f"request {self.req_id} not served yet")
         t_flush = self.t_flush if self.t_flush is not None else self.t_arrival
@@ -113,7 +114,9 @@ class Request:
         return {"queue_s": t_flush - self.t_arrival,
                 "batch_s": t_svc - t_flush,
                 "engine_s": self.t_done - t_svc,
-                "total_s": self.t_done - self.t_arrival}
+                "total_s": self.t_done - self.t_arrival,
+                "degraded": self.degraded,
+                "deadline_missed": self.deadline_missed}
 
 
 @dataclasses.dataclass

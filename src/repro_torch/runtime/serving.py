@@ -13,7 +13,9 @@
     DRAM-PIM service time (results unchanged);
   * :class:`ServingRuntime` offers a submit/step online API plus a
     virtual-clock stream simulator with latency/throughput
-    instrumentation (p50/p99, queue depth, batch occupancy).
+    instrumentation (p50/p99, queue depth, batch occupancy), and the
+    ``engine.straggler`` / ``engine.batch`` chaos sites when ``faults``
+    is armed (:mod:`repro_torch.runtime.faults`).
 
 Timestamps and latencies are seconds on the caller's clock (the
 simulator uses a virtual clock and charges real measured engine time,
@@ -55,6 +57,7 @@ from repro_torch.runtime.batching import (BucketPolicy, MicroBatch,
 from repro_torch.runtime.cache import (HotClusterLUTCache, lut_fill_misses,
                                        lut_miss_scan, precompile_lut_shapes,
                                        stack_lut_bank)
+from repro_torch.runtime.faults import InjectedFault
 from repro_torch.util import next_pow2
 
 
@@ -718,6 +721,9 @@ class ServingRuntime:
         self.batcher = self.config.make_batcher()
         self.stats = ServingStats()
         self.replica_idx: Optional[int] = None
+        # chaos hooks (runtime.faults): the service arms this with a
+        # FaultInjector; None leaves both sites in _serve a dead branch
+        self.faults = None
 
     def warmup(self, d: int) -> None:
         """Run every bucket shape once (all-padding, ``n_valid=0``) so
@@ -783,12 +789,29 @@ class ServingRuntime:
 
     def _serve(self, batch: MicroBatch, t_start: float) -> List[Request]:
         kwargs: dict = {}
+        slept = 0.0
+        if self.faults is not None:          # chaos sites (armed only)
+            rule = self.faults.fire("engine.straggler",
+                                    replica=self.replica_idx)
+            if rule is not None and rule.delay_s > 0:
+                time.sleep(rule.delay_s)
+                slept = rule.delay_s
+            rule = self.faults.fire("engine.batch",
+                                    replica=self.replica_idx)
+            if rule is not None:
+                # raised before the engine call: nothing of this batch
+                # was launched on the card
+                err = InjectedFault("engine.batch",
+                                    f"replica {self.replica_idx}")
+                raise BatchServeError(batch, err) from err
         # deadline budget: seconds (on the driving clock) until the
-        # batch's oldest request blows its deadline
+        # batch's oldest request blows its deadline, computed after the
+        # straggler sleep and charged the slept time, so the degrade
+        # decision never over-commits to a cold fetch that must miss
         if self.config.deadline_s > 0 and batch.requests:
             deadline = (min(r.t_arrival for r in batch.requests)
                         + self.config.deadline_s)
-            kwargs["budget_s"] = deadline - t_start
+            kwargs["budget_s"] = deadline - (t_start + slept)
         # scoped batches carry per-row tenant / term arrays; unscoped
         # batches pass nothing, so the engine stays on its unscoped path
         if batch.scoped:

@@ -18,9 +18,15 @@ and predicate filters (:mod:`repro_torch.core.filter`) under per-tenant
 QoS (:class:`TenantRegistry` token buckets and :class:`WFQScheduler`
 weighted fair queueing; an over-quota submit raises
 :class:`TenantThrottled`); ``--selftest-tenants`` runs the multi-tenant
-smoke.  Fault injection and the auto-tuner are not ported yet.
+smoke.  ``--selftest-chaos`` runs the fault-injection chaos smoke
+(:mod:`repro_torch.service.chaos`); ``--autotune`` searches
+configurations against the perf model (:func:`~repro_torch.core.
+autotune.autotune`) and emits a spec meeting a declared
+:class:`~repro_torch.core.autotune.SLO`.
 """
 
+from repro_torch.core.autotune import (SLO, AutotuneResult, SLOInfeasible,
+                                       TuneSpace, autotune, autotune_service)
 from repro_torch.service.autoscale import Autoscaler, ScaleEvent, ScaleSignals
 from repro_torch.service.executor import ReplicaExecutor, SearchFuture
 from repro_torch.service.router import (CacheAwarePolicy, LeastQueuePolicy,
@@ -37,4 +43,6 @@ __all__ = ["AnnService", "Autoscaler", "CacheAwarePolicy", "IndexSpec",
            "RoundRobinPolicy", "Router", "RoutingPolicy", "SPEC_VERSION",
            "ScaleEvent", "ScaleSignals", "SearchFuture", "ServiceOverloaded",
            "ServiceSpec", "TenantRegistry", "TenantThrottled", "TokenBucket",
-           "WFQScheduler", "make_policy"]
+           "WFQScheduler", "make_policy",
+           "SLO", "TuneSpace", "AutotuneResult", "SLOInfeasible",
+           "autotune", "autotune_service"]

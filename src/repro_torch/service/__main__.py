@@ -26,9 +26,13 @@ up AnnService five times and asserts the service invariants end to end:
 with disjoint halves of the corpus on one shared index (isolation, the
 predicate filter, quotas and weighted fair queueing; see
 :func:`selftest_tenants`).  ``--spec deploy.json`` boots the smoke fleet
-from a deploy file instead (the same schema as ``repro.service``).  The
-reference CLI's ``--selftest-chaos`` and ``--autotune`` are not ported;
-asking for one prints the ROADMAP item it waits for and exits 2.
+from a deploy file instead (the same schema as ``repro.service``).
+``--selftest-chaos`` runs the fault-injection chaos smoke (a Zipf stream
+over an armed two-replica tiered fleet; see :mod:`repro_torch.service.
+chaos`).  ``--autotune`` derives a spec for a small corpus with the
+SLO-driven auto-tuner and prints its report (``--save-spec out.json``
+persists the winning spec; exit 1 when the SLO is infeasible).  Each
+runs on ``--device``.
 
 Exit code 0 on success.
 """
@@ -37,15 +41,9 @@ from __future__ import annotations
 
 import argparse
 import sys
+from typing import Optional
 
 import numpy as np
-
-#: what the reference CLI offers and this one does not run yet
-NOT_PORTED = {
-    "selftest_chaos": ("--selftest-chaos (fault-injection smoke)", 9),
-    "autotune": ("--autotune (SLO-driven auto-tuner)", 10),
-}
-
 
 def _check(cond: bool, msg: str) -> None:
     if not cond:
@@ -362,6 +360,43 @@ def spec_smoke(spec_path: str, clock: str, device: str = "cuda") -> int:
     return 0
 
 
+def autotune_smoke(slo_recall: float, slo_p99_ms: float,
+                   save_spec: Optional[str], device: str = "cuda") -> int:
+    """Derive a deploy spec for the smoke corpus: run the SLO-driven
+    auto-tuner (perf-model shortlist -> measured calibration) and print
+    its report; ``save_spec`` persists the winning ServiceSpec."""
+    from repro_torch.data import make_clustered_corpus
+    from repro_torch.service import SLO, SLOInfeasible, TuneSpace, autotune
+
+    ds = make_clustered_corpus(0, 3000, 16, n_queries=48, n_components=12,
+                               k_gt=10, device=device)
+    space = TuneSpace(m=(4, 8), nprobe=(2, 4, 8),
+                      lut_dtype=("uint8", "f32"), buckets=((1, 2, 4, 8),),
+                      tasks_per_shard=(1024,),
+                      cache_capacity_bytes=(0, 1 << 19))
+    slo = SLO(recall_at_k=slo_recall, p99_ms=slo_p99_ms)
+    try:
+        res = autotune(ds.points, slo, queries=ds.queries,
+                       groundtruth=ds.groundtruth, space=space, nlist=16,
+                       calibration_requests=48, validate_budget=6, seed=0,
+                       device=device)
+    except SLOInfeasible as e:
+        print(f"[autotune] INFEASIBLE: {e}")
+        for entry in e.frontier:
+            print(f"[autotune]   frontier: m={entry['m']} "
+                  f"nprobe={entry['nprobe']} lut={entry['lut_dtype']} "
+                  f"recall={entry['recall']:.3f} "
+                  f"p99={entry['p99_ms']:.2f}ms")
+        return 1
+    for line in res.report().splitlines():
+        print(f"[autotune] {line}")
+    if save_spec:
+        path = res.spec.save(save_spec)
+        print(f"[autotune] spec saved -> {path} "
+              f"(boot it with --spec {path})")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.service",
                                  description=__doc__.split("\n\n")[0])
@@ -375,21 +410,39 @@ def main(argv=None) -> int:
                     help="where the smoke's index and engines live")
     ap.add_argument("--selftest-tenants", action="store_true",
                     help="run the multi-tenant serving smoke test")
+    ap.add_argument("--selftest-chaos", action="store_true",
+                    help="run the fault-injection chaos smoke: Zipf "
+                         "stream over an armed fleet; asserts "
+                         "availability >= 0.95, zero corrupt results, "
+                         "and corrupted-spill rebuild")
+    ap.add_argument("--chaos-queries", type=int, default=1000,
+                    help="chaos smoke: stream length (default 1000)")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="chaos smoke: FaultPlan / stream seed")
     ap.add_argument("--spec", metavar="PATH",
                     help="boot the smoke fleet from a ServiceSpec deploy "
                          "file (.json/.yaml) instead of built-in specs")
-    for flag in NOT_PORTED:
-        ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
-                        help=f"not ported yet (ROADMAP item "
-                             f"{NOT_PORTED[flag][1]})")
+    ap.add_argument("--autotune", action="store_true",
+                    help="derive a spec for the smoke corpus with the "
+                         "SLO-driven auto-tuner and print its report")
+    ap.add_argument("--slo-recall", type=float, default=0.8,
+                    help="autotune: required recall@10 (default 0.8)")
+    ap.add_argument("--slo-p99-ms", type=float, default=50.0,
+                    help="autotune: paced p99 budget in ms (default 50)")
+    ap.add_argument("--save-spec", metavar="PATH",
+                    help="autotune: persist the winning ServiceSpec as a "
+                         "deploy file (.json/.yaml)")
     args = ap.parse_args(argv)
-    for flag, (what, item) in NOT_PORTED.items():
-        if getattr(args, flag):
-            print(f"{what} is not ported to repro_torch yet: it waits for "
-                  f"ROADMAP item {item}", file=sys.stderr)
-            return 2
+    if args.selftest_chaos:
+        from repro_torch.service.chaos import selftest_chaos
+        return selftest_chaos(seed=args.chaos_seed,
+                              n_queries=args.chaos_queries,
+                              device=args.device)
     if args.selftest_tenants:
         return selftest_tenants(args.device)
+    if args.autotune:
+        return autotune_smoke(args.slo_recall, args.slo_p99_ms,
+                              args.save_spec, args.device)
     if args.spec:
         return spec_smoke(args.spec, args.clock, args.device)
     if not args.selftest:

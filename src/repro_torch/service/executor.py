@@ -140,7 +140,6 @@ class SearchFuture:
         out = self._request.timing()
         out["replica"] = self._request.replica
         out["retried"] = self._request.retried
-        out["degraded"] = self._request.degraded
         return out
 
 

@@ -30,8 +30,10 @@ executor worker does); searches and further mutations proceed meanwhile,
 and ``install_generation`` reconciles whatever landed after the snapshot.
 A non-blocking lock makes maintenance single-flight; errors are stashed
 and re-raised on the next mutation-API call rather than dying silently on
-the thread.  The reference's fault-injection hook (``faults``) waits for
-ROADMAP item 9.
+the thread.  ``faults`` (a :class:`~repro_torch.runtime.faults.
+FaultInjector`, None by default) arms the ``maintenance.death`` site at
+the top of the maintenance worker: a firing kills the cycle and surfaces
+on the next API call, as a real error does.
 
 One departure from the reference: ``install_generation`` and the
 generation fan-out run under the service's ``_scale_lock`` together, as
@@ -46,6 +48,8 @@ import threading
 from typing import Optional
 
 import torch
+
+from repro_torch.runtime.faults import InjectedFault
 
 
 class MutationCoordinator:
@@ -67,6 +71,7 @@ class MutationCoordinator:
         self._last_maintenance: Optional[dict] = None
         self.maintenance_runs = 0
         self.propagations = 0
+        self.faults = None                    # FaultInjector | None
 
     # -- mutation fan-out --------------------------------------------------
     def upsert(self, ids, vectors, tenant=None, tags=None) -> dict:
@@ -173,6 +178,10 @@ class MutationCoordinator:
 
         def work():
             try:
+                if self.faults is not None \
+                        and self.faults.fire("maintenance.death"):
+                    raise InjectedFault("maintenance.death",
+                                        "maintenance thread killed")
                 if device.type == "cuda":
                     torch.cuda.set_device(device)
                 gen = self.index.build_generation(

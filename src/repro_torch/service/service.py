@@ -1,6 +1,6 @@
 """AnnService: the one front door to the DRIM-ANN serving stack.
 
-The port of ``repro/service/service.py`` for the fault-free service:
+The port of ``repro/service/service.py``:
 
     spec = ServiceSpec(engine="sharded", replicas=3, router="cache_aware",
                        cache_capacity=4096, nprobe=8, k=10)
@@ -72,8 +72,12 @@ its token-bucket quota is refused with :class:`TenantThrottled`, and with
 in weighted fair order.  ``stats()`` gains per-tenant p50 / p99 / QPS /
 shed counts and the scheduler's counters.
 
-Not ported yet, raising ``NotImplementedError`` at ``build`` with its
-ROADMAP item: fault injection (9).
+Fail-operational serving: ``build(fault_injector=)`` arms one
+:class:`~repro_torch.runtime.faults.FaultInjector` on every chaos site
+of the stack (each replica's runtime, the index's tiered store, the
+mutation coordinator; replicas added by ``scale_to`` too), and
+``stats()`` gains its per-site ledger under ``"faults"``.  The canonical
+experiment is :mod:`repro_torch.service.chaos`.
 
 Invariants (held in tests/test_torch_service.py):
   * 1 replica, local engine, no cache: ``search`` is exactly
@@ -129,18 +133,6 @@ class TenantThrottled(ServiceOverloaded):
     overload-aware callers need no new handler."""
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP item {item})")
-
-
-def _check_ported(fault_injector) -> None:
-    """Refuse, by ROADMAP item, what the reference service offers and
-    this one does not yet."""
-    if fault_injector is not None:
-        raise _not_ported("AnnService.build(fault_injector=...)", 9)
-
-
 @dataclasses.dataclass
 class Replica:
     """One engine + runtime lane of the service."""
@@ -189,6 +181,9 @@ class AnnService:
         # seeded jitter for retry backoff: deterministic given the spec,
         # uncorrelated across retries
         self._retry_rng = np.random.default_rng(spec.index.seed + 0x5EED)
+        # chaos: build(fault_injector=...) arms the whole stack through
+        # _arm_faults; None leaves every site hook a dead branch
+        self.faults = None
         # serializes retry-target selection (worker threads) against
         # live-set updates (scale_to on the driver thread): a retry can
         # never be routed to a replica the autoscaler is draining
@@ -243,10 +238,11 @@ class AnnService:
         filter_width) u32) attach a :class:`~repro_torch.core.filter.
         VectorMeta` to the index handle; with ``spec.tenants`` set it is
         attached even when both are None (rows are then scoped by tagged
-        upserts).  ``fault_injector`` is not ported and raises
-        ``NotImplementedError``."""
+        upserts).  ``fault_injector`` (a :class:`~repro_torch.runtime.
+        faults.FaultInjector`) arms every chaos site of the stack, for
+        the chaos harness and fault-injection tests; None (production)
+        leaves every hook a dead branch."""
         spec.validate()
-        _check_ported(fault_injector)
         storage_kw = dict(storage=spec.storage, storage_dir=spec.storage_dir,
                           storage_budget_bytes=spec.storage_budget_bytes,
                           storage_promote_margin=spec.storage_promote_margin,
@@ -266,6 +262,8 @@ class AnnService:
                 shutil.rmtree(own_dir, ignore_errors=True)
             raise
         svc._own_spill_dir = own_dir
+        if fault_injector is not None:
+            svc._arm_faults(fault_injector)
         return svc
 
     @classmethod
@@ -340,6 +338,16 @@ class AnnService:
             from repro_torch.service.mutation import MutationCoordinator
             svc.mutator = MutationCoordinator(svc)
         return svc
+
+    def _arm_faults(self, injector) -> None:
+        """Attach one FaultInjector to every chaos hook in the stack."""
+        self.faults = injector
+        for rep in self.replicas:
+            rep.runtime.faults = injector
+        if self.index.tiered_store is not None:
+            self.index.tiered_store.faults = injector
+        if self.mutator is not None:
+            self.mutator.faults = injector
 
     @staticmethod
     def _attach_meta(spec: ServiceSpec, handle: Index,
@@ -876,6 +884,7 @@ class AnnService:
                         self.spec, self.index,
                         self._sample_probes, self._serving_cfg)
                     rep.runtime.replica_idx = len(self.replicas)
+                    rep.runtime.faults = self.faults
                     if self._warmed:
                         rep.runtime.warmup(self.index.dim)
                     self.replicas.append(rep)
@@ -993,6 +1002,7 @@ class AnnService:
             "shed": self._shed,
             "wedged_workers": sum(1 for ex in self._executors
                                   if ex.wedged),
+            "degraded": sum(m.get("degraded_requests", 0) for m in per),
             "deadline_missed": sum(m.get("deadline_missed", 0)
                                    for m in per),
         }
@@ -1005,6 +1015,8 @@ class AnnService:
             out["tenants"] = tenants
         if self.wfq is not None:
             out["qos"] = self.wfq.stats()
+        if self.faults is not None:
+            out["faults"] = self.faults.stats()
         if self.autoscaler is not None:
             out["autoscaler"] = self.autoscaler.stats()
         if self.mutator is not None:

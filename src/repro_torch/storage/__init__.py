@@ -2,8 +2,9 @@
 card over a CRC-checked spill on the host) and its residency policy."""
 
 from repro_torch.storage.tiered import (CorruptClusterError,
+                                        InjectedIOError,
                                         ResidencyController, TierStats,
                                         TieredStore, TieredStoreError)
 
-__all__ = ["CorruptClusterError", "ResidencyController", "TierStats",
-           "TieredStore", "TieredStoreError"]
+__all__ = ["CorruptClusterError", "InjectedIOError", "ResidencyController",
+           "TierStats", "TieredStore", "TieredStoreError"]

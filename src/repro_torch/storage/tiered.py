@@ -48,9 +48,13 @@ the gather runs; every operation that reads or writes the slab (or the
 pinned staging buffer) therefore synchronises its stream before it
 releases the lock.
 
-Not ported: the chaos hooks (``faults``, sites ``tier.cold_read`` and
-``tier.spill_corrupt``; ROADMAP item 9).  Setting ``faults`` raises
-``NotImplementedError``; ``corrupt_spill`` and ``verify`` are here.
+Chaos hooks (:mod:`repro_torch.runtime.faults`): ``faults`` is None
+by default; armed with a ``FaultInjector``, every gather consults
+``tier.spill_corrupt`` under the lock before its slab gather (a firing
+rots one cluster's spill bytes through ``corrupt_spill``), and the cold
+fetch consults ``tier.cold_read`` (a strict gather raises
+:class:`InjectedIOError`, an ``IOError``; a degraded one drops every
+cold row, which comes out as zero codes, ids -1 and size 0 on the card).
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ import numpy as np
 import torch
 
 from repro_torch.runtime.cache import OnlineHeatEstimator
+from repro_torch.runtime.faults import InjectedFault
 from repro_torch.util import (atomic_write, atomic_write_text, next_pow2,
                               resolve_device)
 
@@ -88,6 +93,13 @@ class CorruptClusterError(TieredStoreError):
         self.cluster = int(cluster)
         super().__init__(f"cluster {self.cluster} failed checksum "
                          f"verification" + (f" ({detail})" if detail else ""))
+
+
+class InjectedIOError(InjectedFault, OSError):
+    """The injected ``tier.cold_read`` failure of a strict gather: an
+    ``IOError`` (callers catch it as the reference's), and an
+    :class:`InjectedFault`, so a chaos run tells it from a real one by
+    type."""
 
 
 def _crc_rows(arr: np.ndarray) -> list:
@@ -245,6 +257,8 @@ class TieredStore:
         # host seconds of the cold fetch path, by part
         self.fetch_s = {"cold_read": 0.0, "crc": 0.0, "to_device": 0.0}
         self._stage: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.faults = None                      # FaultInjector | None
+        self.fault_corrupted: list = []         # clusters the site rotted
 
     def _attach(self, estimator, promote_margin: float,
                 heat_halflife_batches: float, codes_src, ids_src) -> None:
@@ -403,19 +417,6 @@ class TieredStore:
             "checksum_algo": _CHECKSUM_ALGO,
             "codes_crc": self._codes_crc, "ids_crc": self._ids_crc,
             "sizes": [int(s) for s in self.sizes]}, indent=1))
-
-    # -- chaos hooks (ROADMAP item 9) ---------------------------------------
-    @property
-    def faults(self):
-        return None
-
-    @faults.setter
-    def faults(self, injector) -> None:
-        if injector is not None:
-            raise NotImplementedError("TieredStore.faults (the tier.cold_read "
-                                      "and tier.spill_corrupt chaos hooks) "
-                                      "is not ported to repro_torch yet "
-                                      "(ROADMAP item 9)")
 
     # -- accounting --------------------------------------------------------
     @property
@@ -704,17 +705,18 @@ class TieredStore:
         Hot rows come from the slab on the card; cold rows are
         deduplicated and read from the spill in one fancy-indexed read per
         call.  Output bytes are independent of residency.  Strict:
-        checksum mismatches raise :class:`CorruptClusterError`; the
-        degraded path is :meth:`gather_degraded`."""
+        cold-read failures and checksum mismatches raise (``IOError`` /
+        :class:`CorruptClusterError`); the degraded path is
+        :meth:`gather_degraded`."""
         codes, ids, sizes, _ = self._gather(cluster_ids, resident_only=False,
                                             degrade=False)
         return codes, ids, sizes
 
     def gather_degraded(self, cluster_ids, *, resident_only: bool = False):
         """Fail-operational fetch: like :meth:`gather` plus a (T,) bool
-        host ``dropped`` mask.  Cold probes that cannot be served --
-        quarantined / corrupt clusters, or *all* cold probes when
-        ``resident_only=True`` (deadline pressure) -- come back with
+        host ``dropped`` mask.  Cold probes that cannot be served -- tier
+        read errors, quarantined / corrupt clusters, or *all* cold probes
+        when ``resident_only=True`` (deadline pressure) -- come back with
         ``sizes == 0``, zero codes and ids -1 instead of raising, so the
         scan's size masking yields a result exact over what was
         scanned."""
@@ -731,6 +733,10 @@ class TieredStore:
         t = cids.shape[0]
         dev = self.device
         with self._lock:
+            if self.faults is not None:
+                rule = self.faults.fire("tier.spill_corrupt")
+                if rule is not None:
+                    self._fire_spill_corrupt(rule)
             # every row from the slab by slot (cold rows read slot 0 and
             # are overwritten below): one gather on the card
             src = self._slot_of_dev.index_select(0, cids_dev).clamp_min_(0)
@@ -741,8 +747,12 @@ class TieredStore:
             dropped = np.zeros(t, bool)
             cold_rows = np.nonzero(~hot)[0]
             if cold_rows.size:
-                self._fetch_cold(cids, cold_rows, out_codes, out_ids,
-                                 dropped, resident_only, degrade)
+                try:
+                    self._fetch_cold(cids, cold_rows, out_codes, out_ids,
+                                     dropped, resident_only, degrade)
+                except BaseException:
+                    _settle(dev)     # a strict gather that raises leaves
+                    raise            # no slab gather in flight either
             sizes = self.sizes[cids].copy()
             if dropped.any():
                 n_drop = int(dropped.sum())
@@ -775,6 +785,12 @@ class TieredStore:
                     resident_only: bool, degrade: bool) -> None:
         if resident_only:
             dropped[cold_rows] = True
+            return
+        if self.faults is not None \
+                and self.faults.fire("tier.cold_read") is not None:
+            if not degrade:
+                raise InjectedIOError("tier.cold_read")
+            dropped[cold_rows] = True       # the host said no: serve resident
             return
         uniq, inv = np.unique(cids[cold_rows], return_inverse=True)
         inv = inv.reshape(-1)
@@ -833,3 +849,17 @@ class TieredStore:
         self.stats.cold_fetches += n_uniq_ok
         self.stats.cold_requests += int(cold_rows.size)
         self.stats.cold_bytes += n_uniq_ok * self.bytes_per_cluster
+
+    def _fire_spill_corrupt(self, rule) -> None:
+        """Apply a ``tier.spill_corrupt`` firing: rot the rule's cluster's
+        spill bytes (or the first resident cluster's, so the demote-time
+        rebuild has a good copy on the card to heal from)."""
+        if rule.cluster is not None:
+            c = int(rule.cluster)
+        else:
+            resident = np.nonzero(self._slot_of >= 0)[0]
+            if resident.size == 0:
+                return
+            c = int(resident[0])
+        self.corrupt_spill(c)
+        self.fault_corrupted.append(c)

@@ -756,3 +756,132 @@ def test_scoped_sharded_search_goes_through_kernels(cuda, lut_dtype):
     ld, li = local.search_batch(q, tenants=tenants)
     np.testing.assert_allclose(d, ld, rtol=RTOL, atol=ATOL)
     assert np.mean([set(a) == set(b) for a, b in zip(i, li)]) >= 0.95
+
+
+@pytest.mark.parametrize("lut_dtype", ["f32", "uint8"])
+def test_armed_tier_on_the_card_drops_cold_rows(cuda, tmp_path, lut_dtype):
+    """A tiered LocalEngine on the card with tier.cold_read firing on every
+    gather: the batch is degraded, equals search_ivfpq over the clusters
+    with the cold ones emptied, and the store leaves nothing in flight on
+    the stream (after a degraded gather, and after a strict one raises)."""
+    from repro_torch.core.ivf import PaddedClusters
+    from repro_torch.runtime import (FaultInjector, FaultPlan, FaultRule,
+                                     LocalEngine)
+    from repro_torch.storage import TieredStore
+    idx, q = _service_index(cuda)
+    cl = pad_clusters(idx)
+    tier = TieredStore.from_index(idx, tmp_path, budget_bytes=16 * cl.cmax
+                                  * 20, device=cuda)
+    tier.faults = FaultInjector(FaultPlan(seed=0, rules=(
+        FaultRule("tier.cold_read", rate=1.0),)))
+    p = SearchParams(nprobe=8, k=10, use_kernels=True, lut_dtype=lut_dtype,
+                     query_chunk=24)
+    eng = LocalEngine(idx, None, p, tiered_store=tier)
+    lc, dc = (("lut_build_q", "pq_scan_dc_q") if lut_dtype == "uint8"
+              else ("lut_build", "pq_scan_dc"))
+    ops.reset_launches()
+    d, i = eng.search_batch(q)
+    assert eng.last_batch_info["degraded"]
+    assert ops.launches[lc] > 0 and ops.launches[dc] > 0
+    cold = torch.from_numpy(~tier.resident_mask).to(cuda)
+    emptied = PaddedClusters(cl.codes, cl.ids,
+                             torch.where(cold, 0, cl.sizes))
+    wd, wi = (x.cpu().numpy() for x in search_ivfpq(
+        idx, emptied, torch.from_numpy(q).to(cuda), p))
+    np.testing.assert_array_equal(d, wd)
+    np.testing.assert_array_equal(i, wi)
+    stream = torch.cuda.current_stream(cuda)
+    cids = np.arange(idx.nlist)
+    codes, ids, sizes, dropped = tier.gather_degraded(cids)
+    assert stream.query()                    # nothing left in flight
+    assert dropped.tolist() == (~tier.resident_mask).tolist()
+    rows = torch.from_numpy(dropped).to(cuda)
+    assert int(codes[rows].sum()) == 0 and bool((ids[rows] == -1).all())
+    assert int(sizes[rows].sum()) == 0
+    assert torch.equal(codes[~rows], cl.codes[~rows])
+    with pytest.raises(IOError, match="tier.cold_read"):
+        tier.gather(cids)
+    assert stream.query()
+
+
+def test_engine_sites_fail_over_between_executors(cuda):
+    """engine.batch fires on replica 0 only and stragglers on both: every
+    request is answered by replica 1's executor on the card, bit for bit
+    the unarmed service's answer, through the LC and DC kernels."""
+    from repro_torch.runtime import FaultInjector, FaultPlan, FaultRule
+    from repro_torch.service import AnnService, ServiceSpec
+    idx, q = _service_index(cuda)
+    spec = ServiceSpec(engine="local", replicas=2, nprobe=8, k=10,
+                       buckets=(1, 2, 4, 8), max_wait_s=1e-3, max_retries=2,
+                       backoff_base_ms=0.0, breaker_threshold=100)
+    plain = AnnService.build(spec, index=idx)
+    wd, wi = plain.search(q)
+    plain.shutdown()
+    inj = FaultInjector(FaultPlan(seed=0, rules=(
+        FaultRule("engine.batch", replicas=(0,)),
+        FaultRule("engine.straggler", rate=0.5, delay_s=2e-3))))
+    svc = AnnService.build(spec, index=idx, fault_injector=inj)
+    svc.warmup()
+    ops.reset_launches()
+    futs = [svc.submit_async(q[j]) for j in range(len(q))]
+    for j, f in enumerate(futs):
+        d, i = f.result(timeout=60.0)
+        np.testing.assert_array_equal(d, wd[j])
+        np.testing.assert_array_equal(i, wi[j])
+        assert f.timing()["replica"] == 1
+    assert ops.launches["lut_build"] > 0 and ops.launches["pq_scan_dc"] > 0
+    st = svc.stats()["faults"]
+    assert st["engine.batch"]["fires"] > 0
+    assert st["engine.straggler"]["fires"] > 0
+    svc.shutdown()
+
+
+@pytest.mark.parametrize("lut_dtype", ["f32", "uint8"])
+def test_measure_spec_on_the_card_equals_the_cpu(cuda, monkeypatch,
+                                                 lut_dtype):
+    """The tuner's measurement of one candidate over one index, on the
+    card and on the CPU: the PIM-paced p50 / p99 / QPS are equal (a host
+    clock that moves only when slept, so each batch is charged its
+    modeled time) and recall agrees up to k-th-place ties."""
+    from repro_torch.convert import index_from_numpy
+    from repro_torch.core.autotune import Candidate, candidate_spec, \
+        measure_spec
+    from repro_torch.core.mutable_index import Index
+    from repro_torch.runtime import serving as serving_mod
+
+    class FakeTime:
+        t = 0.0
+
+        def perf_counter(self):
+            return self.t
+
+        monotonic = perf_counter
+
+        def sleep(self, s):
+            self.t += max(float(s), 0.0)
+
+    ds = make_clustered_corpus(0, 3000, 16, n_queries=48, n_components=12,
+                               k_gt=10, device="cpu")
+    cpu = build_ivfpq(torch.Generator().manual_seed(0), ds.points, nlist=16,
+                      m=8, cb=256, kmeans_iters=8, pq_iters=8, device="cpu")
+    on_card = index_from_numpy(cpu.centroids, cpu.codebook.codebooks,
+                               cpu.codebook.sqnorms, cpu.codes, cpu.ids,
+                               cpu.offsets, device=cuda)
+    spec = candidate_spec(Candidate(8, 4, lut_dtype, (1, 2, 4, 8), 1024,
+                                    1 << 19), nlist=16)
+    q = ds.queries.float().numpy()
+    gt = ds.groundtruth.numpy()
+    out = {}
+    for name, index in (("cpu", cpu), ("cuda", on_card)):
+        monkeypatch.setattr(serving_mod, "time", FakeTime())
+        ops.reset_launches()
+        out[name] = measure_spec(spec, Index(index), q, gt, k=10,
+                                 n_requests=48, qps=4000.0, skew=1.2,
+                                 seed=1)
+        if name == "cuda":
+            lc = "lut_build_q" if lut_dtype == "uint8" else "lut_build"
+            assert ops.launches[lc] > 0
+    for key in ("p50_ms", "p99_ms", "qps"):
+        assert out["cuda"][key] == out["cpu"][key], key
+    assert abs(out["cuda"]["recall"] - out["cpu"]["recall"]) <= \
+        (1.0 if lut_dtype == "f32" else 4.0) / (len(q) * 10) + 1e-12

@@ -200,7 +200,8 @@ def test_online_submit_step_and_errors(port, small_corpus):
     done = rt.step(now=1.0)
     assert [r.req_id for r in done] == [0, 1, 2] and done[0].bucket == 4
     assert set(done[0].timing()) == {"queue_s", "batch_s", "engine_s",
-                                     "total_s"}
+                                     "total_s", "degraded",
+                                     "deadline_missed"}
     bad = ServingRuntime(LocalEngine(idx, cl, SearchParams(nprobe=4, k=10**6)))
     bad.submit(qs[0], now=0.0)
     with pytest.raises(BatchServeError):

@@ -637,35 +637,64 @@ def test_sharded_service_stream_equals_direct(port_index, small_index,
 
 
 # ---------------------------------------------------------------------------
-# What is not ported raises; direct construction warns; the selftest
+# Fault injection on every build configuration; refusals the reference
+# shares; direct construction warns; the selftest
 # ---------------------------------------------------------------------------
 
-NOT_PORTED = {
-    # the live index, tiered storage, coarse_groups (ROADMAP item 7) and
-    # tenancy (item 8) are ported; each of them under fault injection
-    # (item 9) is not
-    "mutable": (dict(mutable=True), dict(tenants=np.zeros(8000, np.int32),
-                                         fault_injector=object()),
-                "item 9"),
+ARMED = {
+    # the build configurations that raised NotImplementedError before
+    # fault injection was ported (ROADMAP item 9): each now takes a real
+    # FaultInjector on every chaos site it has
+    "mutable": (dict(mutable=True), dict(tenants=np.zeros(8000, np.int32))),
     "tiered": (dict(storage="tiered", storage_budget_bytes=1,
-                    tenants=(("a", 0, 1.0, 0.0, 1),)),
-               dict(fault_injector=object()), "item 9"),
-    "coarse": (dict(coarse_groups=4), dict(fault_injector=object()),
-               "item 9"),
-    "tenants": (dict(tenants=(("a", 0, 1.0, 0.0, 1),), qos_wfq=True),
-                dict(fault_injector=object()), "item 9"),
-    "tenant_rows": ({}, dict(tenants=np.zeros(8000, np.int32),
-                             fault_injector=object()), "item 9"),
-    "faults": ({}, dict(fault_injector=object()), "item 9"),
+                    tenants=(("a", 0, 1.0, 0.0, 1),)), {}),
+    "coarse": (dict(coarse_groups=4), {}),
+    "tenants": (dict(tenants=(("a", 0, 1.0, 0.0, 1),), qos_wfq=True), {}),
+    "tenant_rows": ({}, dict(tenants=np.zeros(8000, np.int32))),
+    "faults": ({}, {}),
 }
 
 
-@pytest.mark.parametrize("case", list(NOT_PORTED))
-def test_reference_only_features_raise(port_index, case):
-    spec_kw, build_kw, item = NOT_PORTED[case]
-    with pytest.raises(NotImplementedError, match=item):
-        AnnService.build(ServiceSpec(**_spec_kw(**spec_kw)),
-                         index=port_index, **build_kw)
+@pytest.mark.parametrize("case", list(ARMED))
+def test_reference_only_features_raise(port_index, small_corpus, queries,
+                                       case):
+    """Formerly the refusal of ``fault_injector=`` (item 9); now each of
+    the same build configurations is armed with a real injector: every
+    runtime, the tier and the mutator hold it, the executor path consults
+    the engine sites, and ``stats()['faults']`` is its ledger."""
+    from repro_torch.runtime import FaultInjector, FaultPlan, FaultRule
+    from repro_torch.runtime.faults import SITES
+    spec_kw, build_kw = ARMED[case]
+    inj = FaultInjector(FaultPlan(seed=0, rules=tuple(
+        FaultRule(site, rate=0.0) for site in SITES)))
+    if spec_kw.get("mutable"):
+        build_kw = dict(build_kw, points=np.asarray(small_corpus.points,
+                                                    np.float32),
+                        device="cpu")
+        src = {}
+    else:
+        src = dict(index=port_index)
+    svc = AnnService.build(ServiceSpec(**_spec_kw(replicas=2, **spec_kw)),
+                           fault_injector=inj, **src, **build_kw)
+    assert svc.faults is inj
+    assert all(rep.runtime.faults is inj for rep in svc.replicas)
+    tier = svc.index.tiered_store
+    assert (tier is not None) == (case == "tiered")
+    assert tier is None or tier.faults is inj
+    assert (svc.mutator is not None) == (case == "mutable")
+    assert svc.mutator is None or svc.mutator.faults is inj
+    svc.warmup()
+    direct_d, direct_i = svc.search(queries[:6])
+    futs = [svc.submit_async(q) for q in queries[:6]]
+    for i, f in enumerate(futs):
+        d, ids = f.result(timeout=60.0)
+        np.testing.assert_array_equal(d, direct_d[i])
+        np.testing.assert_array_equal(ids, direct_i[i])
+    st = svc.stats()
+    assert st["faults"] == inj.stats()
+    assert st["faults"]["engine.batch"]["consultations"] > 0
+    assert all(v["fires"] == 0 for v in st["faults"].values())
+    svc.shutdown()
 
 
 def test_reference_only_calls_raise(port_index, queries):
@@ -714,17 +743,25 @@ def test_selftest_passes_on_the_cpu(clock, capsys):
 @pytest.mark.parametrize("flag", ["--selftest-chaos", "--selftest-tenants",
                                   "--autotune"])
 def test_cli_refuses_what_is_not_ported(flag, capsys):
+    """Formerly each of these exited 2 naming its ROADMAP item; all three
+    are ported now and the CLI refuses nothing."""
+    assert not hasattr(cli, "NOT_PORTED")
     if flag == "--selftest-tenants":
-        # ported (ROADMAP item 8): no longer refused; it runs in
-        # test_torch_tenancy.py::test_selftest_tenants_on_the_cpu
-        assert "selftest_tenants" not in cli.NOT_PORTED
+        # runs in test_torch_tenancy.py::test_selftest_tenants_on_the_cpu
         with pytest.raises(SystemExit) as ex:
             cli.main(["--help"])
         assert ex.value.code == 0
         assert "multi-tenant serving smoke" in capsys.readouterr().out
         return
-    assert cli.main([flag]) == 2
-    assert "ROADMAP item" in capsys.readouterr().err
+    args = [flag, "--device", "cpu"]
+    if flag == "--selftest-chaos":
+        args += ["--chaos-queries", "300"]
+    assert cli.main(args) == 0
+    out = capsys.readouterr().out
+    if flag == "--selftest-chaos":
+        assert "corrupt_results=0: OK (device=cpu)" in out
+    else:
+        assert "[autotune] winner:" in out and "slo: recall@10" in out
 
 
 def test_cli_boots_a_spec_file(tmp_path, capsys):

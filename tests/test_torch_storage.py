@@ -397,11 +397,36 @@ def test_rewrite_refuses_corrupt_slab_copy(port_index, bpc, tmp_path):
         assert dropped[0] and int(sizes[0]) == 0
 
 
-def test_chaos_hooks_wait_for_item_9(port_index, tmp_path):
-    tier = _tier(port_index, tmp_path, 1)
+def test_chaos_hooks_wait_for_item_9(port_index, bpc, tmp_path):
+    """Formerly the refusal of ``faults`` (item 9, now ported): the tier
+    takes an injector; a cold-read firing raises IOError from a strict
+    gather and drops the cold rows of a degraded one, and resident rows
+    are served all the same."""
+    from repro_torch.runtime import (FaultInjector, FaultPlan, FaultRule,
+                                     InjectedFault)
+    cl = pad_clusters(port_index)
+    tier = _tier(port_index, tmp_path, bpc * 4)
+    assert tier.faults is None
+    tier.faults = FaultInjector(FaultPlan(seed=0, rules=(
+        FaultRule("tier.cold_read", rate=1.0, count=2),)))
+    hot = int(np.nonzero(tier.resident_mask)[0][0])
+    cold = int(np.nonzero(~tier.resident_mask)[0][0])
+    with pytest.raises(IOError, match="injected fault at tier.cold_read") \
+            as err:
+        tier.gather([hot, cold])
+    assert isinstance(err.value, InjectedFault)
+    codes, ids, sizes, dropped = tier.gather_degraded([hot, cold])
+    assert dropped.tolist() == [False, True]
+    assert torch.equal(codes[0], cl.codes[hot])
+    assert torch.equal(ids[0], cl.ids[hot])
+    assert int(sizes[1]) == 0 and int(codes[1].abs().sum()) == 0
+    assert bool((ids[1] == -1).all())
+    assert tier.stats.dropped_probes == 1
+    assert tier.faults.stats() == {"tier.cold_read": {"consultations": 2,
+                                                      "fires": 2}}
+    assert torch.equal(tier.gather([cold])[0][0], cl.codes[cold])
     tier.faults = None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tier.faults = object()
+    assert torch.equal(tier.gather([cold])[1][0], cl.ids[cold])
 
 
 def test_tiered_handle_contract(port_index, tmp_path):
