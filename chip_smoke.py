@@ -137,14 +137,40 @@ paths once at the configuration below:
              After each run, A-D against their plain versions on every
              index it built (32 queries at the largest nprobe measured;
              dsub 8, 4 and 2).  Its latencies are PIM-paced: modeled
-             UPMEM time, not the card's.
+             UPMEM time, not the card's;
+    variants: the paper-side variants and the entry points on the main
+             path's index: V1 a DPQ codebook (core/dpq.py) trained on the
+             card with train_dpq's defaults (300 steps, k-means warm
+             start) on the residuals of 131,072 index rows drawn from the
+             seed, every row re-encoded with it (IVFPQIndex._replace,
+             pad_clusters), the 10,000 queries searched through A-D at
+             f32 and uint8 (recall@10 beside the k-means index's, the
+             uint8 drop <= 0.01, the loss falling, the reconstruction MSE
+             beside k-means' on the training rows), then A-D against
+             their plain versions on its first chunk; V2 the
+             multiplier-less LC and DC (core/multiplierless.py) on the
+             first chunk's 8,192 tasks: at scales 1.0 (the uint8 grid),
+             0.5 and 0.25 every integer LUT built without multiplies
+             equals the multiplied one bit for bit, the quantized
+             integers equal the CPU's (at 1.0 the tables too), the
+             integer DC's top-10 is read against the f32 search's and its
+             top-1 against the float DC's (the reference's 0.8 floor,
+             held at the coarsest scale meeting it), and the integer LC
+             and DC are timed against A and C; L1 the entry points in
+             this process: ``repro_torch.launch.serve --ann`` on both
+             clocks, with ``--spec`` (a sharded uint8 spec saved here)
+             and with ``--autotune``, each exiting 0 with served ==
+             svc.search, then examples/torch_quickstart.py (>= 0.8 on
+             its three searches) and examples/torch_distributed_anns.py.
 
 The launch counters of the six kernels are reset just before each path
 and read just after it; every kernel of the path must have risen (the
 service, mutation and tiered paths run all six; the tenancy path runs
 A-D: the fused E/F cannot take the scope mask; the chaos path A-D, A and
 C on its f32 runs and B and D on its uint8 run; the autotune path the LC
-and DC kernels of the LUT dtypes it measured).
+and DC kernels of the LUT dtypes it measured; the variants path all six:
+A-D in V1 and the local entry points, E by the distributed example, F by
+the sharded uint8 spec).
 Recall@10 is taken against the port's exact_search; the sharded results
 are held to the local path's on the same queries, and served results to
 a direct search: every local service cell bit for bit to the uncached
@@ -153,8 +179,8 @@ JSON line and ``{"ok": true, "device": {...}}``; A's and B's rows carry
 their times at the sharded step's first LC launches too; ``launches``
 sums the local and sharded paths, as before the service existed, and
 ``launches_by_path`` gives each path's own count, the service's, the
-mutation's, the tiered, the tenancy, the chaos and the autotune path's
-included.  E's and F's
+mutation's, the tiered, the tenancy, the chaos, the autotune and the
+variants path's included.  E's and F's
 first sharded launches, with their LC inputs and those of the local
 path's first chunk, are written to ``build/sharded_launch.pt``, which
 ``tools/torch_fused_topk_bench.py`` and ``tools/torch_lut_build_bench.py``
@@ -162,11 +188,13 @@ replay.
 Any failed check raises, so the exit code is non-zero and the ``ok`` line
 is never printed; so is a run without CUDA or outside a checkout.
 
-Configuration: the repo's DRIM-ANN shape (configs/drim_ann.py, the
-paper's SV-A setup: D=128 uint8 points, M=16, CB=256, k=10, 10,000
-queries a batch), with N cut from 100M to 10M so one run can generate
-and build the index; nlist = 4 sqrt(N) rounded up to a power of two
-(16,384 at 10M), train_sample = 40 nlist, nprobe = 32, query_chunk 256
+Configuration: the repo's DRIM-ANN shape (D, M, CB, k and the query
+batch read from repro_torch/configs/drim_ann.py, the paper's SV-A setup:
+D=128 uint8 points, M=16, CB=256, k=10, 10,000 queries a batch), with N
+cut from 100M to 10M so one run can generate and build the index; nlist
+= 4 sqrt(N) rounded up to a power of two (16,384 at 10M; the config's
+65,536), train_sample = 40 nlist, nprobe = 32 (the config's 96),
+query_chunk 256
 (8,192 LC/DC tasks a launch).  ``--n-points`` cuts N further for a quick
 run.
 """
@@ -191,13 +219,17 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs.drim_ann import config as drim_ann_config  # noqa: E402
+
 LAUNCH_FILE = ROOT / "build" / "sharded_launch.pt"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 RTOL, ATOL = 1e-4, 1e-3        # the reference's kernel tolerance
 
-D, M, CB, K = 128, 16, 256, 10
-N_QUERIES, QUERY_CHUNK, NPROBE = 10_000, 256, 32
+# the paper's shape (configs/drim_ann.py); N, nlist and nprobe are cut
+CFG = drim_ann_config()
+D, M, CB, K = CFG.dim, CFG.m, CFG.cb, CFG.k
+N_QUERIES, QUERY_CHUNK, NPROBE = CFG.queries_per_batch, 256, 32
 N_RECALL, N_SERVE = 1_000, 400
 N_SHARDS, SPLIT_MAX, SHARD_BATCH, TASKS_PER_SHARD = 64, 1024, 1_000, 1024
 
@@ -399,9 +431,13 @@ def check_lut(ops, ref, adc, res, books, sqn, where: str,
 
 
 def check_scan(ops, plain_f32, plain_u8, lut, q, codes, sizes, where: str):
+    """C on the f32 table ``lut`` and D on the QuantizedLUT ``q`` (either
+    may be None) against their plain versions, with and without sizes."""
     errs = {}
     for name, table, plain in (("pq_scan_dc", lut, plain_f32),
                                ("pq_scan_dc_q", q, plain_u8)):
+        if table is None:
+            continue
         for sz in (sizes, None):
             got = ops.pq_scan_dc(table, codes, sz)
             want = plain(table, codes, sz)
@@ -413,8 +449,8 @@ def check_scan(ops, plain_f32, plain_u8, lut, q, codes, sizes, where: str):
             check(torch.allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL),
                   f"{name} {where}: max |err| {e}")
             errs[name] = max(errs.get(name, 0.0), e)
-    log(f"  {where}: pq_scan_dc max|err| {errs['pq_scan_dc']:.3e}, "
-        f"pq_scan_dc_q max|err| {errs['pq_scan_dc_q']:.3e}")
+    log(f"  {where}: " + ", ".join(f"{name} max|err| {e:.3e}"
+                                   for name, e in errs.items()))
     return errs
 
 
@@ -756,7 +792,7 @@ def sharded_path(ops, index, queries, local, rec_local, gt, pool, trace,
             for s in range(0, len(queries), CL_BLOCK)]).cpu().numpy()
         log(f"  heat: CL of the {len(queries)} queries, "
             f"{time.perf_counter() - t0:.2f} s")
-        dup = int(0.10 * n * (M + 4))
+        dup = int(CFG.dup_budget_frac * n * (M + 4))
         engines = {}
         for dt in ("f32", "uint8"):
             cfg = EngineConfig(n_shards=N_SHARDS, nprobe=NPROBE, k=K,
@@ -1208,7 +1244,7 @@ def service_path(handle, queries_np, results, rec_f32, gt, pool, trace,
             svc.shutdown()
 
     # S4: two sharded replicas, least-queue router, Poisson, wall clock
-    dup = int(0.10 * n * (M + 4))
+    dup = int(CFG.dup_budget_frac * n * (M + 4))
     for dt in ("f32", "uint8"):
         spec = ServiceSpec(engine="sharded", replicas=2, router="least_queue",
                            n_shards=N_SHARDS, split_max=SPLIT_MAX,
@@ -1527,7 +1563,7 @@ def mutation_path(index, points, queries, zipf, trace, rec_static: float,
     report["S6"] = s6
 
     # -- S7: one mutable sharded replica, f32 then uint8 -------------------
-    dup = int(0.10 * n * (M + 4))
+    dup = int(CFG.dup_budget_frac * n * (M + 4))
     report["S7"] = {}
     for dt in ("f32", "uint8"):
         spec = ServiceSpec(engine="sharded", replicas=1,
@@ -1845,7 +1881,7 @@ def tiered_path(ops, index, clusters, queries, results, zipf, gt,
         handle_view = index._replace(
             codes=index.codes[:0], ids=index.ids[:0])
         sample = locate_probes(queries, index.centroids, NPROBE)
-        dup = int(0.10 * n * (M + 4))
+        dup = int(CFG.dup_budget_frac * n * (M + 4))
         t3 = []
         sh_engines = {}
         for dt, b in T3_BATCHES:
@@ -2264,7 +2300,7 @@ def tenancy_path(ops, index, clusters, points, queries, results, trace,
 
     # -- N2: one scoped sharded engine, f32 then uint8 -------------------
     sample = locate_probes(queries, index.centroids, NPROBE)
-    dup = int(0.10 * n * (M + 4))
+    dup = int(CFG.dup_budget_frac * n * (M + 4))
     cfg = EngineConfig(n_shards=N_SHARDS, nprobe=NPROBE, k=K,
                        split_max=SPLIT_MAX, dup_budget_bytes=dup,
                        tasks_per_shard=TASKS_PER_SHARD, lut_dtype="f32")
@@ -2801,6 +2837,443 @@ def autotune_path(ops, ref, adc, seed: int, device: str = "cuda"):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# The paper-side variants and the entry points (V1, V2, L1)
+# ---------------------------------------------------------------------------
+
+V_TRAIN = 131_072              # DPQ training rows: (N, M, CB) f32 ~2.1 GB
+V_CHUNK = 1 << 20              # rows re-encoded at once
+V2_SCALES = (1.0, 0.5, 0.25)   # the uint8 grid, then finer ones
+V2_TASKS = 1024                # tasks of one integer LC / DC step
+V2_FLOOR = 0.8                 # top-1 agreement, tests/test_adc.py:83-97
+V_SPEC = ROOT / "build" / "variants_spec.json"
+
+
+def _rows_residuals(index, points, rows, cluster_of):
+    """Residuals of the index rows ``rows`` (positions in the index's
+    cluster order): the point minus its cluster's centroid, f32."""
+    return (points[index.ids[rows].long()].float()
+            - index.centroids[cluster_of[rows]])
+
+
+def _recon_mse(cb, res) -> float:
+    from repro_torch.core.pq import decode_pq, encode_pq
+    err = res - decode_pq(cb, encode_pq(cb, res))
+    return float((err * err).sum(-1).mean())
+
+
+def dpq_path(index, points, queries, rec, gt, seed: int):
+    """V1: a DPQ codebook trained on the card (``train_dpq``'s defaults:
+    300 Adam steps from a k-means warm start) on the residuals of V_TRAIN
+    index rows drawn from ``seed``; every row re-encoded with it in
+    chunks (``IVFPQIndex._replace``, then ``pad_clusters``); the queries
+    searched through A-D at f32 and uint8.  Returns (report, the DPQ
+    index, its padded clusters)."""
+    from repro_torch.core import (SearchParams, encode_pq, pad_clusters,
+                                  recall_at_k, search_ivfpq, train_dpq)
+    dev = index.codes.device
+    n = index.codes.shape[0]
+    cluster_of = torch.repeat_interleave(
+        torch.arange(index.nlist, device=dev), index.sizes.long())
+    g = torch.Generator().manual_seed(seed + 10)
+    rows = torch.randperm(n, generator=g)[:min(V_TRAIN, n)].to(dev)
+    res = _rows_residuals(index, points, rows, cluster_of)
+    (cb, losses), t_train = sync_time(lambda: train_dpq(g, res, M, CB))
+    losses = losses.cpu().numpy()
+    check(bool(np.isfinite(losses).all()), "V1: non-finite DPQ loss")
+    check(losses[-1] < losses[0], f"V1: the DPQ loss did not fall: "
+                                  f"{losses[0]} -> {losses[-1]}")
+    mse = {"dpq": _recon_mse(cb, res),
+           "kmeans": _recon_mse(index.codebook, res)}
+    log(f"  V1 train_dpq on {len(rows)} residuals: {t_train:.2f} s, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; reconstruction MSE on "
+        f"these rows: DPQ {mse['dpq']:.4f}, k-means {mse['kmeans']:.4f}")
+    del res
+
+    def reencode():
+        codes = torch.empty_like(index.codes)
+        for s in range(0, n, V_CHUNK):
+            r = _rows_residuals(index, points, torch.arange(
+                s, min(s + V_CHUNK, n), device=dev), cluster_of)
+            codes[s:s + V_CHUNK] = encode_pq(cb, r)
+        return codes
+    codes, t_enc = sync_time(reencode)
+    dpq_index = index._replace(codebook=cb, codes=codes)
+    dpq_cl, t_pad = sync_time(lambda: pad_clusters(dpq_index))
+    recoded = float((codes != index.codes).any(1).float().mean())
+    log(f"  V1 re-encode {n} rows {t_enc:.2f} s, pad_clusters {t_pad:.2f} "
+        f"s; share of rows whose code changed {recoded:.4f}")
+    out = {"train_rows": int(len(rows)), "train_s": t_train,
+           "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+           "loss_every_30": [float(x) for x in losses[::30]],
+           "recon_mse": mse, "reencode_s": t_enc, "pad_s": t_pad,
+           "rows_recoded": recoded, "cmax": int(dpq_cl.cmax)}
+    chunks = -(-queries.shape[0] // QUERY_CHUNK)
+    for dt in ("f32", "uint8"):
+        p = SearchParams(nprobe=NPROBE, k=K, query_chunk=QUERY_CHUNK,
+                         use_kernels=True, lut_dtype=dt)
+        search_ivfpq(dpq_index, dpq_cl, queries[:QUERY_CHUNK], p)  # warm-up
+        (d, i), secs = sync_time(lambda: search_ivfpq(dpq_index, dpq_cl,
+                                                      queries, p))
+        check(d.shape == (queries.shape[0], K) and bool(
+            torch.isfinite(d).all()) and bool((i >= 0).all()),
+              f"V1 {dt}: non-finite distances or padding ids")
+        r = recall_at_k(i[:gt.shape[0]], gt)
+        out[dt] = {"recall": r, "ms_per_chunk": secs * 1e3 / chunks,
+                   "kmeans_recall": rec[dt]}
+        log(f"  V1 DPQ search lut={dt}: recall@{K} {r:.4f} on "
+            f"{gt.shape[0]} queries (k-means index {rec[dt]:.4f}); "
+            f"{secs * 1e3 / chunks:.3f} ms a {QUERY_CHUNK}-query chunk")
+    drop = out["f32"]["recall"] - out["uint8"]["recall"]
+    check(drop <= 0.01, f"V1: uint8 recall drop {drop:.4f} > 0.01")
+    return out, dpq_index, dpq_cl
+
+
+def multiplierless_path(ops, index, clusters, probes, res, f32_ids):
+    """V2: the multiplier-less LC and DC (paper §III-A) on one query
+    chunk's tasks (T = Qc x NPROBE) of the k-means index.  At each scale
+    of V2_SCALES the codebook and residuals are quantized on the card
+    and on the CPU (equal integers), and every task's integer LUT built
+    without multiplies equals the multiplied one bit for bit (the paper's
+    losslessness); at the uint8 grid (scale 1.0) it also equals the
+    CPU's.  The integer DC runs over the probed clusters with padded rows
+    at INT_PAD, then a top-K per query (overlap with the f32 search's)
+    and the top-1 agreement with the float DC per non-empty task (the
+    reference's floor V2_FLOOR, held at the coarsest scale that meets
+    it).  Then the integer LC and DC are timed against A and C on the
+    same tasks at scale 1.0; nothing is gated on the times."""
+    from repro_torch.core import multiplierless as ml
+    from repro_torch.core.adc import adc_distances, build_lut_batch
+    from repro_torch.core.pq import PQCodebook
+    t = res.shape[0]
+    qc, p = probes.shape
+    flat = probes.reshape(-1)
+    sizes = clusters.sizes.index_select(0, flat)
+    c = clusters.cmax
+    ids = clusters.ids.index_select(0, flat).view(qc, p * c)
+    cb = index.codebook
+    cb_cpu = PQCodebook(cb.codebooks.cpu(), cb.sqnorms.cpu())
+    res_cpu = res.cpu()
+    live = sizes > 0
+    lut_f = build_lut_batch(cb, res)
+    nn_f = torch.empty(t, dtype=torch.long, device=res.device)
+    for a in range(0, t, V2_TASKS):
+        codes = clusters.codes.index_select(0, flat[a:a + V2_TASKS])
+        nn_f[a:a + V2_TASKS] = adc_distances(lut_f[a:a + V2_TASKS], codes,
+                                             sizes[a:a + V2_TASKS]).argmin(1)
+    pad = (torch.arange(c, device=res.device)[None, :] >= sizes[:, None])
+    out = {"T": t, "C": c, "nonempty_tasks": int(live.sum()), "scales": {}}
+    for scale in V2_SCALES:
+        qcb = ml.quantize_codebook(cb, scale)
+        rq = ml.quantize_residual(res, qcb.scale)
+        qcb_c = ml.quantize_codebook(cb_cpu, scale)
+        rq_c = ml.quantize_residual(res_cpu, qcb_c.scale)
+        check(torch.equal(qcb.codebooks_q.cpu(), qcb_c.codebooks_q)
+              and torch.equal(rq.cpu(), rq_c),
+              f"V2 scale {scale}: the card's quantized integers differ "
+              f"from the CPU's")
+        lut = torch.empty((t, M, CB), dtype=torch.int32, device=res.device)
+        dist = torch.empty((t, c), dtype=torch.int32, device=res.device)
+        for a in range(0, t, V2_TASKS):
+            s = slice(a, a + V2_TASKS)
+            lut[s] = ml.build_lut_multiplierless(qcb, rq[s])
+            check(torch.equal(lut[s], ml.build_lut_int_reference(qcb, rq[s])),
+                  f"V2 scale {scale}: the multiplier-less LUT differs from "
+                  f"the multiplied one on tasks {a}+ (not lossless)")
+            if scale == 1.0:
+                check(torch.equal(lut[s].cpu(), ml.build_lut_multiplierless(
+                    qcb_c, rq_c[s])), f"V2: the card's integer LUT differs "
+                                      f"from the CPU's on tasks {a}+")
+            dist[s] = ml.scan_codes_int(
+                lut[s], clusters.codes.index_select(0, flat[s]))
+        cpu_note = " and equal to the CPU's" if scale == 1.0 else ""
+        dist.masked_fill_(pad, ml.INT_PAD)
+        agree = float((dist.argmin(1) == nn_f)[live].float().mean())
+        _, top = torch.topk(dist.view(qc, p * c), K, dim=1, largest=False)
+        top_ids = torch.gather(ids, 1, top)
+        overlap = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / K
+                                 for a, b in zip(top_ids.cpu(),
+                                                 f32_ids.cpu())]))
+        clipped = float((rq.abs() == 255).float().mean())
+        out["scales"][str(scale)] = {
+            "lossless_tasks": t, "top1_agreement": agree,
+            "topk_overlap_with_f32": overlap, "residuals_clipped": clipped,
+            "max_lut_entry": int(lut.max()),
+            "max_distance": int(dist[~pad].max())}
+        log(f"  V2 scale {scale}: integer LUT lossless on all {t} tasks"
+            f"{cpu_note}; "
+            f"top-1 agreement with the float DC {agree:.4f} on "
+            f"{int(live.sum())} non-empty tasks; top-{K} overlap with the "
+            f"f32 search {overlap:.4f}; residual entries clipped at 255 "
+            f"{clipped:.4f}")
+        if scale == 1.0:
+            grid = (qcb, rq, lut)                 # timed below
+    held = [sc for sc in V2_SCALES
+            if out["scales"][str(sc)]["top1_agreement"] >= V2_FLOOR]
+    check(bool(held), f"V2: top-1 agreement below {V2_FLOOR} at every "
+                      f"scale {V2_SCALES}")
+    out["floor_scale"] = held[0]
+    log(f"  V2 the reference's top-1 floor {V2_FLOOR} holds at scale "
+        f"{held[0]} (coarsest of {held})")
+
+    qcb, rq, lut = grid
+    codes_all = clusters.codes.index_select(0, flat)
+    lut_a = ops.lut_build(res, cb.codebooks, cb.sqnorms)
+    times = {
+        "lc_int_ms": event_ms(lambda: ml.build_lut_multiplierless(qcb, rq),
+                              reps=5, warm=1, queued=True),
+        "lc_a_ms": event_ms(lambda: ops.lut_build(res, cb.codebooks,
+                                                  cb.sqnorms),
+                            reps=20, queued=True),
+        "dc_int_ms": event_ms(lambda: ml.scan_codes_int(lut, codes_all),
+                              reps=5, warm=1, queued=True),
+        "dc_c_ms": event_ms(lambda: ops.pq_scan_dc(lut_a, codes_all, sizes),
+                            reps=20, queued=True)}
+    out.update(times)
+    log(f"  V2 on the same {t} tasks (C={c}), CUDA events: integer LC "
+        f"{times['lc_int_ms']:.4f} ms against A {times['lc_a_ms']:.4f} ms; "
+        f"integer DC {times['dc_int_ms']:.4f} ms against C "
+        f"{times['dc_c_ms']:.4f} ms")
+    return out
+
+
+def _load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _clone(x):
+    if x is None:
+        return None
+    if isinstance(x, tuple):                  # a QuantizedLUT
+        return type(x)(*(t.clone() for t in x))
+    return x.clone()
+
+
+def capture_launches(ops, seen: dict, label: list):
+    """Wrap the kernel wrappers so that each kernel's last call with rows
+    per shape, keyed (kernel, M, CB, code dtype[, k]), is copied to
+    ``seen`` as (run label, inputs); ``label[0]`` names the run.  The
+    wrapped call launches and counts as before.  Returns a function that
+    restores the wrappers."""
+    from repro_torch.core.adc import QuantizedLUT
+    names = ("lut_build", "lut_build_q", "pq_scan_dc", "pq_scan_topk")
+    orig = {n: getattr(ops, n) for n in names}
+
+    def keep(key, args):
+        seen[key] = (label[0], tuple(_clone(x) for x in args))
+
+    def lc(name):
+        def wrapped(residuals, codebooks, sqnorms):
+            if residuals.shape[0]:
+                keep((name, *codebooks.shape[:2], None),
+                     (residuals, codebooks, sqnorms))
+            return orig[name](residuals, codebooks, sqnorms)
+        return wrapped
+
+    def table_of(lut):
+        q = isinstance(lut, QuantizedLUT)
+        return q, (lut.lut_q if q else lut)
+
+    def dc(lut, codes, sizes=None, **kw):
+        q, table = table_of(lut)
+        if table.shape[0]:
+            keep(("pq_scan_dc_q" if q else "pq_scan_dc", *table.shape[1:],
+                  str(codes.dtype)), (lut, codes, sizes))
+        return orig["pq_scan_dc"](lut, codes, sizes, **kw)
+
+    def topk(lut, codes, ids, sizes, k, **kw):
+        q, table = table_of(lut)
+        if table.shape[0]:
+            keep(("pq_scan_topk_q" if q else "pq_scan_topk",
+                  *table.shape[1:], str(codes.dtype), k),
+                 (lut, codes, ids, sizes, kw.get("slots")))
+        return orig["pq_scan_topk"](lut, codes, ids, sizes, k, **kw)
+
+    ops.lut_build, ops.lut_build_q = lc("lut_build"), lc("lut_build_q")
+    ops.pq_scan_dc, ops.pq_scan_topk = dc, topk
+
+    def restore():
+        for n, f in orig.items():
+            setattr(ops, n, f)
+    return restore
+
+
+def check_captured(ops, ref, adc, seen: dict) -> dict:
+    """Each captured launch's inputs through its kernel again, held to the
+    plain version: A and B with check_lut, C or D with check_scan, E or F
+    with check_topk.  Returns {where: max errors}."""
+    out = {}
+    for key, (label, args) in sorted(seen.items(), key=str):
+        name, m, cb = key[:3]
+        where = f"L1 {label}: {name} M={m} CB={cb}"
+        if name in ("lut_build", "lut_build_q"):
+            res, books, sqn = args
+            where += f" dsub={books.shape[2]} T={res.shape[0]}"
+            _, _, err_a, count_b = check_lut(ops, ref, adc, res, books, sqn,
+                                             where)
+            out[where] = {"lut_build": err_a, "lut_build_q_counts": count_b}
+        elif name in ("pq_scan_dc", "pq_scan_dc_q"):
+            lut, codes, sizes = args
+            where += f" T={codes.shape[0]} C={codes.shape[1]} {key[3]}"
+            lut, q = (None, lut) if name == "pq_scan_dc_q" else (lut, None)
+            out[where] = check_scan(ops, adc.adc_distances,
+                                    adc.adc_distances_quantized, lut, q,
+                                    codes, sizes, where)
+        else:
+            lut, codes, ids, sizes, slots = args
+            where += f" P={codes.shape[0]} C={codes.shape[1]} {key[3]}"
+            out[where] = {name: check_topk(ops, lut, codes, ids, sizes,
+                                           key[4], where, slots)}
+    return out
+
+
+def entry_points_path(ops, ref, adc, device: str = "cuda"):
+    """L1: the port's entry points in this process, so the launch counters
+    see them: ``repro_torch.launch.serve --ann`` on the virtual and the
+    wall clock, ``--spec`` from a sharded uint8 spec saved here, and
+    ``--autotune`` (the paper's SLO, the entry point's defaults); then
+    examples/torch_quickstart.py and examples/torch_distributed_anns.py.
+    Each serve run must return its service (an infeasible SLO exits) and
+    serve what a direct ``svc.search`` of the same queries gives (local:
+    bit for bit; sharded: distances at rtol 1e-5, ids up to k-th-place
+    ties); the quickstart must reach 0.8 on its three searches.  Each
+    run's launches are read as it ends (a serve run's before its direct
+    search).  Each kernel's last launch per shape in these runs is kept
+    and, after the runs, held to its plain version (check_captured): the
+    entry points give the kernels shapes (dsub 4 and 2, CB 64, k 4) that
+    no other phase does.  Returns (report, counts)."""
+    from repro_torch.launch import serve
+    from repro_torch.service import IndexSpec, ServiceSpec
+    spec = ServiceSpec(engine="sharded", replicas=1, nprobe=8, k=10,
+                       lut_dtype="uint8", index=IndexSpec(nlist=32, m=8,
+                                                          cb=64),
+                       n_shards=4, tasks_per_shard=256, buckets=(1, 2, 4),
+                       max_wait_s=1e-3)
+    V_SPEC.parent.mkdir(parents=True, exist_ok=True)
+    path = spec.save(V_SPEC)
+    runs = (("serve --ann", ["--ann"], "local"),
+            ("serve --ann --clock wall", ["--ann", "--clock", "wall"],
+             "local"),
+            ("serve --ann --spec (sharded, uint8) --clock wall",
+             ["--ann", "--spec", str(path), "--clock", "wall"], "sharded"),
+            ("serve --ann --autotune", ["--ann", "--autotune"], "local"))
+    counts = {name: 0 for name in KERNELS}
+    out = {}
+    seen, label = {}, [None]
+    restore = capture_launches(ops, seen, label)
+    try:
+        for label[0], argv, engine in runs:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                svc, reqs = serve.serve_ann(serve.build_parser().parse_args(
+                    [*argv, "--device", device]))
+            except SystemExit as e:
+                check(False, f"L1 {label[0]}: exited {e.code}")
+            secs = time.perf_counter() - t0
+            launched = dict(ops.launches)
+            try:
+                qs = np.stack([r.query for r in reqs]).astype(np.float32)
+                d, i = svc.search(qs)
+            finally:
+                svc.shutdown()
+            got_d = np.stack([r.dists for r in reqs])
+            got_i = np.stack([r.ids for r in reqs])
+            if engine == "local":
+                check(np.array_equal(got_d, d) and np.array_equal(got_i, i),
+                      f"L1 {label[0]}: served != svc.search bit for bit")
+            else:
+                check(np.allclose(got_d, d, rtol=1e-5, atol=1e-5)
+                      and tie_diff_rows(got_d, got_i, d, i, 1e-5, 1e-5) == 0,
+                      f"L1 {label[0]}: served != svc.search")
+            check(len(reqs) == 64, f"L1 {label[0]}: served {len(reqs)}")
+            for name in KERNELS:
+                counts[name] += launched[name]
+            out[label[0]] = {"secs": secs, "launches": launched}
+            log(f"  L1 {label[0]}: served == direct, {secs:.2f} s, "
+                f"launches {launched}")
+        V_SPEC.unlink()
+        for label[0] in ("torch_quickstart", "torch_distributed_anns"):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            res = _load_example(label[0]).main(["--device", device])
+            secs = time.perf_counter() - t0
+            launched = dict(ops.launches)
+            for k in KERNELS:
+                counts[k] += launched[k]
+            out[label[0]] = {"secs": secs, "result": res,
+                             "launches": launched}
+            log(f"  L1 examples/{label[0]}.py: {secs:.2f} s, launches "
+                f"{launched}")
+    finally:
+        restore()
+    q = out["torch_quickstart"]["result"]
+    check(q["recall"] >= 0.8 and min(q["recall_kernels"].values()) >= 0.8,
+          f"L1 quickstart below 0.8: {q}")
+    dist = out["torch_distributed_anns"]["result"]
+    check(len(dist) == 2 and all(r["recall"] >= 0.8 for r in dist.values()),
+          f"L1 distributed example: {dist}")
+    if device == "cuda":
+        for k in ("lut_build", "pq_scan_topk"):
+            check(out["torch_distributed_anns"]["launches"][k] > 0,
+                  f"L1: {k} never launched by the distributed example")
+    # after every run's counts were read
+    log(f"kernels vs plain, the {len(seen)} launch shapes of L1:")
+    out["kernel_checks"] = check_captured(ops, ref, adc, seen)
+    held = {key[0] for key in seen}
+    check(held >= {k for k in KERNELS if counts[k]},
+          f"L1: launched {sorted(k for k in KERNELS if counts[k])} but held "
+          f"only {sorted(held)} to plain")
+    return out, counts
+
+
+def variants_path(ops, ref, adc, index, clusters, points, queries,
+                  results, rec, gt, seed: int):
+    """V1, V2 and L1 on the main path's index (see the module docstring).
+    The launch counters are reset before V1 and read after its searches,
+    and read per run in L1; the kernel checks and V2's timings launch A-D
+    outside those windows.  Returns (report, the phase's launch counts)."""
+    from repro_torch.core.search import cluster_locate
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    v1, dpq_index, dpq_cl = dpq_path(index, points, queries, rec, gt, seed)
+    v1_launches = dict(ops.launches)
+    # after the counts were read: A-D on the DPQ index's first chunk
+    q0 = queries[:QUERY_CHUNK]
+    probes, _ = cluster_locate(q0, index.centroids, NPROBE,
+                               block=QUERY_CHUNK)
+    res = (q0[:, None, :] - index.centroids[probes]).reshape(-1, D)
+    res = res.contiguous()
+    flat = probes.reshape(-1)
+    where = f"DPQ index T={res.shape[0]} C={dpq_cl.cmax}"
+    log("kernels vs plain, the DPQ index's first chunk:")
+    lut, qlut, v1["a_err"], v1["b_count"] = check_lut(
+        ops, ref, adc, res, dpq_index.codebook.codebooks,
+        dpq_index.codebook.sqnorms, where)
+    v1["scan_err"] = check_scan(
+        ops, adc.adc_distances, adc.adc_distances_quantized, lut, qlut,
+        dpq_cl.codes.index_select(0, flat),
+        dpq_cl.sizes.index_select(0, flat), where)
+    del dpq_index, dpq_cl, lut, qlut
+    torch.cuda.empty_cache()
+    v2 = multiplierless_path(ops, index, clusters, probes, res,
+                             results["f32"][1][:QUERY_CHUNK])
+    l1, l1_launches = entry_points_path(ops, ref, adc)
+    counts = {k: v1_launches[k] + l1_launches[k] for k in KERNELS}
+    run = {"V1": v1, "V2": v2, "L1": l1, "launches": counts,
+           "secs": time.perf_counter() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"  variants path {run['secs']:.1f} s; peak device memory "
+        f"{run['peak_gib']:.2f} GiB; launches {counts}")
+    return run, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-points", type=int, default=10_000_000)
@@ -2881,6 +3354,12 @@ def main() -> int:
     log(f"main path: N={n} D={D} M={M} CB={CB} nlist={nlist} "
         f"train_sample={train_sample} nprobe={NPROBE} k={K} "
         f"queries={N_QUERIES} query_chunk={QUERY_CHUNK}")
+    log(f"  configs/drim_ann.config(): D, M, CB, k and the query batch as "
+        f"given; cut N {CFG.n_points} -> {n}, nlist {CFG.nlist} -> "
+        f"{nlist}, nprobe {CFG.nprobe} -> {NPROBE}; sharded layout: "
+        f"dup_budget_frac {CFG.dup_budget_frac} as given, cut split_max "
+        f"{CFG.split_max} -> {SPLIT_MAX} and tasks_per_shard "
+        f"{CFG.tasks_per_shard} -> {TASKS_PER_SHARD} ({N_SHARDS} shards)")
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
 
@@ -2904,7 +3383,8 @@ def main() -> int:
         f"{int(sizes_all.min())}/{float(sizes_all.float().mean()):.1f}/"
         f"{int(sizes_all.max())}; index {idx_bytes / 2**20:.1f} MiB + "
         f"padded clusters {cl_bytes / 2**20:.1f} MiB on the card")
-    check(clusters.codes.dtype == torch.uint8, "codes are not uint8")
+    check(clusters.codes.dtype == getattr(torch, CFG.code_dtype),
+          f"codes are not {CFG.code_dtype}")
 
     queries = ds.queries.float()
     results = {}
@@ -3193,10 +3673,22 @@ def main() -> int:
     u_peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  autotune path {autotune_run['secs']:.1f} s "
         f"({autotune_run['outcome']}); peak device memory {u_peak:.2f} GiB")
+    # -- 12. the paper-side variants and the entry points ----------------
+    log(f"variants path: V1 DPQ ({min(V_TRAIN, n)} training rows, "
+        f"train_dpq defaults) re-encoding the same index, V2 the "
+        f"multiplier-less LC / DC on the first chunk's tasks at scales "
+        f"{V2_SCALES}, L1 the serve entry point and the two examples")
+    variants_run, variants_launches = variants_path(
+        ops, ref, adc, index, clusters, ds.points, queries, results, rec,
+        gt, args.seed)
+    for name in KERNELS:
+        check(variants_launches[name] > 0,
+              f"{name} never launched on the variants path")
     by_path = {"local": launches, "sharded": sharded_launches,
                "service": service_launches, "mutation": mutation_launches,
                "tiered": tiered_launches, "tenancy": tenancy_launches,
-               "chaos": chaos_launches, "autotune": autotune_launches}
+               "chaos": chaos_launches, "autotune": autotune_launches,
+               "variants": variants_launches}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
     log(json.dumps({"service": service_runs}))
@@ -3205,6 +3697,7 @@ def main() -> int:
     log(json.dumps({"tenancy": tenancy_run}))
     log(json.dumps({"chaos": chaos_run}))
     log(json.dumps({"autotune": autotune_run}))
+    log(json.dumps({"variants": variants_run}))
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

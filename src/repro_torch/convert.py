@@ -8,7 +8,9 @@ vectors, quantizers, counters), read attribute by attribute through
 numpy, so both packages can then apply the same mutations.  A reference
 ``Coarse2`` comes across through ``coarse2_from_numpy``, and a
 reference ``VectorMeta`` (per-vector tenants and tags) through
-``vector_meta_from_reference``.  ``uint16``
+``vector_meta_from_reference``, a reference ``QuantizedCodebook`` (the
+multiplier-less path) through ``quantized_codebook_from_numpy``; a
+reference DPQ codebook is an ordinary ``PQCodebook``.  ``uint16``
 codes (CB > 256) become ``int32``, because ``torch.uint16`` has few CUDA
 ops; ``uint8`` codes stay ``uint8``.
 """
@@ -23,6 +25,7 @@ import torch
 from repro_torch.core.coarse2 import Coarse2
 from repro_torch.core.filter import VectorMeta
 from repro_torch.core.ivf import IVFPQIndex, PaddedClusters
+from repro_torch.core.multiplierless import QuantizedCodebook
 from repro_torch.core.mutable_index import (Index, MutationStats, _Generation,
                                             _Store)
 from repro_torch.core.pq import PQCodebook
@@ -176,3 +179,15 @@ def coarse2_from_numpy(l1_centroids, members, member_centroids, *,
     return Coarse2(_t(l1_centroids, np.float32, dev),
                    _t(members, np.int64, dev),
                    _t(member_centroids, np.float32, dev))
+
+
+def quantized_codebook_from_numpy(codebooks_q, scale, sq, *, device="cuda"
+                                  ) -> QuantizedCodebook:
+    """A reference ``QuantizedCodebook``'s fields as numpy arrays (int32
+    codebook (M, CB, dsub), the f32 scale, the int32 square table) -> the
+    port's on ``device``, so both packages build integer tables from one
+    quantization."""
+    dev = resolve_device(device)
+    return QuantizedCodebook(_t(codebooks_q, np.int32, dev),
+                             _t(scale, np.float32, dev).reshape(()),
+                             _t(sq, np.int32, dev))

@@ -1,5 +1,6 @@
-"""IVF-PQ core: k-means, PQ/OPQ, index build, ADC, the search pipeline,
-and the sharded engine (perf model, layout, scheduler, sharded search).
+"""IVF-PQ core: k-means, PQ/OPQ/DPQ, index build, ADC (float and the
+paper's multiplier-less integer path), the search pipeline, and the
+sharded engine (perf model, layout, scheduler, sharded search).
 The design-space exploration and the SLO-driven auto-tuner live in
 ``core.dse`` and ``core.autotune``; the tuner's names are exported by
 ``repro_torch.service`` (a function ``autotune`` here would hide the
@@ -15,6 +16,12 @@ from repro_torch.core.adc import (build_lut, build_lut_batch, scan_codes,
                                   adc_distances, QuantizedLUT, quantize_lut,
                                   dequantize_lut, scan_codes_quantized,
                                   adc_distances_quantized)
+from repro_torch.core.multiplierless import (make_square_lut, square_via_lut,
+                                             quantize_codebook,
+                                             build_lut_multiplierless,
+                                             build_lut_int_reference,
+                                             scan_codes_int, quantize_residual)
+from repro_torch.core.dpq import train_dpq
 from repro_torch.core.topk import topk_smallest, merge_topk
 from repro_torch.core.search import (SearchParams, search_ivfpq,
                                      exact_search, recall_at_k,
@@ -37,6 +44,10 @@ __all__ = [
     "build_lut", "build_lut_batch", "scan_codes", "adc_distances",
     "QuantizedLUT", "quantize_lut", "dequantize_lut",
     "scan_codes_quantized", "adc_distances_quantized",
+    "make_square_lut", "square_via_lut", "quantize_codebook",
+    "build_lut_multiplierless", "build_lut_int_reference", "scan_codes_int",
+    "quantize_residual",
+    "train_dpq",
     "topk_smallest", "merge_topk",
     "SearchParams", "search_ivfpq", "exact_search", "recall_at_k",
     "cluster_locate", "cluster_locate_masked",

@@ -885,3 +885,51 @@ def test_measure_spec_on_the_card_equals_the_cpu(cuda, monkeypatch,
         assert out["cuda"][key] == out["cpu"][key], key
     assert abs(out["cuda"]["recall"] - out["cpu"]["recall"]) <= \
         (1.0 if lut_dtype == "f32" else 4.0) / (len(q) * 10) + 1e-12
+
+
+# ---- the paper-side variants and the entry points (slice 10) -------------
+
+def test_multiplierless_lut_lossless_on_the_card(cuda):
+    """The paper's losslessness claim on the card at its width (D=128,
+    M=16, CB=256, scale 1.0, the uint8 grid), and the card's integers
+    equal the CPU's: the quantizers divide by a tensor, never by a
+    reciprocal, and .5 quotients round to even."""
+    from repro_torch.core import multiplierless as ml
+    from repro_torch.core.pq import PQCodebook
+    rng = np.random.default_rng(20)
+    books = rng.normal(0, 30, size=(16, 256, 8)).astype(np.float32)
+    res = rng.normal(0, 60, size=(512, 128)).astype(np.float32)
+    res[0, :64] = np.arange(-32, 32) + 0.5            # half-way quotients
+    codes = rng.integers(0, 256, size=(512, 300, 16)).astype(np.uint8)
+    out = {}
+    for dev in ("cpu", cuda):
+        cb = PQCodebook(torch.from_numpy(books).to(dev),
+                        torch.zeros((16, 256), device=dev))
+        qcb = ml.quantize_codebook(cb, 1.0)
+        rq = ml.quantize_residual(torch.from_numpy(res).to(dev), qcb.scale)
+        lut = ml.build_lut_multiplierless(qcb, rq)
+        assert torch.equal(lut, ml.build_lut_int_reference(qcb, rq))
+        dist = ml.scan_codes_int(lut, torch.from_numpy(codes).to(dev))
+        out[str(dev)] = [x.cpu() for x in (qcb.codebooks_q, rq, lut, dist)]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a, b)
+    assert torch.equal(out["cuda"][1][0, 30:34],
+                       torch.tensor([-2, 0, 0, 2], dtype=torch.int32))
+
+
+def test_quickstart_kernel_search_launches_a_to_d(cuda):
+    """examples/torch_quickstart.py on the card: both kernel searches
+    reach the paper's 0.8 and launch A-D."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "torch_quickstart.py"
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    ops.reset_launches()
+    out = mod.main(["--device", "cuda"])
+    assert out["recall"] >= 0.8
+    assert min(out["recall_kernels"].values()) >= 0.8
+    for name in ("lut_build", "lut_build_q", "pq_scan_dc", "pq_scan_dc_q"):
+        assert ops.launches[name] > 0, name

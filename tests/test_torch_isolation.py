@@ -1,6 +1,7 @@
-"""The port stands alone: nothing under src/repro_torch (nor chip_smoke.py
-or the port's tools) imports jax or the reference package, and the port,
-its service tier included, imports with both blocked."""
+"""The port stands alone: nothing under src/repro_torch (nor chip_smoke.py,
+the port's tools or its examples) imports jax or the reference package,
+and the port, its service tier and entry points included, imports with
+both blocked."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "tools").glob("torch_*.py")))
+         + sorted((ROOT / "tools").glob("torch_*.py"))
+         + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _forbidden(name: str) -> bool:
@@ -47,7 +49,14 @@ def test_port_imports_with_jax_and_reference_blocked():
         "assert 'repro_torch.kernels.ops' in mods, mods\n"
         "assert {'repro_torch.service', 'repro_torch.service.service',\n"
         "        'repro_torch.service.__main__'} <= set(mods), mods\n"
+        "assert {'repro_torch.launch.serve', 'repro_torch.configs.drim_ann',\n"
+        "        'repro_torch.core.multiplierless',\n"
+        "        'repro_torch.core.dpq'} <= set(mods), mods\n"
         "from repro_torch.service import AnnService, ServiceSpec\n"
+        "from repro_torch.launch.serve import main, serve_ann\n"
+        "from repro_torch.configs.drim_ann import config\n"
+        "from repro_torch.core.multiplierless import scan_codes_int\n"
+        "from repro_torch.core.dpq import train_dpq\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
