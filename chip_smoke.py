@@ -161,7 +161,33 @@ paths once at the configuration below:
              clocks, with ``--spec`` (a sharded uint8 spec saved here)
              and with ``--autotune``, each exiting 0 with served ==
              svc.search, then examples/torch_quickstart.py (>= 0.8 on
-             its three searches) and examples/torch_distributed_anns.py.
+             its three searches) and examples/torch_distributed_anns.py;
+    lm:      the LM stack (repro_torch/models) and the RAG path, after the
+             ANN phases' index is freed: LM1 all ten archs at their smoke
+             configs on weights drawn once on the CPU, the card's forward
+             and 16 decode steps == the CPU port's (rtol 1e-4, atol 1e-3
+             or 1e-4 of the logits' scale where that is larger), decode ==
+             forward on the card (5e-3,
+             MoE at capacity
+             factor 8), and S = 2,048 through the chunked attention path
+             (causal skip; the local window) == the dense masked path;
+             LM2 llama32_vision_11b (the RAG model: 40 layers, 8 of them
+             cross-attention, 9.777 B parameters in bf16) and whisper_base
+             at their full configs, drawn on the card tensor by tensor and
+             counted against count_params_analytic, generate at B = 4,
+             prompt 16, gen 16, one decode step timed against its bound,
+             peak memory, then decode == forward over the 16-token prompt
+             in bf16 within 5e-2 of the logits' scale with every wq
+             scaled by 2^-6 (at the reference's draw attention is a hard
+             argmax whose ties flip under rounding; logged there), then
+             the same weights in f32: decode == forward at 5e-3 with wq
+             scaled, and logged at the draw; LM3 the RAG path through
+             ``launch.serve`` (serve_ann, then rag_decode: ``--ann --engine
+             sharded --arch llama32_vision_11b`` at the full config and
+             ``--ann --arch whisper_base --smoke``, each served ==
+             svc.search) and examples/torch_rag_serving.py, every kernel
+             they launched held to its plain version at the shapes it was
+             given.
 
 The launch counters of the six kernels are reset just before each path
 and read just after it; every kernel of the path must have risen (the
@@ -170,7 +196,8 @@ A-D: the fused E/F cannot take the scope mask; the chaos path A-D, A and
 C on its f32 runs and B and D on its uint8 run; the autotune path the LC
 and DC kernels of the LUT dtypes it measured; the variants path all six:
 A-D in V1 and the local entry points, E by the distributed example, F by
-the sharded uint8 spec).
+the sharded uint8 spec; the lm path A, C and E in LM3, LM1 and LM2
+launching none of the six).
 Recall@10 is taken against the port's exact_search; the sharded results
 are held to the local path's on the same queries, and served results to
 a direct search: every local service cell bit for bit to the uncached
@@ -179,8 +206,8 @@ JSON line and ``{"ok": true, "device": {...}}``; A's and B's rows carry
 their times at the sharded step's first LC launches too; ``launches``
 sums the local and sharded paths, as before the service existed, and
 ``launches_by_path`` gives each path's own count, the service's, the
-mutation's, the tiered, the tenancy, the chaos, the autotune and the
-variants path's included.  E's and F's
+mutation's, the tiered, the tenancy, the chaos, the autotune, the
+variants and the lm path's included.  E's and F's
 first sharded launches, with their LC inputs and those of the local
 path's first chunk, are written to ``build/sharded_launch.pt``, which
 ``tools/torch_fused_topk_bench.py`` and ``tools/torch_lut_build_bench.py``
@@ -3103,14 +3130,14 @@ def capture_launches(ops, seen: dict, label: list):
     return restore
 
 
-def check_captured(ops, ref, adc, seen: dict) -> dict:
+def check_captured(ops, ref, adc, seen: dict, phase: str = "L1") -> dict:
     """Each captured launch's inputs through its kernel again, held to the
     plain version: A and B with check_lut, C or D with check_scan, E or F
     with check_topk.  Returns {where: max errors}."""
     out = {}
     for key, (label, args) in sorted(seen.items(), key=str):
         name, m, cb = key[:3]
-        where = f"L1 {label}: {name} M={m} CB={cb}"
+        where = f"{phase} {label}: {name} M={m} CB={cb}"
         if name in ("lut_build", "lut_build_q"):
             res, books, sqn = args
             where += f" dsub={books.shape[2]} T={res.shape[0]}"
@@ -3171,7 +3198,7 @@ def entry_points_path(ops, ref, adc, device: str = "cuda"):
             ops.reset_launches()
             t0 = time.perf_counter()
             try:
-                svc, reqs = serve.serve_ann(serve.build_parser().parse_args(
+                svc, reqs, _ = serve.serve_ann(serve.build_parser().parse_args(
                     [*argv, "--device", device]))
             except SystemExit as e:
                 check(False, f"L1 {label[0]}: exited {e.code}")
@@ -3272,6 +3299,458 @@ def variants_path(ops, ref, adc, index, clusters, points, queries,
     log(f"  variants path {run['secs']:.1f} s; peak device memory "
         f"{run['peak_gib']:.2f} GiB; launches {counts}")
     return run, counts
+
+
+# ---------------------------------------------------------------------------
+# 13. The LM stack and the RAG path
+# ---------------------------------------------------------------------------
+
+# card vs CPU, f32 (matmuls in IEEE f32 on both): rtol 1e-4, atol 1e-3 or
+# 1e-4 of the logits' scale where that is larger: sums in another order
+# leave ~3e-5 of that scale, and the tied-embedding archs read logits up to
+# ~39 (the others ~1.5), where a flat 1e-3 sits below that rounding
+LM_TOL = (1e-4, 1e-3)
+LM_ATOL_PER_SCALE = 1e-4
+
+
+def _lm_atol(scale: float) -> float:
+    return max(LM_TOL[1], LM_ATOL_PER_SCALE * scale)
+LM_DECODE_TOL = 5e-3           # decode == forward, tests/test_archs_smoke.py
+LM_SEQ, LM_CHUNKED_S = 16, 2048
+LM2_ARCHS = ("llama32_vision_11b", "whisper_base")
+LM2_BATCH, LM2_PROMPT, LM2_GEN = 4, 16, 16
+# bf16 decode == forward: the two paths round activations to bf16 (8
+# mantissa bits, 2^-9 relative) at other points (one token a GEMM against
+# 16, other GEMM algorithms), and the difference compounds over the
+# layers; held to a share of the logits' scale, on soft attention (every
+# wq scaled by 2^-6, exact in bf16; see lm_full_arch)
+LM2_REL_TOL = 5e-2
+LM2_WQ_SCALE = 2.0 ** -6
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor-core peak
+
+
+def _lm_inputs(cfg, batch: int, seq: int, seed: int):
+    from repro_torch.launch.serve import context_len
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    n = context_len(cfg)
+    ctx = (None if n is None else torch.from_numpy(
+        rng.normal(size=(batch, n, cfg.d_model)).astype(np.float32)))
+    return toks, ctx
+
+
+def _lm_run(params, cfg, toks, ctx, steps: int):
+    """forward logits, and ``steps`` decode steps' logits, on the device
+    the tensors lie on."""
+    from repro_torch.models import decode_step, encode, forward, init_caches
+    dev = toks.device
+    with torch.inference_mode():
+        logits, _ = forward(params, cfg, toks, ctx=ctx)
+        enc_out = encode(params, cfg, ctx) if cfg.is_encdec else None
+        caches = init_caches(cfg, toks.shape[0], steps, device=dev)
+        outs = []
+        for t in range(steps):
+            lg, caches = decode_step(
+                params, cfg, toks[:, t:t + 1],
+                torch.full((toks.shape[0],), t, device=dev), caches,
+                ctx=None if cfg.is_encdec else ctx, enc_out=enc_out)
+            outs.append(lg[:, 0])
+    return logits, torch.stack(outs, 1)
+
+
+def _max_err(a, b, vocab: int) -> float:
+    return float((a[..., :vocab].float() - b[..., :vocab].float()
+                  ).abs().max())
+
+
+def lm_smoke_archs(seed: int, device: str) -> dict:
+    """LM1: every arch at its smoke config, on weights drawn once on the
+    CPU: the card's forward and decode steps == the CPU port's; decode ==
+    forward on the card (MoE at capacity factor 8, as the reference's
+    test); then S = 2,048 through the chunked path (causal skip, and the
+    local window) held to the dense masked path on the card."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import attention, forward, init_params
+    from repro_torch.models.common import tree_map
+    out = {}
+    for arch in registry.ARCH_IDS:
+        cfg = registry.get_config(arch, smoke=True)
+        if cfg.moe:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=8.0))
+        params = init_params(cfg, seed, device="cpu")
+        toks, ctx = _lm_inputs(cfg, 2, LM_SEQ, seed)
+        cpu = _lm_run(params, cfg, toks, ctx, LM_SEQ)
+        p_dev = tree_map(lambda x: x.to(device), params)
+        dev = _lm_run(p_dev, cfg, toks.to(device),
+                      None if ctx is None else ctx.to(device), LM_SEQ)
+        scale = float(cpu[0][..., :cfg.vocab_size].abs().max())
+        errs = {"max_abs_logit": scale}
+        for name, a, b in (("forward", dev[0], cpu[0]),
+                           ("decode", dev[1], cpu[1])):
+            a = a.cpu()
+            check(bool(torch.isfinite(a[..., :cfg.vocab_size]).all()),
+                  f"LM1 {arch}: non-finite {name} logits")
+            check(torch.allclose(a, b, rtol=LM_TOL[0],
+                                 atol=_lm_atol(scale)),
+                  f"LM1 {arch}: card {name} != CPU (max |err| "
+                  f"{_max_err(a, b, cfg.vocab_size):.3e}, logits up to "
+                  f"{scale:.2f})")
+            errs[name] = _max_err(a, b, cfg.vocab_size)
+        errs["decode_vs_forward"] = _max_err(dev[1], dev[0], cfg.vocab_size)
+        check(errs["decode_vs_forward"] < LM_DECODE_TOL,
+              f"LM1 {arch}: decode != forward on the card "
+              f"({errs['decode_vs_forward']:.3e})")
+        out[arch] = errs
+        log(f"  LM1 {arch}: card == CPU, forward max |err| "
+            f"{errs['forward']:.2e}, decode {errs['decode']:.2e} (logits up "
+            f"to {scale:.2f}); decode vs "
+            f"forward on the card {errs['decode_vs_forward']:.2e}")
+    # the chunked path at S = 2,048 (s * l > 1024^2) against the dense one
+    for arch in ("qwen3_14b", "recurrentgemma_2b"):
+        cfg = registry.get_config(arch, smoke=True)
+        params = init_params(cfg, seed, device=device)
+        toks, _ = _lm_inputs(cfg, 1, LM_CHUNKED_S, seed)
+        toks = toks.to(device)
+        with torch.inference_mode():
+            (chunked, _), secs = sync_time(lambda: forward(params, cfg, toks))
+            limit = attention._DENSE_SCORE_LIMIT
+            attention._DENSE_SCORE_LIMIT = math.inf
+            try:
+                (dense, _), dense_secs = sync_time(
+                    lambda: forward(params, cfg, toks))
+            finally:
+                attention._DENSE_SCORE_LIMIT = limit
+        err = _max_err(chunked, dense, cfg.vocab_size)
+        scale = float(dense[..., :cfg.vocab_size].abs().max())
+        check(torch.allclose(chunked, dense, rtol=LM_TOL[0],
+                             atol=_lm_atol(scale)),
+              f"LM1 {arch} S={LM_CHUNKED_S}: chunked != dense ({err:.3e})")
+        out[f"{arch} S={LM_CHUNKED_S} chunked"] = {
+            "max_abs_err": err, "chunked_s": secs, "dense_s": dense_secs}
+        log(f"  LM1 {arch} S={LM_CHUNKED_S}: chunked path == dense masked "
+            f"path, max |err| {err:.2e} ({secs:.3f} s against "
+            f"{dense_secs:.3f} s)")
+    return out
+
+
+def scale_wq(tree, factor: float) -> int:
+    """Every attention's query weight (``wq``) times ``factor``, in place;
+    returns how many were scaled."""
+    n = 0
+    for key, val in tree.items():
+        if key == "wq":
+            val.mul_(factor)
+            n += 1
+        elif isinstance(val, dict):
+            n += scale_wq(val, factor)
+        elif isinstance(val, list):
+            n += sum(scale_wq(v, factor) for v in val)
+    return n
+
+
+def _cast_(tree, dtype) -> None:
+    """Every floating tensor of a dict / list tree to ``dtype``, in place,
+    one at a time (each old tensor is freed as its copy replaces it)."""
+    for key, val in list(tree.items() if isinstance(tree, dict)
+                         else enumerate(tree)):
+        if isinstance(val, (dict, list)):
+            _cast_(val, dtype)
+        elif val.is_floating_point():
+            tree[key] = val.to(dtype)
+
+
+def _decode_vs_forward(params, cfg, prompts, ctx) -> dict:
+    fwd, dec = _lm_run(params, cfg, prompts, ctx, prompts.shape[1])
+    check(bool(torch.isfinite(fwd[..., :cfg.vocab_size]).all())
+          and bool(torch.isfinite(dec[..., :cfg.vocab_size]).all()),
+          f"LM2 {cfg.name}: non-finite logits")
+    scale = float(fwd[..., :cfg.vocab_size].abs().max())
+    err = _max_err(dec, fwd, cfg.vocab_size)
+    return {"max_abs": err, "max_abs_logit": scale, "rel": err / scale,
+            "argmax_agree": float((dec.argmax(-1) == fwd.argmax(-1))
+                                  .float().mean())}
+
+
+def _step_profile(fn, top: int = 6) -> dict:
+    """One call of ``fn`` under torch.profiler (CUDA activity only): the
+    device time it adds up, the kernels it launched, and the ``top``
+    kernels by device time.  Empty where the profiler records no device
+    time.  (The profiler's own start-up inflates the host time of the
+    profiled call, so the caller sets the idle share against an
+    unprofiled time.)"""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    if not events:
+        return {}
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return {"device_ms": sum(e.self_device_time_total
+                             for e in events) / 1e3,
+            "kernels": sum(e.count for e in events),
+            "top": [{"name": e.key[:80], "count": e.count,
+                     "ms": e.self_device_time_total / 1e3}
+                    for e in events[:top]]}
+
+
+def lm_full_arch(arch: str, seed: int, device: str, smoke: bool = False
+                 ) -> dict:
+    """LM2: one arch at its full config on one card: weights drawn on the
+    card tensor by tensor, their count against count_params_analytic;
+    ``generate`` timed; one decode step timed by CUDA events against its
+    bound (the bytes it must read: every weight but the embedding, which
+    it gathers B rows of, the context and the caches; or the context K/V
+    recompute's bf16 operations, whichever is larger); then the decode
+    steps over the prompt against the forward over it, in bf16.
+
+    That last check runs with every ``wq`` scaled by LM2_WQ_SCALE (exact
+    in bf16).  At the reference's draw (``wq``'s fan-in is its heads
+    axis) attention scores are large enough that softmax is a hard
+    argmax, whose near-ties flip under any change of rounding, and the
+    flips compound over the layers; so decode == forward is only a
+    statement about the code on soft attention, and at the draw the
+    difference is logged, not held.  The same weights, cast to f32 in
+    place once the bf16 runs are done, show the conditioning on the card:
+    f32 decode == forward is held at LM_DECODE_TOL with ``wq`` scaled,
+    and logged at the draw (``wq`` scaled back, exactly)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.specs import count_params_analytic
+    from repro_torch.models import (decode_step, encode, init_caches,
+                                    init_params)
+    from repro_torch.models.common import count_params, tree_leaves
+    cfg = registry.get_config(arch, smoke=smoke)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = sync_time(lambda: init_params(cfg, seed,
+                                                   device=device))
+    n = count_params(params)
+    check(n == count_params_analytic(cfg),
+          f"LM2 {arch}: {n} parameters, count_params_analytic says "
+          f"{count_params_analytic(cfg)}")
+    nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    emb_bytes = params["embedding"].numel() * params["embedding"].element_size()
+    toks, ctx = _lm_inputs(cfg, LM2_BATCH, LM2_PROMPT, seed)
+    prompts = toks.to(device)
+    ctx = None if ctx is None else ctx.to(device)
+    toks_out, gen_s = sync_time(lambda: generate(cfg, params, prompts,
+                                                 LM2_GEN, ctx=ctx))
+    check(tuple(toks_out.shape) == (LM2_BATCH, LM2_PROMPT + LM2_GEN)
+          and bool(((toks_out >= 0) & (toks_out < cfg.vocab_size)).all())
+          and torch.equal(toks_out[:, :LM2_PROMPT], prompts),
+          f"LM2 {arch}: generate returned {tuple(toks_out.shape)}")
+    steps = LM2_PROMPT + LM2_GEN - 1
+    # one step alone (the cache written at the same slot each time)
+    with torch.inference_mode():
+        enc_out = encode(params, cfg, ctx) if cfg.is_encdec else None
+        caches = init_caches(cfg, LM2_BATCH, LM2_PROMPT + LM2_GEN,
+                             device=device)
+        pos = torch.full((LM2_BATCH,), LM2_PROMPT, device=device)
+        tok = prompts[:, -1:]
+        step_ms = event_ms(lambda: decode_step(
+            params, cfg, tok, pos, caches,
+            ctx=None if cfg.is_encdec else ctx, enc_out=enc_out), reps=10)
+        profile = _step_profile(lambda: decode_step(
+            params, cfg, tok, pos, caches,
+            ctx=None if cfg.is_encdec else ctx, enc_out=enc_out))
+    if profile:
+        profile["idle_share"] = max(0.0, 1 - profile["device_ms"] / step_ms)
+    step_bytes = (nbytes - emb_bytes
+                  + LM2_BATCH * cfg.d_model * params["embedding"]
+                  .element_size()
+                  + sum(x.numel() * x.element_size()
+                        for x in tree_leaves(caches))
+                  + (0 if ctx is None or cfg.is_encdec
+                     else ctx.numel() * ctx.element_size())
+                  + (0 if enc_out is None
+                     else enc_out.numel() * enc_out.element_size()))
+    del caches, enc_out
+    # the context K/V recompute: each cross layer projects every context
+    # row to K and V (2 * d * 2 * kv * hd operations a row)
+    n_cross = (cfg.n_layers if cfg.is_encdec
+               else cfg.layer_types.count("cross_attn"))
+    ctx_rows = 0 if ctx is None else LM2_BATCH * ctx.shape[1]
+    step_ops = n_cross * ctx_rows * 2 * cfg.d_model * 2 * cfg.n_kv_heads \
+        * cfg.head_dim
+    bound = max(step_bytes / HBM_BYTES_PER_S, step_ops / BF16_OPS_PER_S)
+    at_draw = _decode_vs_forward(params, cfg, prompts, ctx)
+    n_wq = scale_wq(params, LM2_WQ_SCALE)
+    held = _decode_vs_forward(params, cfg, prompts, ctx)
+    check(held["rel"] <= LM2_REL_TOL,
+          f"LM2 {arch}: decode vs forward (wq x {LM2_WQ_SCALE}) max |err| "
+          f"{held['max_abs']:.4f} > {LM2_REL_TOL} x max |logit| "
+          f"{held['max_abs_logit']:.4f}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # the same weights in f32 (IEEE matmuls): decode vs forward with wq
+    # scaled (held), then at the draw (logged)
+    _cast_(params, torch.float32)
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    held32 = _decode_vs_forward(params, cfg32, prompts, ctx)
+    check(held32["max_abs"] < LM_DECODE_TOL,
+          f"LM2 {arch}: f32 decode vs forward (wq x {LM2_WQ_SCALE}) max "
+          f"|err| {held32['max_abs']:.3e} >= {LM_DECODE_TOL}")
+    scale_wq(params, 1 / LM2_WQ_SCALE)
+    at_draw32 = _decode_vs_forward(params, cfg32, prompts, ctx)
+    run = {"params": n, "param_gb": nbytes / 1e9, "init_s": init_s,
+           "generate_s": gen_s, "ms_per_step_generate": gen_s / steps * 1e3,
+           "tok_per_s": LM2_BATCH * LM2_GEN / gen_s,
+           "decode_step_ms": step_ms, "decode_step_bound_ms": bound * 1e3,
+           "bound_by": ("bytes" if step_bytes / HBM_BYTES_PER_S
+                        >= step_ops / BF16_OPS_PER_S else "operations"),
+           "step_gb": step_bytes / 1e9, "step_ops": step_ops,
+           "step_profile": profile,
+           "decode_vs_forward_at_draw": at_draw,
+           "decode_vs_forward_held": dict(held, wq_scale=LM2_WQ_SCALE,
+                                          wq_tensors=n_wq),
+           "f32_decode_vs_forward_at_draw": at_draw32,
+           "f32_decode_vs_forward_held": held32,
+           "peak_gib": peak_gib,
+           "peak_gib_f32": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"  LM2 {arch}{' (smoke)' if smoke else ''}: {n / 1e9:.4f} B "
+        f"parameters ({nbytes / 1e9:.2f} GB {str(cfg.dtype)[6:]}) drawn on "
+        f"the card in {init_s:.2f} s; generate B={LM2_BATCH} prompt "
+        f"{LM2_PROMPT} gen {LM2_GEN} in {gen_s:.3f} s "
+        f"({run['tok_per_s']:.1f} tok/s, {run['ms_per_step_generate']:.2f} "
+        f"ms a step); one decode step {step_ms:.3f} ms (CUDA events) "
+        f"against its bound {bound * 1e3:.3f} ms ({run['bound_by']}: "
+        f"{step_bytes / 1e9:.2f} GB, {step_ops / 1e12:.3f} TFLOP); decode "
+        f"vs forward over the prompt: {held['rel']:.4f} of max |logit| "
+        f"{held['max_abs_logit']:.4f} with {n_wq} wq x {LM2_WQ_SCALE} "
+        f"(argmax agree {held['argmax_agree']:.3f}), {at_draw['rel']:.4f} "
+        f"at the draw (argmax agree {at_draw['argmax_agree']:.3f}, not "
+        f"held); peak {peak_gib:.2f} GiB")
+    log(f"    the same weights in f32: decode vs forward max |err| "
+        f"{held32['max_abs']:.3e} ({held32['rel']:.3e} of max |logit| "
+        f"{held32['max_abs_logit']:.4f}, argmax agree "
+        f"{held32['argmax_agree']:.3f}) with wq x {LM2_WQ_SCALE}; "
+        f"{at_draw32['max_abs']:.3e} ({at_draw32['rel']:.3e} of "
+        f"{at_draw32['max_abs_logit']:.4f}, argmax agree "
+        f"{at_draw32['argmax_agree']:.3f}) at the draw, not held; peak "
+        f"{run['peak_gib_f32']:.2f} GiB")
+    if profile:
+        log(f"    one step under torch.profiler: {profile['kernels']} "
+            f"kernels, device {profile['device_ms']:.3f} ms of the step's "
+            f"{step_ms:.3f} ms (idle share {profile['idle_share']:.3f}); "
+            f"top: " + "; ".join(
+                f"{t['name']} x{t['count']} {t['ms']:.3f} ms"
+                for t in profile["top"]))
+    del params, ctx
+    torch.cuda.empty_cache()
+    return run
+
+
+LM3_RUNS = (
+    ("serve --ann --engine sharded --arch llama32_vision_11b",
+     ["--ann", "--engine", "sharded", "--arch", "llama32_vision_11b"],
+     "sharded"),
+    ("serve --ann --arch whisper_base --smoke",
+     ["--ann", "--arch", "whisper_base", "--smoke"], "local"),
+)
+
+
+def lm_rag_path(ops, smoke: bool, device: str):
+    """LM3: the RAG path through the entry points, in this process so the
+    launch counters see it: ``launch.serve``'s ``serve_ann`` then
+    ``rag_decode`` (what ``main`` runs for ``--ann --arch``), each served
+    == ``svc.search`` of the same queries (local bit for bit, sharded at
+    rtol 1e-5 with k-th-place ties), then examples/torch_rag_serving.py.
+    Returns (report, launches, captured launches)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    out, seen, label = {}, {}, [None]
+    restore = capture_launches(ops, seen, label)
+    try:
+        for label[0], argv, engine in LM3_RUNS:
+            if smoke and "--smoke" not in argv:
+                argv = [*argv, "--smoke"]
+            args = serve.build_parser().parse_args([*argv, "--device",
+                                                    device])
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                svc, reqs, points = serve.serve_ann(args)
+            except SystemExit as e:
+                check(False, f"LM3 {label[0]}: exited {e.code}")
+            try:
+                toks = serve.rag_decode(args, reqs, points)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                qs = np.stack([r.query for r in reqs]).astype(np.float32)
+                d, i = svc.search(qs)
+            finally:
+                svc.shutdown()
+            got_d = np.stack([r.dists for r in reqs])
+            got_i = np.stack([r.ids for r in reqs])
+            if engine == "local":
+                check(np.array_equal(got_d, d) and np.array_equal(got_i, i),
+                      f"LM3 {label[0]}: served != svc.search bit for bit")
+            else:
+                check(np.allclose(got_d, d, rtol=1e-5, atol=1e-5)
+                      and tie_diff_rows(got_d, got_i, d, i, 1e-5, 1e-5) == 0,
+                      f"LM3 {label[0]}: served != svc.search")
+            cfg = registry.get_config(args.arch, smoke=args.smoke)
+            check(tuple(toks.shape) == (args.batch,
+                                        args.prompt_len + args.gen)
+                  and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                  f"LM3 {label[0]}: tokens {tuple(toks.shape)}")
+            out[label[0]] = {
+                "secs": secs, "requests": len(reqs),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            log(f"  LM3 {label[0]}: exit 0, {len(reqs)} served == direct, "
+                f"tokens {tuple(toks.shape)}, {secs:.2f} s, peak "
+                f"{out[label[0]]['peak_gib']:.2f} GiB")
+            del svc, reqs, points, toks
+            torch.cuda.empty_cache()
+        label[0] = "torch_rag_serving"
+        t0 = time.perf_counter()
+        res = _load_example(label[0]).main(["--device", device])
+        check(res["served_ok"] and res["tokens"].shape == (8, 20),
+              "LM3 examples/torch_rag_serving.py")
+        out[label[0]] = {"secs": time.perf_counter() - t0,
+                         "requests": res["stats"]["requests"]}
+        log(f"  LM3 examples/torch_rag_serving.py: served == direct, tokens "
+            f"{res['tokens'].shape}, {out[label[0]]['secs']:.2f} s")
+    finally:
+        restore()
+    return out, dict(ops.launches), seen
+
+
+def lm_path(ops, ref, adc, seed: int, device: str = "cuda",
+            smoke: bool = False):
+    """Phase 13 (see the module docstring): LM1, LM2, LM3.  The launch
+    counters are reset before LM1 and read after LM3 (LM1 and LM2 launch
+    no kernel of the six; LM3 retrieves through them); LM3's captured
+    launches are then held to their plain versions.  ``smoke`` runs LM2
+    and LM3 at the smoke configs (a CPU rehearsal).  Returns (report,
+    launch counts)."""
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    lm1 = lm_smoke_archs(seed, device)
+    lm2 = {arch: lm_full_arch(arch, seed, device, smoke=smoke)
+           for arch in LM2_ARCHS}
+    lm3, launches, seen = lm_rag_path(ops, smoke, device)
+    if device == "cuda":
+        for name in ("lut_build", "pq_scan_dc", "pq_scan_topk"):
+            check(launches[name] > 0, f"LM3: {name} never launched")
+    log(f"kernels vs plain, the {len(seen)} launch shapes of LM3:")
+    lm3["kernel_checks"] = check_captured(ops, ref, adc, seen, phase="LM3")
+    held = {key[0] for key in seen}
+    launched = {k for k in KERNELS if launches[k]}
+    check(held >= launched, f"LM3: launched {sorted(launched)} but held "
+                            f"only {sorted(held)} to plain")
+    run = {"LM1": lm1, "LM2": lm2, "LM3": lm3, "launches": launches,
+           "secs": time.perf_counter() - t0}
+    log(f"  lm path {run['secs']:.1f} s; launches {launches}")
+    return run, launches
+
+
 
 
 def main() -> int:
@@ -3684,11 +4163,21 @@ def main() -> int:
     for name in KERNELS:
         check(variants_launches[name] > 0,
               f"{name} never launched on the variants path")
+    # -- 13. the LM stack and the RAG path -------------------------------
+    # the ANN phases' index, corpus and engines are not needed past here
+    del ds, index, clusters, handle, queries, results, rt, rt_wall, lcl
+    del view, serve_batch, q0, res, flat, local_lc, bench, bidx, bcl
+    torch.cuda.empty_cache()
+    log(f"lm path: LM1 the ten smoke archs card == CPU "
+        f"and S={LM_CHUNKED_S} chunked == dense; LM2 {', '.join(LM2_ARCHS)} "
+        f"at their full configs (B={LM2_BATCH}, prompt {LM2_PROMPT}, gen "
+        f"{LM2_GEN}); LM3 the RAG entry points")
+    lm_run, lm_launches = lm_path(ops, ref, adc, args.seed)
     by_path = {"local": launches, "sharded": sharded_launches,
                "service": service_launches, "mutation": mutation_launches,
                "tiered": tiered_launches, "tenancy": tenancy_launches,
                "chaos": chaos_launches, "autotune": autotune_launches,
-               "variants": variants_launches}
+               "variants": variants_launches, "lm": lm_launches}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
     log(json.dumps({"service": service_runs}))
@@ -3698,6 +4187,7 @@ def main() -> int:
     log(json.dumps({"chaos": chaos_run}))
     log(json.dumps({"autotune": autotune_run}))
     log(json.dumps({"variants": variants_run}))
+    log(json.dumps({"lm": lm_run}))
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

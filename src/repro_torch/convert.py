@@ -30,6 +30,7 @@ from repro_torch.core.mutable_index import (Index, MutationStats, _Generation,
                                             _Store)
 from repro_torch.core.pq import PQCodebook
 from repro_torch.core.sharded_search import ShardedIndex
+from repro_torch.models.transformer import group_structure
 from repro_torch.util import resolve_device
 
 
@@ -191,3 +192,30 @@ def quantized_codebook_from_numpy(codebooks_q, scale, sq, *, device="cuda"
     return QuantizedCodebook(_t(codebooks_q, np.int32, dev),
                              _t(scale, np.float32, dev).reshape(()),
                              _t(sq, np.int32, dev))
+
+
+def _leaf(x, dev) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":          # ml_dtypes: no numpy bf16 in torch
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def lm_params_from_numpy(cfg, tree, *, device="cuda") -> dict:
+    """A reference LM parameter tree (leaves anything ``numpy.asarray``
+    reads, bf16 included) -> the port's tree on ``device``, each leaf in
+    its own dtype.  The reference's ``groups`` leaves carry a leading
+    ``n_groups`` axis; the port keeps a list of per-group dicts.
+    ``tail{i}`` and ``encoder`` come across as they are."""
+    dev = resolve_device(device)
+
+    def conv(node, index=None):
+        if isinstance(node, dict):
+            return {k: conv(v, index) for k, v in node.items()}
+        return _leaf(node if index is None else np.asarray(node)[index], dev)
+
+    out = {k: conv(v) for k, v in tree.items() if k != "groups"}
+    _, n_groups, _ = group_structure(cfg)
+    if n_groups:
+        out["groups"] = [conv(tree["groups"], g) for g in range(n_groups)]
+    return out

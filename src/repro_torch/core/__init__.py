@@ -12,9 +12,13 @@ from repro_torch.core.pq import (PQCodebook, OPQCodebook, train_pq,
                                  train_opq, encode_pq, decode_pq, code_dtype)
 from repro_torch.core.ivf import (IVFPQIndex, PaddedClusters, build_ivfpq,
                                   pad_clusters, reconstruct)
-from repro_torch.core.adc import (build_lut, build_lut_batch, scan_codes,
-                                  adc_distances, QuantizedLUT, quantize_lut,
-                                  dequantize_lut, scan_codes_quantized,
+from repro_torch.core.mutable_index import Index, MutationStats
+from repro_torch.core.adc import (build_lut, build_lut_batch,
+                                  build_lut_direct, scan_codes,
+                                  scan_codes_onehot, adc_distances,
+                                  QuantizedLUT, quantize_lut, dequantize_lut,
+                                  scan_codes_quantized,
+                                  scan_codes_onehot_quantized,
                                   adc_distances_quantized)
 from repro_torch.core.multiplierless import (make_square_lut, square_via_lut,
                                              quantize_codebook,
@@ -40,10 +44,12 @@ __all__ = [
     "PQCodebook", "OPQCodebook", "train_pq", "train_opq", "encode_pq",
     "decode_pq", "code_dtype",
     "IVFPQIndex", "PaddedClusters", "build_ivfpq", "pad_clusters",
-    "reconstruct",
-    "build_lut", "build_lut_batch", "scan_codes", "adc_distances",
+    "reconstruct", "Index", "MutationStats",
+    "build_lut", "build_lut_batch", "build_lut_direct", "scan_codes",
+    "scan_codes_onehot", "adc_distances",
     "QuantizedLUT", "quantize_lut", "dequantize_lut",
-    "scan_codes_quantized", "adc_distances_quantized",
+    "scan_codes_quantized", "scan_codes_onehot_quantized",
+    "adc_distances_quantized",
     "make_square_lut", "square_via_lut", "quantize_codebook",
     "build_lut_multiplierless", "build_lut_int_reference", "scan_codes_int",
     "quantize_residual",

@@ -52,10 +52,37 @@ def build_lut(codebook: PQCodebook, residual: torch.Tensor) -> torch.Tensor:
     return build_lut_batch(codebook, residual[None])[0]
 
 
+def build_lut_direct(codebook: PQCodebook, residual: torch.Tensor
+                     ) -> torch.Tensor:
+    """Subtraction-form LC, ``sum_d (r_d - c_d)^2``: (..., D) residuals ->
+    (..., M, CB).  No cancellation, so it is the oracle of the expansion
+    form and the basis of the multiplier-less integer path."""
+    r = residual.float().reshape(*residual.shape[:-1], codebook.m, 1,
+                                 codebook.dsub)
+    diff = r - codebook.codebooks                       # (..., M, CB, dsub)
+    return (diff * diff).sum(-1)
+
+
 def scan_codes(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """DC via gather, batched: lut (T, M, CB), codes (T, C, M) -> (T, C)."""
     g = torch.gather(lut.float(), 2, codes.transpose(1, 2).long())  # (T, M, C)
     return g.sum(1)
+
+
+def _onehot(codes: torch.Tensor, cb: int, dtype) -> torch.Tensor:
+    """(T, C, M) codes -> (T, C, M, CB) one-hot in ``dtype``."""
+    return torch.nn.functional.one_hot(codes.long(), cb).to(dtype)
+
+
+def scan_codes_onehot(lut: torch.Tensor, codes: torch.Tensor,
+                      compute_dtype=torch.float32) -> torch.Tensor:
+    """DC as a one-hot contraction, the JAX package's matrix-unit form of
+    :func:`scan_codes`: ``onehot(codes) (C, M*CB) @ lut.flatten()``, per
+    task.  (T, M, CB), (T, C, M) -> (T, C); the same sum as the gather
+    (each row has exactly M nonzero terms) up to f32 order."""
+    t, c, m = codes.shape
+    flat = _onehot(codes, lut.shape[-1], compute_dtype).reshape(t, c, -1)
+    return torch.bmm(flat, lut.reshape(t, -1, 1).to(compute_dtype))[..., 0]
 
 
 def _mask_sizes(d: torch.Tensor, sizes: Optional[torch.Tensor]
@@ -130,6 +157,19 @@ def scan_codes_quantized(qlut: QuantizedLUT, codes: torch.Tensor
     g = torch.gather(qlut.lut_q, 2, codes.transpose(1, 2).long())  # (T, M, C)
     acc = (g.float() * qlut.scale[:, :, None]).sum(1)
     return acc + qlut.bias.sum(-1, keepdim=True)
+
+
+def scan_codes_onehot_quantized(qlut: QuantizedLUT, codes: torch.Tensor
+                                ) -> torch.Tensor:
+    """Quantized DC as a one-hot contraction, the uint8 mirror of
+    :func:`scan_codes_onehot`: per-subspace sums of the one-hot against
+    the uint8 table (0/1 and integers <= 255 are exact in f32), then one
+    ``(M,) x (M, C)`` scale contraction and the bias sum.  (T, M, CB) u8
+    table, codes (T, C, M) -> (T, C)."""
+    onehot = _onehot(codes, qlut.lut_q.shape[-1], torch.float32)
+    acc = torch.einsum("tcmk,tmk->tmc", onehot, qlut.lut_q.float())
+    return (torch.einsum("tm,tmc->tc", qlut.scale, acc)
+            + qlut.bias.sum(-1, keepdim=True))
 
 
 def adc_distances_quantized(qlut: QuantizedLUT, codes: torch.Tensor,

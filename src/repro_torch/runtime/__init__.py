@@ -7,7 +7,8 @@ from repro_torch.runtime.batching import (BucketPolicy, MicroBatch,
 from repro_torch.runtime.cache import (AdmissionPolicy, CacheStats,
                                        HeatAwareAdmission, HotClusterLUTCache,
                                        LRUCache, OnlineHeatEstimator,
-                                       query_hash_bucket)
+                                       entry_nbytes, query_hash_bucket,
+                                       stack_lut_bank)
 from repro_torch.runtime.fault_tolerance import ReplicaHealth
 from repro_torch.runtime.faults import (SITES, FaultInjector, FaultPlan,
                                         FaultRule, InjectedFault)
@@ -21,7 +22,7 @@ __all__ = ["BucketPolicy", "MicroBatch", "MicroBatcher", "Request",
            "TasksPerShardController",
            "AdmissionPolicy", "CacheStats", "HeatAwareAdmission",
            "HotClusterLUTCache", "LRUCache", "OnlineHeatEstimator",
-           "query_hash_bucket",
+           "entry_nbytes", "query_hash_bucket", "stack_lut_bank",
            "ReplicaHealth",
            "SITES", "FaultPlan", "FaultRule", "FaultInjector",
            "InjectedFault",

@@ -46,6 +46,22 @@ class BucketPolicy:
             raise ValueError(f"buckets must be positive ints, got {buckets}")
         self.buckets = tuple(bs)
 
+    @classmethod
+    def pow2(cls, max_batch: int) -> "BucketPolicy":
+        """1, 2, 4, ... up to (and including) max_batch."""
+        bs = []
+        b = 1
+        while b < max_batch:
+            bs.append(b)
+            b *= 2
+        bs.append(max_batch)
+        return cls(bs)
+
+    @classmethod
+    def single(cls, batch: int) -> "BucketPolicy":
+        """One fixed shape: the most padding, the fewest shapes."""
+        return cls([batch])
+
     @property
     def max_batch(self) -> int:
         return self.buckets[-1]
@@ -234,6 +250,10 @@ class MicroBatcher:
             queries[i] = r.query
             r.bucket = bucket
         return MicroBatch(reqs, queries, bucket, reason, float(now))
+
+    def flush(self, now: float) -> Optional[MicroBatch]:
+        """Unconditional flush of whatever is queued (end of stream)."""
+        return self.poll(now, drain=True)
 
 
 class TasksPerShardController:

@@ -29,6 +29,7 @@ from repro_torch.core.autotune import (SLO, AutotuneResult, SLOInfeasible,
                                        TuneSpace, autotune, autotune_service)
 from repro_torch.service.autoscale import Autoscaler, ScaleEvent, ScaleSignals
 from repro_torch.service.executor import ReplicaExecutor, SearchFuture
+from repro_torch.service.mutation import MutationCoordinator
 from repro_torch.service.router import (CacheAwarePolicy, LeastQueuePolicy,
                                         RoundRobinPolicy, Router,
                                         RoutingPolicy, make_policy)
@@ -39,7 +40,7 @@ from repro_torch.service.tenancy import (TenantRegistry, TokenBucket,
                                          WFQScheduler)
 
 __all__ = ["AnnService", "Autoscaler", "CacheAwarePolicy", "IndexSpec",
-           "LeastQueuePolicy", "Replica", "ReplicaExecutor",
+           "LeastQueuePolicy", "MutationCoordinator", "Replica", "ReplicaExecutor",
            "RoundRobinPolicy", "Router", "RoutingPolicy", "SPEC_VERSION",
            "ScaleEvent", "ScaleSignals", "SearchFuture", "ServiceOverloaded",
            "ServiceSpec", "TenantRegistry", "TenantThrottled", "TokenBucket",

@@ -933,3 +933,40 @@ def test_quickstart_kernel_search_launches_a_to_d(cuda):
     assert min(out["recall_kernels"].values()) >= 0.8
     for name in ("lut_build", "lut_build_q", "pq_scan_dc", "pq_scan_dc_q"):
         assert ops.launches[name] > 0, name
+
+
+@pytest.mark.parametrize("arch", ["qwen3_14b", "qwen2_moe_a2p7b",
+                                  "mamba2_2p7b"],
+                         ids=["dense", "moe", "ssd"])
+def test_lm_smoke_arch_card_equals_cpu(cuda, arch):
+    """One smoke arch of each family on shared weights: the card's
+    ``forward`` and eight ``decode_step``s equal the CPU's at rtol 1e-4,
+    atol 1e-3 or 1e-4 of the logits' scale where that is larger (f32 sums
+    in another order leave ~3e-5 of it; matmuls in IEEE f32; mamba2's tied
+    embedding gives logits up to ~39)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import decode_step, forward, init_caches
+    from repro_torch.models import init_params
+    from repro_torch.models.common import tree_map
+    from repro_torch.util import ieee_f32_matmul
+    ieee_f32_matmul()
+    cfg = registry.get_config(arch, smoke=True)
+    params = init_params(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 8)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda x: x.to(dev), params)
+        t = toks.to(dev)
+        logits, _ = forward(p, cfg, t)
+        caches = init_caches(cfg, 2, 8, device=dev)
+        steps = []
+        for i in range(8):
+            lg, caches = decode_step(p, cfg, t[:, i:i + 1],
+                                     torch.full((2,), i, device=dev), caches)
+            steps.append(lg[:, 0])
+        out[dev] = (logits.cpu(), torch.stack(steps, 1).cpu())
+    scale = float(out["cpu"][0][..., :cfg.vocab_size].abs().max())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=max(1e-3, 1e-4 * scale))

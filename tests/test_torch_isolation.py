@@ -52,11 +52,18 @@ def test_port_imports_with_jax_and_reference_blocked():
         "assert {'repro_torch.launch.serve', 'repro_torch.configs.drim_ann',\n"
         "        'repro_torch.core.multiplierless',\n"
         "        'repro_torch.core.dpq'} <= set(mods), mods\n"
+        "assert {'repro_torch.models', 'repro_torch.models.transformer',\n"
+        "        'repro_torch.configs.registry',\n"
+        "        'repro_torch.launch.specs'} <= set(mods), mods\n"
         "from repro_torch.service import AnnService, ServiceSpec\n"
         "from repro_torch.launch.serve import main, serve_ann\n"
         "from repro_torch.configs.drim_ann import config\n"
         "from repro_torch.core.multiplierless import scan_codes_int\n"
         "from repro_torch.core.dpq import train_dpq\n"
+        "from repro_torch.models import init_params, decode_step\n"
+        "from repro_torch.configs.registry import ARCH_IDS, get_config\n"
+        "from repro_torch.launch.specs import count_params_analytic\n"
+        "from repro_torch.launch.serve import generate, rag_context\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

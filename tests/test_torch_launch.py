@@ -3,8 +3,10 @@ repro_torch.launch.serve --ann`` on both clocks, from a deploy file the
 reference saved, and under the auto-tuner, gives the reference's exit
 code and the same ``[ann]`` lines (latencies aside; on the virtual clock
 the router's picks and the tuner's shortlist and winner exactly), and
-what it serves equals a direct search; ``main`` exits 0 and the unported
-LM modes exit 2; the two examples run on the CPU."""
+what it serves equals a direct search; ``main`` exits 0, runs the LM
+modes (``--arch``, and ``--ann --arch`` over a context-reading arch) and
+exits as the reference does on the rest; the two examples run on the
+CPU."""
 
 import importlib.util
 import re
@@ -48,7 +50,7 @@ def _run_port(argv, capsys) -> tuple:
     number of requests served, the service's recall@10 against the
     oracle under ``--autotune``, else None)."""
     try:
-        svc, reqs = serve.serve_ann(serve.build_parser().parse_args(
+        svc, reqs, _ = serve.serve_ann(serve.build_parser().parse_args(
             [*argv, "--device", "cpu"]))
     except SystemExit as e:
         return e.code, capsys.readouterr().out, 0, None
@@ -137,12 +139,56 @@ def test_main_serves_and_exits_0(capsys):
     assert _lines(capsys.readouterr().out, "8 requests over 2 replica(s)")
 
 
-@pytest.mark.parametrize("argv", [["--arch", "qwen3_14b", "--smoke"],
-                                  ["--ann", "--arch", "whisper_base"],
-                                  []], ids=["arch", "ann+arch", "neither"])
-def test_lm_modes_exit_2_naming_item_13(argv, capsys):
-    assert serve.main(argv) == 2
-    assert "ROADMAP item 13" in capsys.readouterr().err
+@pytest.mark.parametrize("argv,code,printed", [
+    (["--arch", "qwen3_14b", "--smoke", "--device", "cpu"], 0,
+     "[serve] generated (4, 32)"),
+    (["--ann", "--arch", "whisper_base", "--smoke", "--device", "cpu"], 0,
+     "[ann] RAG decode over retrieved context: generated (4, 32) tokens"),
+    ([], 2, "--arch is required unless --ann is given"),
+], ids=["arch", "ann+arch", "neither"])
+def test_lm_modes_exit_2_naming_item_13(argv, code, printed, capsys):
+    """The LM modes run on the CPU and exit 0; a command line with
+    neither mode exits 2, as the reference's ``ap.error``.  (The name is
+    kept from when both LM modes exited 2 naming ROADMAP item 13.)"""
+    assert serve.main(argv) == code
+    out = capsys.readouterr()
+    assert printed in (out.err if code else out.out)
+
+
+def test_ann_arch_without_context_exits_as_reference(capsys, monkeypatch):
+    """``--ann --arch`` over an arch with no cross-attention or encoder
+    exits 1 with the reference's message (the reference's SystemExit
+    carries it)."""
+    argv = ["--ann", "--arch", "qwen3_14b", "--smoke"]
+    assert serve.main([*argv, "--device", "cpu"]) == 1
+    err = capsys.readouterr().err.strip()
+    ref_code, _ = _run_ref(argv, capsys, monkeypatch)
+    assert err == ref_code
+    assert "no cross-attention/encoder path" in err
+
+
+def test_ann_arch_reads_the_served_corpus_built_once(capsys, monkeypatch):
+    """``--ann --arch`` builds the corpus once: ``rag_decode`` reads its
+    context rows from the points ``serve_ann`` served."""
+    import repro_torch.data as data
+    calls, seen = [], {}
+
+    def counted(**kw):
+        calls.append(kw)
+        return make_clustered_corpus(**kw)
+
+    def spy(args, reqs, points):
+        seen["points"] = points
+        return rag_decode(args, reqs, points)
+
+    rag_decode = serve.rag_decode
+    monkeypatch.setattr(data, "make_clustered_corpus", counted)
+    monkeypatch.setattr(serve, "rag_decode", spy)
+    assert serve.main(["--ann", "--arch", "whisper_base", "--smoke",
+                       "--requests", "8", "--device", "cpu"]) == 0
+    assert len(calls) == 1
+    np.testing.assert_array_equal(
+        seen["points"], make_clustered_corpus(**calls[0]).points.numpy())
 
 
 def _example(name: str):
