@@ -187,7 +187,32 @@ paths once at the configuration below:
              ``--ann --arch whisper_base --smoke``, each served ==
              svc.search) and examples/torch_rag_serving.py, every kernel
              they launched held to its plain version at the shapes it was
-             given.
+             given;
+    train:   the LM stack's training half, after the lm phase freed its
+             weights: TR1 all ten archs at their smoke configs (f32) on
+             weights drawn once on the CPU, one make_train_step on the
+             card == on the CPU (loss and grad_norm at LM1's tolerance),
+             and on the card the remat "full" and "half" gradients ==
+             "none"'s at 1e-5 of each leaf's scale; TR2 minitron_4b at its
+             full published config (32 layers, d_model 3,072, GQA 24/8,
+             d_ff 9,216, vocab 256,000: 5,096,279,040 parameters in bf16,
+             f32 AdamW moments, remat "full"), one backward logged at the
+             reference's draw (its gradient grows ~4.5x a layer backward,
+             to ~7e18; not held), then the attention projections rescaled
+             to their contracted fan-in and 8 steps at train_loop's AdamW
+             settings, B = 1, S = 4,096 (train_4k's length; its batch of
+             256 cut to what one card holds beside 61 GB of state) on the
+             Zipf pipeline: every loss and grad_norm finite, grad_norm > 0,
+             the loss falling, the peak within the card; the step by CUDA
+             events against its bound, tokens/s, MFU, one step under
+             torch.profiler; TR3 ``python -m repro_torch.launch.train
+             --arch qwen3_14b --smoke --steps 10 --ckpt-dir
+             build/train_ckpt`` in process after a run of the same
+             settings crashed at step 6: it resumes there, its losses ==
+             an uninterrupted run's at rtol 1e-5, its last checkpoint read
+             by a numpy reader of the reference's format; then
+             examples/torch_train_lm.py --steps 60 with the loss falling.
+             No full-size checkpoint is written (61 GB of host disk).
 
 The launch counters of the six kernels are reset just before each path
 and read just after it; every kernel of the path must have risen (the
@@ -197,7 +222,7 @@ C on its f32 runs and B and D on its uint8 run; the autotune path the LC
 and DC kernels of the LUT dtypes it measured; the variants path all six:
 A-D in V1 and the local entry points, E by the distributed example, F by
 the sharded uint8 spec; the lm path A, C and E in LM3, LM1 and LM2
-launching none of the six).
+launching none of the six; the train path none).
 Recall@10 is taken against the port's exact_search; the sharded results
 are held to the local path's on the same queries, and served results to
 a direct search: every local service cell bit for bit to the uncached
@@ -207,7 +232,7 @@ their times at the sharded step's first LC launches too; ``launches``
 sums the local and sharded paths, as before the service existed, and
 ``launches_by_path`` gives each path's own count, the service's, the
 mutation's, the tiered, the tenancy, the chaos, the autotune, the
-variants and the lm path's included.  E's and F's
+variants, the lm and the train path's included.  E's and F's
 first sharded launches, with their LC inputs and those of the local
 path's first chunk, are written to ``build/sharded_launch.pt``, which
 ``tools/torch_fused_topk_bench.py`` and ``tools/torch_lut_build_bench.py``
@@ -3473,15 +3498,16 @@ def _decode_vs_forward(params, cfg, prompts, ctx) -> dict:
                                   .float().mean())}
 
 
-def _step_profile(fn, top: int = 6) -> dict:
-    """One call of ``fn`` under torch.profiler (CUDA activity only): the
-    device time it adds up, the kernels it launched, and the ``top``
-    kernels by device time.  Empty where the profiler records no device
-    time.  (The profiler's own start-up inflates the host time of the
-    profiled call, so the caller sets the idle share against an
-    unprofiled time.)"""
+def _step_profile(fn, top: int = 6, warm: bool = True) -> dict:
+    """One call of ``fn`` under torch.profiler (CUDA activity only), after
+    one unprofiled call if ``warm``: the device time it adds up, the
+    kernels it launched, and the ``top`` kernels by device time.  Empty
+    where the profiler records no device time.  (The profiler's own
+    start-up inflates the host time of the profiled call, so the caller
+    sets the idle share against an unprofiled time.)"""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
@@ -3751,6 +3777,437 @@ def lm_path(ops, ref, adc, seed: int, device: str = "cuda",
     return run, launches
 
 
+
+# ---------------------------------------------------------------------------
+# 14. Training
+# ---------------------------------------------------------------------------
+
+TR_BATCH, TR_SEQ = 2, 16       # TR1's batch: pipeline step 0
+TR_REMAT_TOL = 1e-5            # remat == no remat, of each leaf's scale
+TR2_ARCH, TR2_STEPS, TR2_BATCH, TR2_SEQ = "minitron_4b", 8, 1, 4096
+TR2_PARAMS = 5_096_279_040     # count_params_analytic(minitron_4b)
+TR3_ARCH, TR3_STEPS, TR3_FAIL, TR3_EVERY = "qwen3_14b", 10, 6, 3
+TR3_RESUME_RTOL = 1e-5
+TR_DIR = ROOT / "build" / "train_ckpt"
+TR_EXAMPLE_STEPS = 60
+
+
+def _batch_on(batch: dict, cfg, step: int, device) -> dict:
+    """A pipeline batch (numpy) on ``device``, with the vlm / enc-dec
+    context stub of ``step`` (drawn on the CPU, so both devices read the
+    same rows)."""
+    from repro_torch.launch.train import ctx_for
+    out = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    ctx = ctx_for(cfg, step, out["tokens"].shape[0], "cpu")
+    if ctx is not None:
+        out["ctx"] = ctx.to(device)
+    return out
+
+
+def _loss_grads(cfg, params, batch) -> list:
+    """The gradients of make_train_step's loss (CE + 1e-3 aux), leaf by
+    leaf in tree order, without an optimizer step."""
+    from repro_torch.launch.steps import cross_entropy
+    from repro_torch.models import forward
+    from repro_torch.models.common import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    logits, aux = forward(params, cfg, batch["tokens"], ctx=batch.get("ctx"))
+    (cross_entropy(logits, batch["labels"]) + 1e-3 * aux).backward()
+    grads = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return grads
+
+
+def tr_smoke_archs(seed: int, device: str) -> dict:
+    """TR1: every arch at its smoke config (f32, IEEE matmuls), weights
+    drawn once on the CPU: one make_train_step on the card == on the CPU
+    (loss and grad_norm at LM1's tolerance); on the card, remat "full"
+    and "half" gradients == "none"'s at TR_REMAT_TOL of each leaf's
+    scale."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import make_token_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import adamw
+    out = {}
+    for arch in registry.ARCH_IDS:
+        cfg = registry.get_config(arch, smoke=True)
+        params = init_params(cfg, seed, device="cpu")
+        batch = make_token_pipeline(cfg.vocab_size, TR_SEQ, TR_BATCH,
+                                    seed=seed).batch_at(0)
+        cpu_b = _batch_on(batch, cfg, 0, "cpu")
+        with torch.no_grad():
+            logits, _ = forward(params, cfg, cpu_b["tokens"],
+                                ctx=cpu_b.get("ctx"))
+        scale = float(logits[..., :cfg.vocab_size].abs().max())
+        metrics = {}
+        for dev in ("cpu", device):
+            p = tree_map(lambda x: x.to(dev, copy=True), params)
+            _, _, m = make_train_step(cfg)(p, adamw.init(p),
+                                           _batch_on(batch, cfg, 0, dev))
+            metrics[dev] = {k: float(v) for k, v in m.items()}
+        row = {"max_abs_logit": scale}
+        for k in ("loss", "grad_norm"):
+            a, b = metrics[device][k], metrics["cpu"][k]
+            check(math.isfinite(a) and abs(a - b) <= _lm_atol(scale)
+                  + LM_TOL[0] * abs(b),
+                  f"TR1 {arch}: card {k} {a:.6f} != CPU {b:.6f}")
+            row[k] = a
+            row[f"{k}_err"] = abs(a - b)
+        check(metrics[device]["grad_norm"] > 0, f"TR1 {arch}: zero grads")
+        dev_b = _batch_on(batch, cfg, 0, device)
+        grads = {}
+        for remat in ("none", "full", "half"):
+            p = tree_map(lambda x: x.to(device, copy=True), params)
+            grads[remat] = _loss_grads(dataclasses.replace(cfg, remat=remat),
+                                       p, dev_b)
+        for remat in ("full", "half"):
+            rel = max(float((a - b).abs().max())
+                      / max(float(b.abs().max()), 1e-30)
+                      for a, b in zip(grads[remat], grads["none"]))
+            check(rel <= TR_REMAT_TOL, f"TR1 {arch}: remat {remat} grads "
+                                       f"!= none's ({rel:.3e})")
+            row[f"remat_{remat}_rel"] = rel
+        out[arch] = row
+        log(f"  TR1 {arch}: card == CPU, loss {row['loss']:.6f} (|err| "
+            f"{row['loss_err']:.2e}), grad_norm {row['grad_norm']:.6f} "
+            f"(|err| {row['grad_norm_err']:.2e}); remat full / half vs "
+            f"none on the card {row['remat_full_rel']:.1e} / "
+            f"{row['remat_half_rel']:.1e} of the leaf's scale")
+    return out
+
+
+def _train_flops(cfg, params, batch: int, seq: int) -> dict:
+    """A train step's operations: model FLOPs (6 x matmul parameters x
+    tokens + causal attention 6 x L x S^2 x H x dh x B / 2, the MFU
+    numerator) and what the port executes: the matmuls' forward +
+    backward + the groups' recompute (bf16), and the attention at the
+    blocks the chunked path visits (f32: the scores are f32 products
+    there), forward + recompute + backward."""
+    from repro_torch.models.common import tree_leaves
+    tokens = batch * seq
+    mm = sum(x.numel() for x in tree_leaves(params) if x.dim() >= 2) \
+        - params["embedding"].numel()
+    mm_groups = sum(x.numel() for g in params.get("groups", [])
+                    for x in tree_leaves(g) if x.dim() >= 2)
+    n_attn = sum(t in ("attn", "attn_local") for t in cfg.layer_types)
+    hdim = cfg.n_heads * cfg.head_dim
+    attn_model = 6 * n_attn * seq * seq * hdim * batch / 2
+    blk = min(512, seq)
+    nq = seq // blk
+    visited = blk * blk * nq * (nq + 1) // 2          # causal block skip
+    attn_fwd = 4 * n_attn * visited * hdim * batch
+    return {"model": 6 * mm * tokens + attn_model,
+            "bf16_exec": 6 * mm * tokens + 2 * mm_groups * tokens,
+            "f32_exec": 4 * attn_fwd,
+            "matmul_params": mm}
+
+
+def attn_fan_in_(params, cfg) -> int:
+    """Every GQA projection rescaled in place from the reference's draw,
+    1 / sqrt(shape[-2]) (the heads axis for wq / wk / wv, head_dim for
+    wo), to 1 / sqrt of the size it contracts (d_model; heads x head_dim
+    for wo).  Returns how many attention blocks were rescaled."""
+    n = 0
+    with torch.no_grad():
+        for key, val in params.items():
+            if key == "attn" and "wo" in val:
+                d, h, _ = val["wq"].shape
+                kv = val["wk"].shape[1]
+                val["wq"].mul_(math.sqrt(h / d))
+                val["wk"].mul_(math.sqrt(kv / d))
+                val["wv"].mul_(math.sqrt(kv / d))
+                val["wo"].mul_(1 / math.sqrt(val["wo"].shape[0]))
+                n += 1
+            elif isinstance(val, dict):
+                n += attn_fan_in_(val, cfg)
+            elif isinstance(val, list):
+                n += sum(attn_fan_in_(v, cfg) for v in val)
+    return n
+
+
+def _grad_by_depth(cfg, params, batch) -> dict:
+    """One backward's global gradient norm, and the norm of each group's
+    gradient: the first group's over the last's is the growth through the
+    stack."""
+    from repro_torch.models.common import tree_leaves
+    grads = _loss_grads(cfg, params, batch)
+    sq = [float(g.float().square().sum()) for g in grads]
+    ids = {id(x): i for i, x in enumerate(tree_leaves(params))}
+    per_group = [math.sqrt(sum(sq[ids[id(x)]] for x in tree_leaves(g)))
+                 for g in params["groups"]]
+    del grads
+    return {"grad_norm": math.sqrt(sum(sq)), "group_first": per_group[0],
+            "group_last": per_group[-1],
+            "growth_per_layer": (per_group[0] / per_group[-1])
+            ** (1 / max(cfg.n_layers - 1, 1))}
+
+
+def tr_full_arch(seed: int, device: str, seq: int = TR2_SEQ) -> dict:
+    """TR2: minitron-4b at its full published config (bf16 params, f32
+    moments, remat "full") trained TR2_STEPS steps at B = TR2_BATCH,
+    S = ``seq`` on the Zipf pipeline with train_loop's AdamW settings:
+    every loss and grad_norm finite, grad_norm > 0, the last 3 losses'
+    mean below the first 3's, the peak within the card.  Each step timed
+    by CUDA events; one more step under torch.profiler.
+
+    The weights are the reference's draw with the attention projections
+    rescaled to their contracted size (``attn_fan_in_``).  At the draw
+    itself (wq's fan-in is its heads axis) the gradient grows ~4x a
+    layer backward through the 32 layers, to ~1e18 (the reference's own
+    draw does the same, growing with depth and width): clipped by that
+    norm every other leaf's update vanishes under Adam's eps and the loss
+    does not move.  One backward at the draw is logged, not held."""
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import make_token_pipeline
+    from repro_torch.launch.specs import count_params_analytic
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models.common import count_params, tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = registry.get_config(TR2_ARCH)
+    check(cfg.remat == "full" and cfg.dtype == torch.bfloat16,
+          f"TR2: {TR2_ARCH} is not bf16 with remat full")
+    torch.cuda.reset_peak_memory_stats()
+    params, draw_s = sync_time(lambda: init_params(cfg, seed, device=device))
+    n = count_params(params)
+    check(n == count_params_analytic(cfg) == TR2_PARAMS,
+          f"TR2: {n} parameters, count_params_analytic says "
+          f"{count_params_analytic(cfg)}")
+    param_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(params))
+    pipe = make_token_pipeline(cfg.vocab_size, seq, TR2_BATCH, seed=seed)
+    at_draw = _grad_by_depth(cfg, params, _batch_on(pipe.batch_at(0), cfg,
+                                                    0, device))
+    n_attn = attn_fan_in_(params, cfg)
+    rescaled = _grad_by_depth(cfg, params, _batch_on(pipe.batch_at(0), cfg,
+                                                     0, device))
+    log(f"    TR2 one backward at the reference's draw: grad norm "
+        f"{at_draw['grad_norm']:.3e} (first group {at_draw['group_first']:.3e}"
+        f", last {at_draw['group_last']:.3e}: x{at_draw['growth_per_layer']:.2f}"
+        f" a layer), not held; with the {n_attn} attention blocks at their "
+        f"contracted fan-in: {rescaled['grad_norm']:.3e} (x"
+        f"{rescaled['growth_per_layer']:.2f} a layer)")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=max(TR2_STEPS // 10, 1),
+                          total_steps=TR2_STEPS)
+    opt_state = adamw.init(params)
+    state_bytes = 8 * n
+    step_fn = make_train_step(cfg, opt_cfg)
+    hist, ms = [], []
+    t0 = time.perf_counter()
+    for step in range(TR2_STEPS):
+        batch = _batch_on(pipe.batch_at(step), cfg, step, device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        hist.append({k: float(v) for k, v in m.items()})
+        log(f"    TR2 step {step}: loss {hist[-1]['loss']:.4f} grad_norm "
+            f"{hist[-1]['grad_norm']:.4f} lr {hist[-1]['lr']:.2e}, "
+            f"{ms[-1]:.1f} ms")
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              and h["grad_norm"] > 0 for h in hist),
+          f"TR2: a loss or grad_norm is not finite and positive: {hist}")
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"TR2: the loss did not fall: {losses}")
+    check(peak <= total, f"TR2: peak {peak} B past the card's {total} B")
+    step_ms = float(np.median(ms[1:]))
+    fl = _train_flops(cfg, params, TR2_BATCH, seq)
+    t_ops = (fl["bf16_exec"] / BF16_OPS_PER_S
+             + fl["f32_exec"] / F32_OPS_PER_S) * 1e3
+    # each input read once, each output written once: params, mu, nu
+    t_bytes = 2 * (param_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
+    tokens = TR2_BATCH * seq
+    batch = _batch_on(pipe.batch_at(TR2_STEPS), cfg, TR2_STEPS, device)
+    profile = _step_profile(lambda: step_fn(params, opt_state, batch),
+                            top=8, warm=False)
+    if profile:
+        profile["idle_share"] = max(0.0, 1 - profile["device_ms"] / step_ms)
+    run = {"arch": TR2_ARCH, "params": n, "batch": TR2_BATCH, "seq": seq,
+           "steps": TR2_STEPS, "draw_s": draw_s, "train_s": train_s,
+           "at_draw": at_draw, "attn_fan_in": rescaled,
+           "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+           "lrs": [h["lr"] for h in hist], "step_ms_all": ms,
+           "step_ms": step_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bound_ms_bytes": t_bytes, "bound_ms_ops": t_ops,
+           "bound_ms_all_bf16": (fl["bf16_exec"] + fl["f32_exec"])
+           / BF16_OPS_PER_S * 1e3,
+           "model_tflop": fl["model"] / 1e12,
+           "bf16_exec_tflop": fl["bf16_exec"] / 1e12,
+           "f32_exec_tflop": fl["f32_exec"] / 1e12,
+           "matmul_params": fl["matmul_params"],
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "mfu": fl["model"] / (step_ms / 1e3) / BF16_OPS_PER_S,
+           "peak_gib": peak / 2**30, "card_gib": total / 2**30,
+           "step_profile": profile}
+    log(f"  TR2 {TR2_ARCH} full: {n:,} parameters ({param_bytes / 1e9:.2f} "
+        f"GB bf16 + {state_bytes / 1e9:.2f} GB f32 moments) drawn on the "
+        f"card in {draw_s:.2f} s; {TR2_STEPS} steps at B={TR2_BATCH} "
+        f"S={seq}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+        f"{step_ms:.1f} ms (median of steps 2-{TR2_STEPS}, CUDA events) "
+        f"against its bound {run['bound_ms']:.1f} ms ({run['bound_by']}: "
+        f"{fl['bf16_exec'] / 1e12:.1f} TFLOP bf16 at 989 TFLOP/s + "
+        f"{fl['f32_exec'] / 1e12:.1f} TFLOP f32 attention at 67 TFLOP/s; "
+        f"{run['bound_ms_all_bf16']:.1f} ms were it all bf16); "
+        f"{run['tokens_per_s']:.0f} tokens/s, MFU {run['mfu']:.4f} "
+        f"({fl['model'] / 1e12:.1f} TFLOP of model work a step); peak "
+        f"{run['peak_gib']:.2f} GiB of {run['card_gib']:.2f}")
+    if profile:
+        log(f"    one step under torch.profiler: {profile['kernels']} "
+            f"kernels, device {profile['device_ms']:.1f} ms of the step's "
+            f"{step_ms:.1f} ms (idle share {profile['idle_share']:.3f}); "
+            f"top: " + "; ".join(
+                f"{t['name']} x{t['count']} {t['ms']:.1f} ms"
+                for t in profile["top"]))
+    del params, opt_state, step_fn, batch
+    torch.cuda.empty_cache()
+    return run
+
+
+def _ref_format_keys(cfg, params) -> dict:
+    """The reference's checkpoint keys and shapes for (params, AdamW
+    state), from the port's tree through the reference-structured carry
+    (groups stacked)."""
+    from repro_torch.convert import lm_params_to_numpy
+
+    def rec(node, prefix, out):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                rec(v, f"{prefix}{k}/", out)
+            else:
+                out[f"{prefix}{k}"] = list(v.shape)
+        return out
+
+    ref = lm_params_to_numpy(cfg, params)
+    keys = {"1/.step": []}
+    for prefix in ("0/", "1/.mu/", "1/.nu/"):
+        rec(ref, prefix, keys)
+    return keys
+
+
+def tr_entry_points(device: str) -> dict:
+    """TR3: ``python -m repro_torch.launch.train --arch qwen3_14b --smoke
+    --steps 10 --ckpt-dir build/train_ckpt`` after a run of the same
+    settings crashed at step 6 (``train_loop(fail_at_step=6)``,
+    checkpoints every 3 steps): it resumes at step 6 and its losses equal
+    an uninterrupted run's at rtol 1e-5.  Its last checkpoint read back by
+    a plain numpy reader of the reference's format (manifest, npz keys,
+    shapes, dtypes, COMMITTED).  Then examples/torch_train_lm.py --steps
+    60: exit 0 with the loss falling."""
+    import shutil
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    cfg = registry.get_config(TR3_ARCH, smoke=True)
+    parser = train.build_parser()
+    args = parser.parse_args(["--arch", TR3_ARCH, "--smoke"])
+    kw = dict(steps=TR3_STEPS, global_batch=args.batch, seq_len=args.seq,
+              log_every=100, device=device)
+    shutil.rmtree(TR_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    whole_params, whole = train.train_loop(cfg, **kw)
+    try:
+        train.train_loop(cfg, ckpt_dir=TR_DIR, ckpt_every=TR3_EVERY,
+                         fail_at_step=TR3_FAIL, **kw)
+        check(False, "TR3: the injected failure did not fire")
+    except RuntimeError as e:
+        check(str(e) == f"injected failure at step {TR3_FAIL}",
+              f"TR3: {e}")
+    from repro_torch.checkpoint import Checkpointer
+    check(Checkpointer(TR_DIR).all_steps() == [3, 6],
+          f"TR3: checkpoints {Checkpointer(TR_DIR).all_steps()}")
+    resumed = train.main(["--arch", TR3_ARCH, "--smoke", "--steps",
+                          str(TR3_STEPS), "--ckpt-dir", str(TR_DIR),
+                          "--device", device])
+    got = [h["loss"] for h in resumed]
+    want = [h["loss"] for h in whole[TR3_FAIL:]]
+    check(len(got) == TR3_STEPS - TR3_FAIL
+          and np.allclose(got, want, rtol=TR3_RESUME_RTOL, atol=0),
+          f"TR3: resumed losses {got} != uninterrupted {want}")
+    # a plain numpy reader of the reference's format
+    step_dir = TR_DIR / f"step_{TR3_STEPS:08d}"
+    check((step_dir / "COMMITTED").exists(), "TR3: no COMMITTED marker")
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    with np.load(step_dir / "proc_00000" / "arrays.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    want_keys = _ref_format_keys(cfg, whole_params)
+    check(set(arrays) == set(manifest["leaves"]) == set(want_keys),
+          f"TR3: checkpoint keys differ from the reference's: "
+          f"{sorted(set(arrays) ^ set(want_keys))[:8]}")
+    for k, spec in manifest["leaves"].items():
+        check(list(arrays[k].shape) == spec["shape"] == want_keys[k]
+              and str(arrays[k].dtype) == spec["dtype"]
+              == ("int32" if k == "1/.step" else "float32"),
+              f"TR3: leaf {k}: {arrays[k].shape} {arrays[k].dtype} vs "
+              f"{spec} / {want_keys[k]}")
+    check(int(arrays["1/.step"]) == TR3_STEPS
+          and manifest["extra"] == {"step": TR3_STEPS},
+          f"TR3: step {arrays['1/.step']}, extra {manifest['extra']}")
+    emb = whole_params["embedding"].detach().cpu().numpy()
+    param_err = float(np.abs(arrays["0/embedding"] - emb).max())
+    secs = time.perf_counter() - t0
+    log(f"  TR3 launch.train --arch {TR3_ARCH} --smoke --steps {TR3_STEPS} "
+        f"--ckpt-dir {TR_DIR}: crashed at step "
+        f"{TR3_FAIL} (checkpoints 3, 6), resumed at step {TR3_FAIL}, "
+        f"losses == the uninterrupted run's (max |err| "
+        f"{max(abs(a - b) for a, b in zip(got, want)):.2e}); "
+        f"{len(arrays)} leaves in the reference's format, keys / shapes / "
+        f"dtypes checked; embedding vs the uninterrupted run max |err| "
+        f"{param_err:.2e}; {secs:.1f} s")
+    ex_dir = TR_DIR.parent / "torch_train_lm"
+    shutil.rmtree(ex_dir, ignore_errors=True)
+    t1 = time.perf_counter()
+    res = _load_example("torch_train_lm").main(
+        ["--steps", str(TR_EXAMPLE_STEPS), "--device", device,
+         "--ckpt-dir", str(ex_dir)])
+    ex_losses = res["losses"]
+    ex_s = time.perf_counter() - t1
+    check(len(ex_losses) == TR_EXAMPLE_STEPS
+          and np.mean(ex_losses[-5:]) < np.mean(ex_losses[:5]),
+          f"TR3 examples/torch_train_lm.py: losses {ex_losses[:5]} .. "
+          f"{ex_losses[-5:]}")
+    log(f"  TR3 examples/torch_train_lm.py --steps {TR_EXAMPLE_STEPS}: "
+        f"loss {ex_losses[0]:.4f} -> {ex_losses[-1]:.4f} (first 5 mean "
+        f"{np.mean(ex_losses[:5]):.4f}, last 5 {np.mean(ex_losses[-5:]):.4f}"
+        f"), {ex_s:.1f} s")
+    shutil.rmtree(TR_DIR, ignore_errors=True)
+    shutil.rmtree(ex_dir, ignore_errors=True)
+    return {"resumed_losses": got, "uninterrupted_losses": want,
+            "leaves": len(arrays), "embedding_err": param_err,
+            "restart_s": secs, "example_losses": ex_losses,
+            "example_s": ex_s}
+
+
+def train_path(ops, seed: int, device: str = "cuda") -> tuple:
+    """Phase 14 (see the module docstring): TR1, TR2, TR3.  The training
+    path runs none of the six kernels; their counters are reset before
+    TR1 and read after TR3.  Returns (report, launch counts)."""
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    log(f"  device memory held entering the phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    tr1 = tr_smoke_archs(seed, device)
+    tr2 = tr_full_arch(seed, device)
+    tr3 = tr_entry_points(device)
+    launches = dict(ops.launches)
+    run = {"TR1": tr1, "TR2": tr2, "TR3": tr3, "launches": launches,
+           "secs": time.perf_counter() - t0}
+    log(f"  train path {run['secs']:.1f} s; launches {launches}")
+    return run, launches
 
 
 def main() -> int:
@@ -4173,11 +4630,18 @@ def main() -> int:
         f"at their full configs (B={LM2_BATCH}, prompt {LM2_PROMPT}, gen "
         f"{LM2_GEN}); LM3 the RAG entry points")
     lm_run, lm_launches = lm_path(ops, ref, adc, args.seed)
+    # -- 14. training ----------------------------------------------------
+    log(f"train path: TR1 the ten smoke archs' train step card == CPU and "
+        f"remat full / half == none; TR2 {TR2_ARCH} at its full config, "
+        f"{TR2_STEPS} steps at B={TR2_BATCH} S={TR2_SEQ}; TR3 the train "
+        f"entry point's restart and examples/torch_train_lm.py")
+    train_run, train_launches = train_path(ops, args.seed)
     by_path = {"local": launches, "sharded": sharded_launches,
                "service": service_launches, "mutation": mutation_launches,
                "tiered": tiered_launches, "tenancy": tenancy_launches,
                "chaos": chaos_launches, "autotune": autotune_launches,
-               "variants": variants_launches, "lm": lm_launches}
+               "variants": variants_launches, "lm": lm_launches,
+               "train": train_launches}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
     log(json.dumps({"service": service_runs}))
@@ -4188,6 +4652,7 @@ def main() -> int:
     log(json.dumps({"autotune": autotune_run}))
     log(json.dumps({"variants": variants_run}))
     log(json.dumps({"lm": lm_run}))
+    log(json.dumps({"train": train_run}))
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

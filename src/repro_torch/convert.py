@@ -13,6 +13,11 @@ multiplier-less path) through ``quantized_codebook_from_numpy``; a
 reference DPQ codebook is an ordinary ``PQCodebook``.  ``uint16``
 codes (CB > 256) become ``int32``, because ``torch.uint16`` has few CUDA
 ops; ``uint8`` codes stay ``uint8``.
+
+LM weights and AdamW state cross in both directions
+(``lm_params_from_numpy`` / ``lm_params_to_numpy``,
+``adamw_state_from_numpy`` / ``adamw_state_to_numpy``): the reference
+stacks a model's groups on a leading axis, the port keeps a list.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from repro_torch.core.mutable_index import (Index, MutationStats, _Generation,
 from repro_torch.core.pq import PQCodebook
 from repro_torch.core.sharded_search import ShardedIndex
 from repro_torch.models.transformer import group_structure
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.util import resolve_device
 
 
@@ -219,3 +225,49 @@ def lm_params_from_numpy(cfg, tree, *, device="cuda") -> dict:
     if n_groups:
         out["groups"] = [conv(tree["groups"], g) for g in range(n_groups)]
     return out
+
+
+def lm_params_to_numpy(cfg, tree) -> dict:
+    """The port's LM tree (or any tree of its structure: grads, AdamW
+    moments) -> the reference's structure as numpy arrays, ``groups``
+    stacked on a leading axis.  bf16 / f16 become f32 (numpy has no bf16;
+    the widening is exact): cast to the reference's dtype on its side."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        t = node.detach().cpu()
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.float()
+        return t.numpy().copy()
+
+    out = {k: conv(v) for k, v in tree.items() if k != "groups"}
+    _, n_groups, _ = group_structure(cfg)
+    if n_groups:
+        per_group = [conv(g) for g in tree["groups"]]
+        out["groups"] = _stack(per_group)
+    return out
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def adamw_state_from_numpy(cfg, state, *, device="cuda") -> AdamWState:
+    """A reference ``AdamWState`` (step, mu, nu; leaves anything
+    ``numpy.asarray`` reads) -> the port's: the step a 0-dim int32 CPU
+    tensor, the moments f32 on ``device`` in the port's structure."""
+    mu = lm_params_from_numpy(cfg, state.mu, device=device)
+    nu = lm_params_from_numpy(cfg, state.nu, device=device)
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32)
+    return AdamWState(step, mu, nu)
+
+
+def adamw_state_to_numpy(cfg, state: AdamWState):
+    """The port's ``AdamWState`` -> ``(step, mu, nu)`` in the reference's
+    structure as numpy (step an int32 scalar array), for
+    ``repro.optim.adamw.AdamWState(*...)``."""
+    return (np.asarray(int(state.step), np.int32),
+            lm_params_to_numpy(cfg, state.mu),
+            lm_params_to_numpy(cfg, state.nu))

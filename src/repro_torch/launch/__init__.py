@@ -1,5 +1,7 @@
 """Launchers of the port: ``serve`` (``python -m
 repro_torch.launch.serve``: the LM decode loop, the ANN serving tier and
-the RAG path joining them) and ``specs`` (parameter and cache specs on the
-meta device).  The training launchers and the TPU mesh / dry-run tools are
-not ported (ROADMAP items 13, 4a and 5)."""
+the RAG path joining them), ``train`` (``python -m
+repro_torch.launch.train``: the LM training driver) over ``steps`` (train,
+prefill and decode steps), and ``specs`` (parameter, cache and input specs
+on the meta device).  The TPU mesh / dry-run tools are not ported
+(ROADMAP queue items 2 and 3)."""

@@ -92,8 +92,9 @@ class ModelConfig:
     cross_every: int = 0         # vlm: one cross-attn layer each N layers
     vision_ctx: int = 1601       # stub frontend: image patch tokens
     dtype: Any = torch.bfloat16
-    # the reference's remat policy for its layer scan (training); kept so
-    # configs compare field for field, unused by inference
+    # activation recompute in training, by group (transformer.forward):
+    # "none" | "half" (every other group) | anything else: every group;
+    # inference paths never recompute
     remat: str = "full"
     # groups layers by the pattern's period (see transformer.group_structure)
     scan_layers: bool = True

@@ -52,16 +52,36 @@ def embed(params, tokens):
     return params["embedding"][tokens]
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``x2 (N, d) @ w (n, d).T`` into f32 on the card, with a gradient
+    (``aten::mm.dtype`` has none): the f32 output gradient is cast to the
+    operands' type and both products run in it, accumulating in f32."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x2, w = ctx.saved_tensors
+        grad = grad.to(x2.dtype)
+        gx = grad @ w if ctx.needs_input_grad[0] else None
+        gw = grad.t() @ x2 if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
 def matmul_f32(x, w):
     """``x (..., d) @ w (n, d).T`` with an f32 result and f32 accumulation,
     whatever the inputs' type.  On the card a bf16 product writes f32
-    directly (``torch.mm(..., out_dtype=)``), so the weight is never
-    copied to f32; on the CPU the operands are cast."""
+    directly (``torch.mm(..., out_dtype=)``, differentiable through
+    ``_MatmulF32``), so the weight is never copied to f32; on the CPU the
+    operands are cast."""
     if x.dtype == w.dtype == torch.float32:
         return x @ w.t()
     x2 = x.reshape(-1, x.shape[-1])
     if x.is_cuda:
-        out = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        out = _MatmulF32.apply(x2, w)
     else:
         out = x2.float() @ w.float().t()
     return out.reshape(*x.shape[:-1], w.shape[0])

@@ -12,6 +12,10 @@ Layers are grouped by the smallest period of ``cfg.layer_types``
 (the reference stacks them on a leading axis), and a non-divisible tail
 (recurrentgemma's 26 = 3 x 8 + 2) is ``tail{i}``.  Caches for decode have
 the same structure; attention caches are written in place.
+
+Training recomputes activations by group as the reference's scan does
+(``cfg.remat``, see ``_remat_group``): a checkpointed group keeps only
+its input and reruns its forward in the backward pass.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import ModelConfig, TreeBuilder
 from repro_torch.models import layers as L
@@ -216,15 +221,48 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
         enc_out = encode(params, cfg, ctx)
     cross_ctx = (ctx.to(cfg.dtype) if ctx is not None and not cfg.is_encdec
                  else None)
-    aux = torch.zeros((), device=x.device)
-    for lp, ltype, mtype in _layers(params, cfg):
+    period, n_groups, tail = group_structure(cfg)
+    moe_types = _moe_types(cfg)
+
+    def layer(lp, x, ltype, mtype):
         x = x + _apply_mixer(lp, x, cfg, ltype, positions=positions,
                              ctx=cross_ctx)
-        x, a = _channel_mix(lp, x, cfg, mtype, positions=positions,
+        return _channel_mix(lp, x, cfg, mtype, positions=positions,
                             enc_out=enc_out)
+
+    def group_body(gp, x):
+        aux = torch.zeros((), device=x.device)
+        for j in range(period):
+            x, a = layer(gp[f"l{j}"], x, cfg.layer_types[j], moe_types[j])
+            aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), device=x.device)
+    for g in range(n_groups):
+        if _remat_group(cfg, g, n_groups):
+            x, a = checkpoint(group_body, params["groups"][g], x,
+                              use_reentrant=False)
+        else:
+            x, a = group_body(params["groups"][g], x)
+        aux = aux + a
+    for t_i, ltype in enumerate(tail):
+        x, a = layer(params[f"tail{t_i}"], x, ltype,
+                     moe_types[period * n_groups + t_i])
         aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params, x, cfg), aux
+
+
+def _remat_group(cfg: ModelConfig, g: int, n_groups: int) -> bool:
+    """Whether group ``g`` runs under activation checkpointing: only where
+    autograd records (inference paths never do), by the reference's
+    ``cfg.remat``: "none" never; "half" with an even ``n_groups`` every
+    other group (the first of each pair); any other value every group."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return False
+    if cfg.remat == "half" and n_groups % 2 == 0:
+        return g % 2 == 0
+    return True
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
 """Serving runtime: micro-batching, the LUT cache, the local and sharded
-engines, PIM pacing, per-replica health and fault injection."""
+engines, PIM pacing, per-replica health and fault injection; and the
+training control plane (heartbeats, elastic mesh plans, stragglers, the
+restart supervisor)."""
 
 from repro_torch.runtime.batching import (BucketPolicy, MicroBatch,
                                           MicroBatcher, Request,
@@ -9,7 +11,12 @@ from repro_torch.runtime.cache import (AdmissionPolicy, CacheStats,
                                        LRUCache, OnlineHeatEstimator,
                                        entry_nbytes, query_hash_bucket,
                                        stack_lut_bank)
-from repro_torch.runtime.fault_tolerance import ReplicaHealth
+from repro_torch.runtime.fault_tolerance import (ElasticPlan,
+                                                 HeartbeatRegistry,
+                                                 HostState, ReplicaHealth,
+                                                 RunSupervisor,
+                                                 StragglerPolicy,
+                                                 plan_elastic_mesh)
 from repro_torch.runtime.faults import (SITES, FaultInjector, FaultPlan,
                                         FaultRule, InjectedFault)
 from repro_torch.runtime.serving import (BatchServeError, LocalEngine,
@@ -23,7 +30,9 @@ __all__ = ["BucketPolicy", "MicroBatch", "MicroBatcher", "Request",
            "AdmissionPolicy", "CacheStats", "HeatAwareAdmission",
            "HotClusterLUTCache", "LRUCache", "OnlineHeatEstimator",
            "entry_nbytes", "query_hash_bucket", "stack_lut_bank",
-           "ReplicaHealth",
+           "HeartbeatRegistry", "HostState", "ElasticPlan",
+           "plan_elastic_mesh", "ReplicaHealth", "StragglerPolicy",
+           "RunSupervisor",
            "SITES", "FaultPlan", "FaultRule", "FaultInjector",
            "InjectedFault",
            "BatchServeError", "LocalEngine", "PimPacedEngine", "SearchEngine",

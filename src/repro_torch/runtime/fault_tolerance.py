@@ -1,20 +1,92 @@
-"""Per-replica health for the serving tier: :class:`ReplicaHealth`.
+"""Fault tolerance: the training control plane and per-replica health.
 
-The port of the serving half of ``repro/runtime/fault_tolerance.py``.
-The service feeds each replica's batch outcomes in, picks retry targets
-after a mid-batch engine failure from the healthy set, and routes around
-a replica whose breaker is open.  Framework-free: no torch here.
+A copy of ``repro/runtime/fault_tolerance.py`` (framework-free: no torch
+here).
 
-The training-side control plane of the reference module
-(``HeartbeatRegistry``, ``ElasticPlan``, ``StragglerPolicy``,
-``RunSupervisor``) belongs to the LM stack and is not ported yet.
+Training (coordinator-side, pure python):
+
+  * ``HeartbeatRegistry`` — every host pings; the coordinator declares a
+    host dead after ``timeout_s`` without a beat.
+  * ``ElasticPlan`` / ``plan_elastic_mesh`` — given the surviving host
+    set, the largest usable mesh (the data axis shrinks to a power of
+    two; the model axis is kept).
+  * ``StragglerPolicy`` flags hosts whose step times exceed the p50 by a
+    ratio; ``RunSupervisor`` is the restart loop: on failure, shrink,
+    resume from the latest committed checkpoint (the token pipeline is a
+    pure function of (seed, step), so it replays to the recorded step).
+
+Serving: :class:`ReplicaHealth`, per-replica circuit breakers fed by
+batch outcomes.  The service picks retry targets after a mid-batch
+engine failure from the healthy set, and routes around a replica whose
+breaker is open.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
+
+
+@dataclasses.dataclass
+class HostState:
+    host_id: int
+    last_beat: float
+    step_times: List[float] = dataclasses.field(default_factory=list)
+
+
+class HeartbeatRegistry:
+    def __init__(self, n_hosts: int, timeout_s: float = 60.0,
+                 clock: Callable[[], float] = time.monotonic):
+        self.timeout_s = timeout_s
+        self.clock = clock
+        t0 = clock()
+        self.hosts: Dict[int, HostState] = {
+            h: HostState(h, t0) for h in range(n_hosts)}
+
+    def beat(self, host_id: int, step_time_s: Optional[float] = None):
+        st = self.hosts[host_id]
+        st.last_beat = self.clock()
+        if step_time_s is not None:
+            st.step_times.append(step_time_s)
+            del st.step_times[:-32]
+
+    def alive(self) -> List[int]:
+        now = self.clock()
+        return [h for h, st in self.hosts.items()
+                if now - st.last_beat <= self.timeout_s]
+
+    def dead(self) -> List[int]:
+        now = self.clock()
+        return [h for h, st in self.hosts.items()
+                if now - st.last_beat > self.timeout_s]
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticPlan:
+    data_axis: int            # new data-parallel degree (hosts)
+    model_axis: int           # unchanged TP degree
+    dropped_hosts: tuple
+    batch_ratio: float        # new_global_batch / old_global_batch
+
+
+def plan_elastic_mesh(n_alive: int, data_axis: int, model_axis: int,
+                      keep_batch: bool = True) -> Optional[ElasticPlan]:
+    """Shrink the data axis to the largest power-of-two (or divisor)
+    <= n_alive hosts; model axis is preserved.  Returns None if even TP
+    can't be formed (fatal)."""
+    if n_alive < 1:
+        return None
+    new_data = 1
+    d = 1
+    while d * 2 <= min(n_alive, data_axis):
+        d *= 2
+    new_data = d
+    return ElasticPlan(data_axis=new_data, model_axis=model_axis,
+                       dropped_hosts=(),
+                       batch_ratio=new_data / data_axis if not keep_batch
+                       else 1.0)
 
 
 class ReplicaHealth:
@@ -183,3 +255,78 @@ class ReplicaHealth:
                                   if c >= self.max_consecutive],
                     "breaker": [self._state_locked(r)
                                 for r in range(len(self._consecutive))]}
+
+
+@dataclasses.dataclass
+class StragglerPolicy:
+    ratio: float = 1.5        # flag hosts slower than ratio x p50
+    min_samples: int = 8
+
+    def flag(self, registry: HeartbeatRegistry) -> List[int]:
+        import statistics
+        med = []
+        for st in registry.hosts.values():
+            if len(st.step_times) >= self.min_samples:
+                med.append(statistics.median(st.step_times))
+        if not med:
+            return []
+        p50 = statistics.median(med)
+        out = []
+        for h, st in registry.hosts.items():
+            if len(st.step_times) >= self.min_samples and \
+                    statistics.median(st.step_times) > self.ratio * p50:
+                out.append(h)
+        return out
+
+
+class RunSupervisor:
+    """Restart loop: run -> on failure shrink mesh -> restore -> resume.
+
+    ``run_fn(mesh_shape, start_step) -> ('done'|'failed', last_step)`` is
+    the training driver; ``failure injection`` in tests simulates node loss.
+
+    ``checkpoint_steps`` names the steps with a committed checkpoint: on
+    failure the run resumes from the *latest checkpoint* <= the failure
+    step — you cannot restart from a step that was never persisted.
+    With no checkpoint list the failure step itself is trusted (legacy
+    callers that checkpoint every step).
+    """
+
+    def __init__(self, data_axis: int, model_axis: int,
+                 checkpoint_steps: Sequence[int] = ()):
+        self.data_axis = data_axis
+        self.model_axis = model_axis
+        self.checkpoint_steps = tuple(sorted(int(s)
+                                             for s in checkpoint_steps))
+        self.history: List[dict] = []
+
+    def _resume_step(self, last_step: int) -> int:
+        """Latest checkpointed step <= ``last_step`` (0 if the failure
+        precedes every checkpoint); ``last_step`` itself when no
+        checkpoint schedule was declared."""
+        if not self.checkpoint_steps:
+            return last_step
+        eligible = [s for s in self.checkpoint_steps if s <= last_step]
+        return eligible[-1] if eligible else 0
+
+    def supervise(self, run_fn, registry: HeartbeatRegistry,
+                  max_restarts: int = 8):
+        start_step = 0
+        restarts = 0
+        while restarts <= max_restarts:
+            status, last_step = run_fn((self.data_axis, self.model_axis),
+                                       start_step)
+            self.history.append({"status": status, "step": last_step,
+                                 "mesh": (self.data_axis, self.model_axis)})
+            if status == "done":
+                return last_step
+            # failure: shrink to survivors, resume from last checkpoint
+            n_alive = len(registry.alive())
+            plan = plan_elastic_mesh(n_alive, self.data_axis,
+                                     self.model_axis)
+            if plan is None:
+                raise RuntimeError("no usable mesh after failures")
+            self.data_axis = plan.data_axis
+            start_step = self._resume_step(last_step)
+            restarts += 1
+        raise RuntimeError(f"exceeded {max_restarts} restarts")

@@ -970,3 +970,116 @@ def test_lm_smoke_arch_card_equals_cpu(cuda, arch):
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=max(1e-3, 1e-4 * scale))
+
+
+def test_matmul_f32_autograd_on_card(cuda):
+    """``matmul_f32`` on bf16 operands on the card: the f32 product (no
+    f32 copy of the weight) and its gradient (``aten::mm.dtype`` has no
+    derivative of its own): both operands' gradients are bf16 products of
+    the bf16-cast output gradient, accumulated in f32, so they equal the
+    f32 products of the same bf16 values up to the final rounding to bf16
+    (rtol 2^-8)."""
+    from repro_torch.models.layers import matmul_f32
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(2, 96, 256, device="cuda", generator=g).bfloat16()
+    w = (torch.randn(1000, 256, device="cuda", generator=g) / 16).bfloat16()
+    up = torch.randn(2, 96, 1000, device="cuda", generator=g)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    out = matmul_f32(x, w)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, x.float() @ w.float().t(), rtol=1e-5,
+                               atol=1e-4)
+    (out * up).sum().backward()
+    ub = up.bfloat16().float().reshape(-1, 1000)
+    want_x = (ub @ w.float()).reshape(x.shape)
+    want_w = ub.t() @ x.float().reshape(-1, 256)
+    assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(x.grad.float(), want_x, rtol=2 ** -8,
+                               atol=1e-3)
+    torch.testing.assert_close(w.grad.float(), want_w, rtol=2 ** -8,
+                               atol=1e-3)
+
+
+def test_async_save_snapshot_not_torn_on_card(cuda, tmp_path):
+    """An async save of card tensors holds the values at the call: an
+    in-place update launched right after ``save`` returns does not reach
+    the files (a bf16 leaf too, widened to f32 on disk)."""
+    from repro_torch.checkpoint import Checkpointer
+    w = torch.arange(1 << 22, device="cuda", dtype=torch.float32)
+    h = torch.linspace(-4, 4, 1 << 20, device="cuda").bfloat16()
+    tree = {"w": w, "h": h}
+    before = {k: v.clone() for k, v in tree.items()}
+    ck = Checkpointer(tmp_path)
+    ck.save(1, tree, extra={"step": 1}, blocking=False)
+    w.add_(1.0)
+    h.mul_(2.0)
+    ck.wait()
+    got, _ = ck.restore(1, tree)
+    for k in tree:
+        assert got[k].is_cuda and got[k].dtype == tree[k].dtype
+        assert torch.equal(got[k], before[k]), k
+
+
+@pytest.mark.parametrize("arch", ["qwen3_14b", "minitron_4b",
+                                  "llama32_vision_11b"])
+def test_train_step_card_equals_cpu(cuda, arch):
+    """One ``make_train_step`` on shared smoke weights (f32, IEEE
+    matmuls): the card's loss and grad_norm equal the CPU's at rtol 1e-4,
+    atol 1e-3; the card's remat "full" gradients equal "none"'s."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import make_token_pipeline
+    from repro_torch.launch.steps import cross_entropy, make_train_step
+    from repro_torch.launch.train import ctx_for
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.util import ieee_f32_matmul
+    ieee_f32_matmul()
+    cfg = registry.get_config(arch, smoke=True)
+    params = init_params(cfg, 0, device="cpu")
+    batch = make_token_pipeline(cfg.vocab_size, 16, 2, seed=0).batch_at(0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda x: x.to(dev, copy=True), params)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        ctx = ctx_for(cfg, 0, 2, "cpu")
+        if ctx is not None:
+            b["ctx"] = ctx.to(dev)
+        _, _, m = make_train_step(cfg)(p, adamw.init(p), b)
+        out[dev] = {k: float(v) for k, v in m.items()}
+    for k in ("loss", "grad_norm"):
+        assert out["cuda"][k] == pytest.approx(out["cpu"][k], rel=1e-4,
+                                               abs=1e-3), k
+    grads = {}
+    for remat in ("none", "full"):
+        c = dataclasses.replace(cfg, remat=remat)
+        p = tree_map(lambda x: x.to("cuda", copy=True).requires_grad_(True),
+                     params)
+        b = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        ctx = ctx_for(cfg, 0, 2, "cpu")
+        lg, aux = forward(p, c, b["tokens"],
+                          ctx=None if ctx is None else ctx.cuda())
+        (cross_entropy(lg, b["labels"]) + 1e-3 * aux).backward()
+        grads[remat] = [t.grad for t in tree_leaves(p)]
+    for a, b in zip(grads["full"], grads["none"]):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+def test_bf16_train_step_on_card(cuda):
+    """A bf16 smoke model trains on the card: the logits go through
+    ``matmul_f32``'s gradient; loss and grad_norm are finite, the grads
+    bf16, the moments f32, and ten steps lower the loss."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import train_loop
+    cfg = dataclasses.replace(registry.get_config("minitron_4b", smoke=True),
+                              dtype=torch.bfloat16, remat="full")
+    params, hist = train_loop(cfg, steps=10, global_batch=8, seq_len=64,
+                              log_every=100, device="cuda")
+    assert params["lm_head"].dtype == torch.bfloat16
+    assert all(np.isfinite(h["loss"]) and h["grad_norm"] > 0 for h in hist)
+    assert np.mean([h["loss"] for h in hist[-3:]]) < \
+        np.mean([h["loss"] for h in hist[:3]])

@@ -1,7 +1,7 @@
 """The port stands alone: nothing under src/repro_torch (nor chip_smoke.py,
 the port's tools or its examples) imports jax or the reference package,
-and the port, its service tier and entry points included, imports with
-both blocked."""
+and the port, its service tier, entry points and training half included,
+imports with both blocked."""
 
 import ast
 import os
@@ -64,6 +64,17 @@ def test_port_imports_with_jax_and_reference_blocked():
         "from repro_torch.configs.registry import ARCH_IDS, get_config\n"
         "from repro_torch.launch.specs import count_params_analytic\n"
         "from repro_torch.launch.serve import generate, rag_context\n"
+        "assert {'repro_torch.optim.adamw', 'repro_torch.optim.grad_compress',\n"
+        "        'repro_torch.checkpoint.checkpointer',\n"
+        "        'repro_torch.data.pipeline', 'repro_torch.launch.steps',\n"
+        "        'repro_torch.launch.train'} <= set(mods), mods\n"
+        "from repro_torch.optim import AdamWConfig, update, ef_step\n"
+        "from repro_torch.checkpoint import Checkpointer\n"
+        "from repro_torch.data import make_token_pipeline\n"
+        "from repro_torch.launch.steps import make_train_step\n"
+        "from repro_torch.launch.train import train_loop, main\n"
+        "from repro_torch.launch.specs import input_specs\n"
+        "from repro_torch.runtime import RunSupervisor, plan_elastic_mesh\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
