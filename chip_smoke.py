@@ -27,6 +27,20 @@ paths once at the configuration below:
              ShardedEngine behind ServingRuntime, first on the
              local run's Poisson trace, then with the LUT cache and the
              online heat estimator on a Zipf trace;
+    mesh:    the same index -> DistributedEngine(mesh=make_shard_mesh(64,
+             devices=[cuda:0] * 64)): one program per shard, each on its
+             own CUDA stream of the one card (64 concurrent programs), at
+             f32 and uint8 beside the sharded path's flat engines (same
+             config, same sample probes, so the same layout; the mesh
+             entries' shards are views of the engine's): 2 batches of
+             1,000 with the LUT cache off, the first batch twice and the
+             second with a fresh cache on each engine, then a batch at
+             256 tasks a shard (flush rounds); every result == the flat
+             engine's bit for bit, LC (cache off) and E/F launched once
+             per entry and step, each on its entry's stream, in entry
+             order; A, B, E and F held to plain at one entry's shape
+             (T = 1,024; E/F by slot over one shard's slots) and timed;
+             one step, mesh and flat, by CUDA events with its busy share;
     service: the same index behind repro_torch.service.AnnService:
              S1 one local replica (search == search_ivfpq bit for bit),
              S5 one local replica, no cache, on the local path's Poisson
@@ -216,6 +230,7 @@ paths once at the configuration below:
 
 The launch counters of the six kernels are reset just before each path
 and read just after it; every kernel of the path must have risen (the
+mesh path's count is its mesh searches' alone, A, B, E and F; the
 service, mutation and tiered paths run all six; the tenancy path runs
 A-D: the fused E/F cannot take the scope mask; the chaos path A-D, A and
 C on its f32 runs and B and D on its uint8 run; the autotune path the LC
@@ -228,10 +243,11 @@ are held to the local path's on the same queries, and served results to
 a direct search: every local service cell bit for bit to the uncached
 search_ivfpq of the same queries at its LUT dtype.  The last lines printed are one ``{"kernels": [...]}``
 JSON line and ``{"ok": true, "device": {...}}``; A's and B's rows carry
-their times at the sharded step's first LC launches too; ``launches``
+their times at the sharded step's first LC launches too, and A, B, E
+and F's rows their times at a mesh entry (``at_mesh_entry``); ``launches``
 sums the local and sharded paths, as before the service existed, and
-``launches_by_path`` gives each path's own count, the service's, the
-mutation's, the tiered, the tenancy, the chaos, the autotune, the
+``launches_by_path`` gives each path's own count, the mesh's, the
+service's, the mutation's, the tiered, the tenancy, the chaos, the autotune, the
 variants, the lm and the train path's included.  E's and F's
 first sharded launches, with their LC inputs and those of the local
 path's first chunk, are written to ``build/sharded_launch.pt``, which
@@ -254,6 +270,7 @@ run.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -803,8 +820,10 @@ def sharded_path(ops, index, queries, local, rec_local, gt, pool, trace,
     """Drive DistributedEngine (f32 and uint8) over the 10,000 queries and
     ShardedEngine behind ServingRuntime, cache off and on.  Checks every
     result against the local path or a direct search.  Returns the two
-    engines, the inputs of each fused kernel's first launch, and each
-    engine's (wall s, steps, host s per phase) over the 10,000 queries."""
+    engines, the inputs of each fused kernel's first launch, each
+    engine's (wall s, steps, host s per phase) over the 10,000 queries,
+    the sample probes the engines' heat came from, and each engine's
+    (dists, ids, steps) of its first MESH_BATCHES batches."""
     from repro_torch.core.adc import QuantizedLUT
     from repro_torch.core.search import cluster_locate, recall_at_k
     from repro_torch.core.sharded_search import (CL_BLOCK, DistributedEngine,
@@ -866,14 +885,14 @@ def sharded_path(ops, index, queries, local, rec_local, gt, pool, trace,
                 f"{lay.stats(eng.latency)['imbalance']:.4f}")
             engines[dt] = eng
 
-        runs = {}
+        runs, firsts = {}, {}
         for dt, eng in engines.items():
             eng.phase_s.clear()
             outs, wall, rounds = [], 0.0, 0
             for b in range(0, len(queries), SHARD_BATCH):
                 (d, i, info), secs = sync_time(
                     lambda: eng.search(queries[b:b + SHARD_BATCH]))
-                outs.append((d, i))
+                outs.append((d, i, info["rounds"]))
                 wall += secs
                 rounds += info["rounds"]
             d = np.concatenate([o[0] for o in outs])
@@ -899,6 +918,7 @@ def sharded_path(ops, index, queries, local, rec_local, gt, pool, trace,
                 f"(ties allowed), recall@{K} {rec:.4f} (local "
                 f"{rec_local[dt]:.4f})")
             runs[dt] = (wall, rounds, dict(ph))
+            firsts[dt] = outs[:MESH_BATCHES]
 
         eng = engines["f32"]
         eng.tasks_controller = eng.make_tasks_controller()
@@ -954,7 +974,7 @@ def sharded_path(ops, index, queries, local, rec_local, gt, pool, trace,
     finally:
         ops.pq_scan_topk, ops.lut_build, ops.lut_build_q = (launch, lc_launch,
                                                             lcq_launch)
-    return engines, captured, runs
+    return engines, captured, runs, sample, firsts
 
 
 def sharded_step_time(engines, runs, queries) -> None:
@@ -981,6 +1001,248 @@ def sharded_step_time(engines, runs, queries) -> None:
             f"events), {device_ms:.3f} ms of device work (queued); "
             f"{rounds} steps ~{busy:.3f} s of the {wall:.2f} s run, idle "
             f"share ~{max(0.0, 1 - busy / wall):.3f}")
+
+
+# ---------------------------------------------------------------------------
+# The shard mesh: one program per shard
+# ---------------------------------------------------------------------------
+
+MESH_BATCHES = 2               # of the 10 batches of 1,000, per engine, mode
+MESH_FLUSH_TASKS = 256         # the flush batch's task-table width
+
+
+def record_streams(ops, seen: list):
+    """Wrap LC (A, B) and the fused DC+TS (E, F) so that each call appends
+    (kernel, the CUDA stream current where it was called) to ``seen``.
+    The wrapped calls launch and count as before.  Returns a function
+    that restores the wrappers."""
+    from repro_torch.core.adc import QuantizedLUT
+    names = ("lut_build", "lut_build_q", "pq_scan_topk")
+    orig = {n: getattr(ops, n) for n in names}
+
+    def wrap(name):
+        def wrapped(*args, **kw):
+            q = name == "pq_scan_topk" and isinstance(args[0], QuantizedLUT)
+            seen.append((name + ("_q" if q else ""),
+                         torch.cuda.current_stream().cuda_stream))
+            return orig[name](*args, **kw)
+        return wrapped
+
+    for name in names:
+        setattr(ops, name, wrap(name))
+
+    def restore():
+        for name, fn in orig.items():
+            setattr(ops, name, fn)
+    return restore
+
+
+def mesh_path(ops, index, queries, engines, sample, firsts) -> tuple:
+    """5b: DistributedEngine(mesh=make_shard_mesh(64, devices=[cuda:0] *
+    64)) at f32 and uint8 beside the sharded path's flat engines (the same
+    config and sample probes, so the same layout): MESH_BATCHES batches
+    of 1,000 queries with the LUT cache off, the same batches with a
+    cache on the mesh engine (holding one batch's LUTs), the first twice
+    (the second time all hits), each held to the flat engine's uncached
+    results of the same batch in the sharded path (``firsts``), then a
+    batch at MESH_FLUSH_TASKS tasks a shard (flush rounds) held to the
+    flat engine's; every mesh result == the flat engine's bit for bit.
+    Each mesh search launches LC (cache off) and E/F once per entry and
+    step, each on its entry's stream, in entry order.  Then one step of
+    the first batch, mesh and flat, timed by CUDA events.  Returns (run
+    record, the mesh searches' launch counts, the per-entry launches
+    captured by capture_launches in the cache-off searches)."""
+    from repro_torch.core.sharded_search import (DistributedEngine,
+                                                 run_shards_vmap)
+    from repro_torch.launch import make_shard_mesh
+    from repro_torch.runtime import (HotClusterLUTCache,
+                                     TasksPerShardController)
+    card = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_shard_mesh(N_SHARDS, devices=[card] * N_SHARDS)
+    streams = [s.cuda_stream for s in mesh.streams]
+    check(len(set(streams)) == N_SHARDS
+          and torch.cuda.current_stream(card).cuda_stream not in streams,
+          "mesh: the entries do not own a stream each")
+    log(f"  mesh: {mesh.size} entries, all on {card} (the smoke's contract "
+        f"is one card), one CUDA stream each")
+    launches = {name: 0 for name in KERNELS}
+    seen, label = {}, ["mesh"]
+    run = {"entries": mesh.size, "device": str(card), "runs": [],
+           "step": {}}
+    for dt in ("f32", "uint8"):
+        flat = engines[dt]
+        lc, ef = (("lut_build_q", "pq_scan_topk_q") if dt == "uint8"
+                  else ("lut_build", "pq_scan_topk"))
+        eng, secs = sync_time(lambda: DistributedEngine(index, flat.cfg,
+                                                        sample, mesh=mesh))
+        check([dataclasses.astuple(i) for i in eng.layout.instances]
+              == [dataclasses.astuple(i) for i in flat.layout.instances]
+              and np.array_equal(eng.layout.shard_of, flat.layout.shard_of)
+              and torch.equal(eng.sindex.codes, flat.sindex.codes),
+              f"mesh {dt}: the layout differs from the flat engine's")
+        check(all(p.data_ptr() == eng.sindex.codes[s].data_ptr()
+                  for s, p in enumerate(eng._shards[0])),
+              f"mesh {dt}: entries on the engine's card hold copies")
+        log(f"  mesh engine lut={dt}: built in {secs:.2f} s, the same "
+            f"layout as the flat engine's, entries' shards are views")
+        # the cache keys on the exact query and holds one batch's LUTs, so
+        # only the repeat of batch 0, right after it, hits (all of it)
+        modes = [("cache off", False, None, b) for b in range(MESH_BATCHES)]
+        modes += [("cache on", True, None, b)
+                  for b in (0, *range(MESH_BATCHES))]
+        modes += [("flush", False, MESH_FLUSH_TASKS, MESH_BATCHES)]
+        rec: list = []
+        cached_batches: set = set()
+        for mode, cached, tps, b in modes:
+            if cached and eng.lut_cache is None:
+                eng.lut_cache = HotClusterLUTCache(
+                    capacity=SHARD_BATCH * NPROBE, lut_dtype=dt)
+            elif not cached:
+                eng.lut_cache = None
+            flat.tasks_controller = eng.tasks_controller = None
+            if tps is not None:
+                flat.tasks_controller, eng.tasks_controller = (
+                    TasksPerShardController(N_SHARDS, NPROBE, cap=tps)
+                    for _ in range(2))
+            qb = queries[b * SHARD_BATCH:(b + 1) * SHARD_BATCH]
+            if tps is None:     # the flat engine's, from the sharded path
+                (fd, fi, f_rounds), f_s = firsts[dt][b], None
+            else:
+                (fd, fi, finfo), f_s = sync_time(lambda: flat.search(qb))
+                f_rounds = finfo["rounds"]
+            misses = eng.lut_cache.stats.misses if cached else 0
+            rec.clear()
+            restore_streams = record_streams(ops, rec)
+            restore = (capture_launches(ops, seen, label)
+                       if not cached and tps is None else (lambda: None))
+            eng.phase_s.clear()
+            try:
+                before = dict(ops.launches)
+                (md, mi, minfo), m_s = sync_time(lambda: eng.search(qb))
+                delta = {k: ops.launches[k] - before[k] for k in KERNELS}
+            finally:
+                restore()
+                restore_streams()
+            for k, v in delta.items():
+                launches[k] += v
+            rounds = minfo["rounds"]
+            where = f"mesh {dt} {mode} batch {b}"
+            check(np.array_equal(md, fd) and np.array_equal(mi, fi)
+                  and rounds == f_rounds,
+                  f"{where}: results differ from the flat engine's")
+            check(rounds > 1 if tps else True,
+                  f"{where}: no deferred tasks at {tps} tasks a shard")
+            want = streams * rounds
+            check(delta[ef] == N_SHARDS * rounds
+                  and [st for n, st in rec if n == ef] == want,
+                  f"{where}: {ef} launched {delta[ef]} times for "
+                  f"{N_SHARDS} entries x {rounds} steps, or not on the "
+                  f"entries' streams")
+            if cached:
+                # one bank build a search, for its misses; a repeat has none
+                misses = eng.lut_cache.stats.misses - misses
+                check((misses == 0) == (b in cached_batches)
+                      and delta[lc] == (1 if misses else 0),
+                      f"{where}: {misses} cache misses, {lc} launched "
+                      f"{delta[lc]} times")
+                cached_batches.add(b)
+            else:
+                check(delta[lc] == N_SHARDS * rounds
+                      and [st for n, st in rec if n == lc] == want,
+                      f"{where}: {lc} launched {delta[lc]} times for "
+                      f"{N_SHARDS} x {rounds}, or not on the entries' "
+                      f"streams")
+            hit = (f", hit rate {eng.lut_cache.stats.hit_rate:.4f}"
+                   if cached else "")
+            flat_s = ("the sharded path's" if f_s is None
+                      else f"{f_s:.3f} s")
+            log(f"  {where}: == flat bit for bit, {rounds} steps, {lc} "
+                f"{delta[lc]} / {ef} {delta[ef]} launches on the entries' "
+                f"streams; {m_s:.3f} s (flat {flat_s}), mesh step host "
+                f"s {eng.phase_s.get('step', 0.0):.3f}{hit}")
+            run["runs"].append({"lut": dt, "mode": mode, "batch": b,
+                                "rounds": rounds, "mesh_s": m_s,
+                                "flat_s": f_s, "launches": delta})
+        eng.lut_cache = None
+        flat.tasks_controller = eng.tasks_controller = None
+        # one step of the first batch, mesh and flat, after the counts
+        qb = queries[:SHARD_BATCH]
+        sched = flat.schedule(flat.locate(qb))
+        flat.carry = []
+        qidx = torch.from_numpy(sched.query_idx).to(card)
+        sidx = torch.from_numpy(sched.slot_idx).to(card)
+        steps = {
+            "flat": lambda: run_shards_vmap(flat.sindex, qidx, sidx, qb, k=K,
+                                            quantize=dt == "uint8"),
+            "mesh": lambda: eng._step(*eng._shards, qidx, sidx, qb,
+                                      eng.sindex.centroids)}
+        a, c = steps["flat"](), steps["mesh"]()
+        check(all(torch.equal(x, y) for x, y in zip(a, c)),
+              f"mesh {dt}: one step differs from the flat step")
+        timed = {}
+        for name in ("flat", "mesh", "mesh", "flat"):
+            ms = event_ms(steps[name], reps=3)
+            dev = event_ms(steps[name], reps=3, queued=True)
+            timed.setdefault(name, []).append((ms, dev))
+        for name, pairs in timed.items():
+            ms = float(np.mean([p[0] for p in pairs]))
+            dev = float(np.mean([p[1] for p in pairs]))
+            run["step"][f"{dt} {name}"] = {"ms": ms, "device_ms": dev,
+                                           "busy_share": dev / ms}
+            log(f"  one step lut={dt} {name}: {ms:.3f} ms (CUDA events), "
+                f"{dev:.3f} ms of device work (queued), busy share "
+                f"~{dev / ms:.3f}; {int(sched.n_tasks.sum())} tasks")
+        del eng, a, c, steps
+        torch.cuda.empty_cache()
+    mesh.close()
+    run["launches"] = launches
+    return run, launches, seen
+
+
+def mesh_entry_report(ops, ref, adc, seen: dict) -> dict:
+    """A, B, E and F on the inputs of their last captured launch in the
+    mesh searches (one entry's: T = the task table's width, E/F by slot
+    over one shard's slots): held to plain (check_captured), timed by
+    CUDA events beside the bound and the plain time."""
+    from repro_torch.core.pq import PQCodebook
+    from repro_torch.util import next_pow2
+    out = {}
+    for key, (label, args) in sorted(seen.items(), key=str):
+        name = key[0]
+        err = next(iter(check_captured(ops, ref, adc, {key: (label, args)},
+                                       phase="mesh entry").values()))
+        if name in ("lut_build", "lut_build_q"):
+            res, books, sqn = args
+            t, dsub = res.shape[0], books.shape[2]
+            quant = name == "lut_build_q"
+            nbytes, nops = lut_bytes_ops(t, M, CB, dsub, quant)
+            cbk = PQCodebook(books, sqn)
+            fn = lambda: getattr(ops, name)(res, books, sqn)  # noqa: E731
+            plain = ((lambda: adc.quantize_lut(adc.build_lut_batch(cbk, res)))
+                     if quant else (lambda: adc.build_lut_batch(cbk, res)))
+            shape = {"T": t, "M": M, "CB": CB, "dsub": dsub}
+            max_err = err["lut_build_q_counts" if quant else "lut_build"]
+        else:
+            lut, codes, ids, sizes, slots = args
+            k = key[4]
+            k_pad = next_pow2(max(k, 8))
+            nbytes, nops, shape = fused_bytes_ops(
+                codes, sizes, k_pad, name.endswith("_q"), slots)
+            fn = lambda: ops.pq_scan_topk(lut, codes, ids, sizes, k,  # noqa
+                                          slots=slots)
+            plain = lambda: ops.pq_scan_topk_plain(  # noqa: E731
+                lut, codes, ids, sizes, k_pad, slots=slots)
+            max_err = err[name]
+        ms = event_ms(fn, reps=20, queued=True)
+        plain_ms = event_ms(plain, reps=3, warm=1, queued=True)
+        b_ms, b_by = bound_ms(nbytes, nops)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "max_abs_err": max_err,
+                     "bytes": nbytes, "ops": nops, "shape": shape}
+        log(f"  {name} at a mesh entry: {ms:.4f} ms (bound {b_ms:.4f} ms "
+            f"by {b_by}, {ms / b_ms:.2f}x; plain {plain_ms:.4f} ms); "
+            f"{shape}")
+    return out
 
 
 def save_launch(ops, captured, local_lc) -> None:
@@ -4446,8 +4708,8 @@ def main() -> int:
         f"{N_QUERIES} queries in batches of {SHARD_BATCH}")
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    engines, captured, runs = sharded_path(ops, index, queries, results, rec,
-                                           gt, pool, trace, n, args.seed)
+    engines, captured, runs, sample, firsts = sharded_path(
+        ops, index, queries, results, rec, gt, pool, trace, n, args.seed)
     sharded_launches = dict(ops.launches)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB; launches {sharded_launches}")
@@ -4456,6 +4718,31 @@ def main() -> int:
               f"{name} never launched on the sharded path")
     sharded_step_time(engines, runs, queries)
     total = {k: launches[k] + sharded_launches[k] for k in KERNELS}
+
+    # -- 5b. the shard mesh on the same index ------------------------------
+    log(f"mesh path: DistributedEngine(mesh=make_shard_mesh({N_SHARDS}, "
+        f"devices=[cuda:0] * {N_SHARDS})), lut f32 and uint8, "
+        f"{MESH_BATCHES} batches of {SHARD_BATCH} with the LUT cache off, "
+        f"then with it on (the first batch twice), then a batch at "
+        f"{MESH_FLUSH_TASKS} tasks a shard; each == the flat engine bit for "
+        f"bit")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    mesh_run, mesh_launches, mesh_seen = mesh_path(ops, index, queries,
+                                                   engines, sample, firsts)
+    mesh_run["secs"] = time.perf_counter() - t0
+    log(f"  mesh path {mesh_run['secs']:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the mesh "
+        f"searches' launches {mesh_launches}")
+    for name in SHARDED_KERNELS:
+        check(mesh_launches[name] > 0,
+              f"{name} never launched on the mesh path")
+    log("kernels vs plain, at a mesh entry's shape:")
+    at_entry = mesh_entry_report(ops, ref, adc, mesh_seen)
+    check(set(at_entry) == set(SHARDED_KERNELS),
+          f"mesh entry launches captured: {sorted(at_entry)}")
+    del mesh_seen
 
     # -- 3b. the main paths' own shapes: check, time, bound ---------------
     log("kernels vs plain, main-path shapes (first query chunk):")
@@ -4475,6 +4762,9 @@ def main() -> int:
         if r["name"] in at_step:
             r["at_sharded_step"] = at_step[r["name"]]
     rows += fused_report(ops, captured, total)
+    for r in rows:
+        if r["name"] in at_entry:
+            r["at_mesh_entry"] = at_entry[r["name"]]
     save_launch(ops, captured, local_lc)
     del engines, captured
     torch.cuda.empty_cache()
@@ -4637,13 +4927,15 @@ def main() -> int:
         f"entry point's restart and examples/torch_train_lm.py")
     train_run, train_launches = train_path(ops, args.seed)
     by_path = {"local": launches, "sharded": sharded_launches,
-               "service": service_launches, "mutation": mutation_launches,
+               "mesh": mesh_launches, "service": service_launches,
+               "mutation": mutation_launches,
                "tiered": tiered_launches, "tenancy": tenancy_launches,
                "chaos": chaos_launches, "autotune": autotune_launches,
                "variants": variants_launches, "lm": lm_launches,
                "train": train_launches}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
+    log(json.dumps({"mesh": mesh_run}))
     log(json.dumps({"service": service_runs}))
     log(json.dumps({"mutation": mutation_run}))
     log(json.dumps({"tiered": tiered_run}))

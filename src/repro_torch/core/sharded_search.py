@@ -60,8 +60,18 @@ run them, as in the reference.  The step runs ``SCOPED_TASK_CHUNK``
 tasks at a time, which bounds the gathered codes and the (T, cpart)
 distances.
 
-Not ported yet, raising ``NotImplementedError``: ``mesh=`` (the
-``shard_map`` steps become ``torch.distributed`` across cards).
+The mesh (``mesh=``, a :class:`repro_torch.launch.mesh.Mesh` from
+``make_shard_mesh``) is the reference's production path: the steps of
+:func:`make_sharded_step` and :func:`make_sharded_step_lut` run one
+program per mesh entry -- the same per-shard function on that shard's own
+(slots, cpart, M) tensors and (T,) task table -- on the entry's device
+and CUDA stream, the entries concurrently, the queries, centroids and
+LUT bank replicated once per distinct device, and the host merges their
+candidates as on the flat path.  Shard ``s``'s tensors live on entry
+``s``'s device (views where that is the engine's device), placed when
+the placement is built.  The flat step above stays the single-program
+path (the reference's ``vmap`` simulation), and both give the same bits.
+Scoped search does not run on a mesh, as in the reference.
 
 Shapes and units: queries (Q, D) f32; probes (Q, P) cluster ids; task
 tables (S, T) i32 with -1 padding; step outputs (S, T, k); heat is
@@ -101,6 +111,10 @@ CL_BLOCK = 256
 # tasks per call of the scoped step's body: one call holds the tasks'
 # gathered codes (T, cpart, M) and their (T, cpart) distances and mask
 SCOPED_TASK_CHUNK = 16384
+# rows of each OPQ rotation GEMM (zero-padded): the GEMM's algorithm, and
+# so a row's bits, may depend on its row count, so the flat step and each
+# mesh entry rotate on blocks of one shape and agree bit for bit
+ROT_BLOCK = 1024
 
 
 def locate_probes(queries, centroids: torch.Tensor, nprobe: int,
@@ -266,7 +280,8 @@ def _shard_tasks_fn(codes, ids, sizes, cluster_of, qidx, sidx, queries,
 
     codes (slots, cpart, M), ids (slots, cpart), sizes / cluster_of
     (slots,), qidx / sidx (T,) with -1 padding.  The reference calls this
-    once per shard; the port calls it once on the flattened slot axis.
+    once per shard; the flat step calls it once on the flattened slot
+    axis, a mesh step once per entry on that shard's own tensors.
 
     LC runs through ``kernels.ops.lut_build`` (``lut_build_q`` for
     ``quantize``, the uint8 path) and DC+TS through the fused
@@ -295,11 +310,20 @@ def _task_lut(cluster_of, qidx, si, queries, centroids, codebook: PQCodebook,
     cl = cluster_of.index_select(0, si).clamp(0, centroids.shape[0] - 1)
     residual = q - centroids.index_select(0, cl.long())       # RC
     if rotation is not None:
-        ieee_f32_matmul()
-        residual = residual @ rotation
+        residual = _rotate(residual, rotation)
     residual = residual.contiguous()
     lc = kops.lut_build_q if quantize else kops.lut_build
     return lc(residual, codebook.codebooks, codebook.sqnorms)     # LC
+
+
+def _rotate(residual: torch.Tensor, rotation: torch.Tensor) -> torch.Tensor:
+    """``residual @ rotation`` on (ROT_BLOCK, D) blocks, the last one
+    zero-padded."""
+    ieee_f32_matmul()
+    t = residual.shape[0]
+    r = torch.nn.functional.pad(residual, (0, 0, 0, -t % ROT_BLOCK))
+    return torch.cat([r[a:a + ROT_BLOCK] @ rotation
+                      for a in range(0, r.shape[0], ROT_BLOCK)])[:t]
 
 
 def _bank_rows(lut_bank, li: torch.Tensor):
@@ -422,11 +446,120 @@ def run_shards_scoped(sindex: ShardedIndex, qidx: np.ndarray,
             torch.cat(out_i).reshape(s, t, k))
 
 
-def make_sharded_step(mesh, sindex: ShardedIndex, **kw):
-    """The reference's ``shard_map`` step over a device mesh."""
-    raise NotImplementedError("make_sharded_step (mesh over torch.distributed "
-                              "across cards) is not ported to repro_torch "
-                              "yet")
+# ---------------------------------------------------------------------------
+# The mesh steps: one program per mesh entry
+# ---------------------------------------------------------------------------
+
+def check_mesh(mesh, n_shards: int, axis: str = "shards") -> None:
+    """A mesh runs one shard's program per entry: a 1-D mesh on ``axis``
+    with exactly ``n_shards`` entries.  (The reference accepts a smaller
+    mesh, then reads only the first shard of each device's block and
+    fails in the host merge.)"""
+    if tuple(mesh.axis_names) != (axis,):
+        raise ValueError(f"the engine's mesh must be 1-D on axis {axis!r}, "
+                         f"got axes {tuple(mesh.axis_names)}")
+    if mesh.size != n_shards:
+        raise ValueError(f"a mesh of {mesh.size} entries for {n_shards} "
+                         f"shards: each entry runs one shard's program, so "
+                         f"the mesh size must equal n_shards")
+
+
+def shard_to_mesh(mesh, x: torch.Tensor) -> tuple:
+    """(S, ...) tensor -> its S rows, row ``s`` on entry ``s``'s device: a
+    view where ``x`` lies, else a copy (the reference's ``P("shards")``)."""
+    if x.shape[0] != mesh.size:
+        raise ValueError(f"{tuple(x.shape)} has {x.shape[0]} rows for a "
+                         f"mesh of {mesh.size} entries")
+    return tuple(x[s] if d == x.device else x[s].to(d)
+                 for s, d in enumerate(mesh.devices.flat))
+
+
+def _on(x, device: torch.device):
+    """A tensor, a QuantizedLUT or None on ``device`` (itself if there)."""
+    if x is None:
+        return None
+    if isinstance(x, QuantizedLUT):
+        return QuantizedLUT(*(_on(a, device) for a in x))
+    return x if x.device == device else x.to(device)
+
+
+def _replicate(mesh, x) -> dict:
+    """One copy of ``x`` per distinct device of the mesh, ``x`` itself
+    where it lies (the reference's ``P()``)."""
+    return {d: _on(x, d) for d in set(mesh.devices.flat)}
+
+
+def _entries(mesh, x) -> tuple:
+    """Per-entry pieces: already placed (a tuple), or an (S, ...) tensor
+    placed now."""
+    return x if isinstance(x, tuple) else shard_to_mesh(mesh, x)
+
+
+def _run_entries(mesh, program, device: torch.device):
+    """``program(s, entry_device)`` -> ((T, k), (T, k)) for every entry, each
+    issued on its entry's device and stream after that stream waits for
+    the device's current stream (where the inputs were made).  Then each
+    device's current stream waits for its entries' streams, and the
+    pieces are stacked on ``device``: (S, T, k) distances and ids.
+
+    Every tensor an entry reads was made on a current stream, and every
+    current stream waits for the entries before the step returns, so the
+    caching allocator cannot hand an input's memory to later work before
+    the entries have read it; the outputs, made on the entry streams, are
+    marked used on the current streams that read them."""
+    if mesh.closed:
+        raise RuntimeError("the mesh is closed: its streams are destroyed")
+    outs = []
+    for s, (d, stream) in enumerate(zip(mesh.devices.flat, mesh.streams)):
+        if stream is None:
+            outs.append(program(s, d))
+            continue
+        stream.wait_stream(torch.cuda.current_stream(d))
+        with torch.cuda.stream(stream):
+            outs.append(program(s, d))
+    for out, d, stream in zip(outs, mesh.devices.flat, mesh.streams):
+        if stream is not None:
+            current = torch.cuda.current_stream(d)
+            current.wait_stream(stream)
+            for x in out:
+                x.record_stream(current)
+    return tuple(torch.stack([o[j].to(device) for o in outs])
+                 for j in (0, 1))
+
+
+def make_sharded_step(mesh, sindex: ShardedIndex, *, k: int,
+                      strategy: str = "onehot", quantize: bool = False,
+                      axis: str = "shards"):
+    """The production path: one program per mesh entry.
+
+    Returns ``step(codes, ids, sizes, cluster_of, qidx, sidx, queries,
+    centroids)`` -> per-shard (S, T, k) candidates on the queries' device.
+    The shard tensors and (S, T) task tables are (S, ...) tensors or
+    tuples of per-entry pieces already placed (:func:`shard_to_mesh`);
+    queries and centroids are replicated once per distinct device, the
+    one host->PIM broadcast of a batch.  Entry ``s`` runs
+    ``_shard_tasks_fn`` -- RC, LC through ``ops.lut_build`` (or
+    ``lut_build_q``) and the fused DC+TS by slot -- on shard ``s``'s own
+    (slots, cpart, M) codes and (T,) task table, as the reference's
+    ``per_shard`` does."""
+    check_mesh(mesh, sindex.n_shards, axis)
+    codebooks = _replicate(mesh, sindex.codebook.codebooks)
+    sqnorms = _replicate(mesh, sindex.codebook.sqnorms)
+    rotation = _replicate(mesh, sindex.rotation)
+
+    def step(codes, ids, sizes, cluster_of, qidx, sidx, queries, centroids):
+        codes, ids, sizes, cluster_of, qidx, sidx = (
+            _entries(mesh, x)
+            for x in (codes, ids, sizes, cluster_of, qidx, sidx))
+        qs, cs = _replicate(mesh, queries), _replicate(mesh, centroids)
+
+        def program(s, d):
+            return _shard_tasks_fn(
+                codes[s], ids[s], sizes[s], cluster_of[s], qidx[s], sidx[s],
+                qs[d], cs[d], PQCodebook(codebooks[d], sqnorms[d]),
+                rotation[d], k=k, strategy=strategy, quantize=quantize)
+        return _run_entries(mesh, program, queries.device)
+    return step
 
 
 def miss_residuals(miss_queries: torch.Tensor, centroids: torch.Tensor,
@@ -479,11 +612,31 @@ def run_shards_vmap_lut(sindex: ShardedIndex, qidx: torch.Tensor,
     return bd.reshape(s, t, k), bi.reshape(s, t, k)
 
 
-def make_sharded_step_lut(mesh, sindex: ShardedIndex, **kw):
-    """The reference's cached ``shard_map`` step over a device mesh."""
-    raise NotImplementedError("make_sharded_step_lut (mesh over "
-                              "torch.distributed across cards) is not "
-                              "ported to repro_torch yet")
+def make_sharded_step_lut(mesh, sindex: ShardedIndex, *, k: int,
+                          strategy: str = "onehot", axis: str = "shards"):
+    """The production path of the cached step: one program per mesh entry.
+
+    Returns ``step(codes, ids, sizes, qidx, sidx, lidx, lut_bank)`` ->
+    (S, T, k) candidates on the bank's device; the shard tensors and
+    (S, T) tables as :func:`make_sharded_step`'s, the LUT bank (f32 or a
+    QuantizedLUT) replicated once per distinct device.  Entry ``s`` runs
+    ``_shard_tasks_lut_fn``: DC+TS by slot only, ``lidx == -1`` tasks
+    invalid."""
+    check_mesh(mesh, sindex.n_shards, axis)
+
+    def step(codes, ids, sizes, qidx, sidx, lidx, lut_bank):
+        codes, ids, sizes, qidx, sidx, lidx = (
+            _entries(mesh, x) for x in (codes, ids, sizes, qidx, sidx, lidx))
+        banks = _replicate(mesh, lut_bank)
+        device = (lut_bank.lut_q if isinstance(lut_bank, QuantizedLUT)
+                  else lut_bank).device
+
+        def program(s, d):
+            return _shard_tasks_lut_fn(codes[s], ids[s], sizes[s], qidx[s],
+                                       sidx[s], lidx[s], banks[d], k=k,
+                                       strategy=strategy)
+        return _run_entries(mesh, program, device)
+    return step
 
 
 def merge_host(qidx: np.ndarray, best_d: np.ndarray, best_i: np.ndarray,
@@ -561,18 +714,20 @@ class _Placement(NamedTuple):
     prepare_index` (a live-index generation swap): the placement then
     carries the NEW index and its re-priced latency model, and installing
     it also swaps ``engine.index`` and invalidates per-generation state
-    (LUT cache, heat estimator).  Plain re-layouts leave them None."""
+    (LUT cache, heat estimator).  Plain re-layouts leave them None.
+
+    On a mesh engine ``shards`` holds (codes, ids, sizes, cluster_of),
+    each as per-entry pieces on the entries' devices, and ``step`` /
+    ``step_lut`` the mesh steps over them; None otherwise."""
     layout: Layout
     sindex: ShardedIndex
     cluster_of_host: np.ndarray
     index: Optional[IVFPQIndex] = None
     latency: Optional[TaskLatencyModel] = None
     cold_mask: Optional[np.ndarray] = None   # tiered: True = not in shards
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"DistributedEngine({what}) is not ported to "
-                               f"repro_torch yet")
+    shards: Optional[tuple] = None
+    step: Optional[object] = None
+    step_lut: Optional[object] = None
 
 
 class DistributedEngine:
@@ -583,7 +738,8 @@ class DistributedEngine:
     ``heat_estimator`` (online heat + periodic re-layout),
     ``tasks_controller`` (per-batch-size task-table width),
     ``tiered_store`` (shards hold the resident clusters; the rest are
-    scanned through the tier).
+    scanned through the tier), ``mesh`` (one program per shard, each on
+    its mesh entry's device and stream; see the module docstring).
     """
 
     def __init__(self, index: IVFPQIndex, cfg: EngineConfig,
@@ -593,7 +749,7 @@ class DistributedEngine:
                  tasks_controller=None, tiered_store=None,
                  meta: Optional[VectorMeta] = None):
         if mesh is not None:
-            raise _not_ported("mesh=...")
+            check_mesh(mesh, cfg.n_shards)
         if cfg.lut_dtype not in ("f32", "uint8"):
             raise ValueError(f"EngineConfig.lut_dtype must be 'f32' or "
                              f"'uint8', got {cfg.lut_dtype!r}")
@@ -614,6 +770,7 @@ class DistributedEngine:
                 f"lut_cache.lut_dtype={lut_cache.lut_dtype!r} disagrees "
                 f"with EngineConfig.lut_dtype={cfg.lut_dtype!r}; cached "
                 f"and uncached scans must run the same dtype")
+        self.mesh = mesh
         self.lut_cache = lut_cache
         self.heat_estimator = heat_estimator
         self.tasks_controller = tasks_controller
@@ -677,10 +834,20 @@ class DistributedEngine:
         else:
             sindex = materialize_shards(idx, layout)
         cluster_of = sindex.cluster_of.cpu().numpy()
+        shards = step = step_lut = None
+        if self.mesh is not None:
+            shards = tuple(shard_to_mesh(self.mesh, x) for x in (
+                sindex.codes, sindex.ids, sindex.sizes, sindex.cluster_of))
+            step = make_sharded_step(self.mesh, sindex, k=self.cfg.k,
+                                     strategy=self.cfg.strategy,
+                                     quantize=self.cfg.lut_dtype == "uint8")
+            step_lut = make_sharded_step_lut(self.mesh, sindex, k=self.cfg.k,
+                                             strategy=self.cfg.strategy)
         self._clock("materialize", t0)
         return _Placement(layout, sindex, cluster_of, index=index,
                           latency=None if index is None else lat,
-                          cold_mask=cold_mask)
+                          cold_mask=cold_mask, shards=shards, step=step,
+                          step_lut=step_lut)
 
     def _install(self, placement: _Placement) -> None:
         """Point the serving path at ``placement``.  Deferred-task carry
@@ -695,6 +862,9 @@ class DistributedEngine:
         self.sindex = placement.sindex
         self._cluster_of_host = placement.cluster_of_host
         self._cold_mask = placement.cold_mask
+        self._shards = placement.shards
+        self._step = placement.step
+        self._step_lut = placement.step_lut
         self.carry: list = []
 
     def _build(self, heat: np.ndarray) -> None:
@@ -1116,7 +1286,8 @@ class DistributedEngine:
         ``tenants`` (Q,) i32 / ``terms`` (Q, W) u32: per-query tenant scope
         (-1 = unscoped) and predicate tags (NO_TAG pad).  A scoped batch
         probes only its tenants' member clusters and runs the scoped
-        steps (the scope mask before TS); it needs ``meta``."""
+        steps (the scope mask before TS); it needs ``meta``, and does not
+        run on a mesh engine (as in the reference)."""
         self.last_batch_info = {"degraded": False, "dropped_probes": 0}
         if self._swap_on_next_batch:
             self._join_pending_relayout()
@@ -1127,6 +1298,9 @@ class DistributedEngine:
         nq = q_dev.shape[0]
         nv = nq if n_valid is None else min(n_valid, nq)
         scope = Scope.make(self.meta, tenants, terms, nq, self.device)
+        if scope is not None and self.mesh is not None:
+            raise ValueError("scoped search is not supported on the mesh "
+                             "(shard_map) path")
         probes = self.locate(q_dev, scope)
         t0 = self._clock("cl", t0)
         if nv > 0:      # all-padding warmup batches are not traffic
@@ -1177,10 +1351,16 @@ class DistributedEngine:
                 qidx = self._dev(sched.query_idx)
                 sidx = self._dev(sched.slot_idx)
                 t0 = self._clock("schedule", t0)
-                if bank is not None:
+                if bank is not None and self._step_lut is not None:
+                    bd, bi = self._step_lut(*self._shards[:3], qidx, sidx,
+                                            self._dev(lidx), bank)
+                elif bank is not None:
                     bd, bi = run_shards_vmap_lut(
                         self.sindex, qidx, sidx, self._dev(lidx), bank, k=k,
                         strategy=self.cfg.strategy)
+                elif self._step is not None:
+                    bd, bi = self._step(*self._shards, qidx, sidx, q_dev,
+                                        self.sindex.centroids)
                 else:
                     bd, bi = run_shards_vmap(
                         self.sindex, qidx, sidx, q_dev, k=k,

@@ -4,8 +4,9 @@ Parameters are plain nested dicts of tensors under the reference's names
 (``params["groups"][g]["l0"]["attn"]["wq"]``); the reference's stacked
 ``(n_groups, ...)`` leaves are a list of per-group dicts here, so a layer's
 tensors are its own and decode caches can be written in place.  The
-reference's logical sharding axes belong to the mesh, which is not ported
-(ROADMAP item 4a); the trees carry no axes.
+reference's logical sharding axes belong to the LM's mesh rules
+(``launch/mesh.py``'s rest), which are not ported yet; the trees carry no
+axes.
 
 Initialisation draws ``trunc_normal(-2, 2) * 1/sqrt(fan_in)`` from one
 explicit :class:`torch.Generator` on the target device, tensor by tensor

@@ -397,6 +397,160 @@ def test_sharded_search_goes_through_fused_kernels(cuda, lut_dtype):
             assert np.isclose(ld[row, 9], ld[row, 10], rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("lut_dtype", ["f32", "uint8"])
+def test_mesh_engine_on_one_card_equals_flat(cuda, monkeypatch, lut_dtype):
+    """DistributedEngine(mesh=) with 8 entries on one card: each entry's
+    program runs on its own stream, LC and the fused DC+TS launch once per
+    entry and step, and the results equal the flat engine's bit for bit,
+    through flush rounds and with the LUT cache."""
+    from repro_torch.core.sharded_search import DistributedEngine, EngineConfig
+    from repro_torch.launch import make_shard_mesh
+    from repro_torch.runtime import HotClusterLUTCache
+    ds = make_clustered_corpus(0, 8000, 32, n_queries=64, n_components=32,
+                               k_gt=10, device=cuda)
+    idx = build_ivfpq(torch.Generator().manual_seed(0), ds.points, nlist=64,
+                      m=16, cb=256, kmeans_iters=6, pq_iters=6, device=cuda)
+    q = ds.queries.float()
+    card = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_shard_mesh(8, devices=[card] * 8)
+    streams = [s.cuda_stream for s in mesh.streams]
+    assert len(set(streams)) == 8
+    assert torch.cuda.current_stream(card).cuda_stream not in streams
+    # past the 32 streams a device of PyTorch's pool, each entry its own
+    wide = make_shard_mesh(64, devices=[card] * 64)
+    assert len({s.cuda_stream for s in wide.streams}) == 64
+    wide.close()
+    cfg = EngineConfig(n_shards=8, nprobe=8, k=10, tasks_per_shard=24,
+                       split_max=64, dup_budget_bytes=1 << 17,
+                       lut_dtype=lut_dtype)
+    probes = cluster_locate(q, idx.centroids, 8)[0].cpu().numpy()
+    lc, fused = (("lut_build_q", "pq_scan_topk_q") if lut_dtype == "uint8"
+                 else ("lut_build", "pq_scan_topk"))
+    seen = []
+    for name in {lc, fused}:
+        wrapper = "pq_scan_topk" if name.startswith("pq") else name
+
+        def record(*a, _name=name, _fn=getattr(ops, wrapper), **kw):
+            seen.append((_name, torch.cuda.current_stream().cuda_stream))
+            return _fn(*a, **kw)
+        monkeypatch.setattr(ops, wrapper, record)
+    for cached in (False, True):
+        def engine(m):
+            cache = (HotClusterLUTCache(capacity=4096, lut_dtype=lut_dtype)
+                     if cached else None)
+            return DistributedEngine(idx, cfg, probes, mesh=m,
+                                     lut_cache=cache)
+        flat, on_mesh = engine(None), engine(mesh)
+        for _ in range(2 if cached else 1):
+            d0, i0, info0 = flat.search(q)
+            ops.reset_launches()
+            seen.clear()
+            d1, i1, info1 = on_mesh.search(q)
+            torch.cuda.synchronize()
+            rounds = info1["rounds"]
+            assert rounds == info0["rounds"] > 1
+            np.testing.assert_array_equal(d1, d0)
+            np.testing.assert_array_equal(i1, i0)
+            assert ops.launches[fused] == 8 * rounds
+            assert [s for n, s in seen if n == fused] == streams * rounds
+            if not cached:
+                assert ops.launches[lc] == 8 * rounds
+                assert [s for n, s in seen if n == lc] == streams * rounds
+        if cached:
+            assert on_mesh.lut_cache.stats.hits == 64 * 8
+    mesh.close()
+
+
+def _on_cpu(x):
+    """A tensor, or a NamedTuple of them (ShardedIndex, PQCodebook,
+    QuantizedLUT), copied to the CPU; anything else as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_on_cpu(a) for a in x))
+    return x
+
+
+@pytest.mark.parametrize("other", ["cpu", "cuda:1"])
+@pytest.mark.parametrize("lut_dtype", ["f32", "uint8"])
+def test_mesh_engine_across_devices(cuda, monkeypatch, lut_dtype, other):
+    """A mesh whose last four entries lie on another device than the
+    engine's card.  Their shards are copies on that device, the task
+    tables, queries, centroids, codebooks and LUT bank are copied there
+    each step, and their (T, k) outputs come back to the engine's card.
+    Entries on a second card own a stream there, and the engine equals the
+    flat engine bit for bit (the same kernels on the same rows).  Entries
+    on the CPU own no stream and run the plain versions, so the engine
+    equals the flat engine whose steps take those four shards' rows from
+    the same step run on a CPU copy of the index.  Cache off and on, with
+    flush rounds; LC and the fused DC+TS launch once per card entry and
+    step."""
+    import repro_torch.core.sharded_search as ss
+    from repro_torch.launch import make_shard_mesh
+    from repro_torch.runtime import HotClusterLUTCache
+    if other == "cuda:1" and torch.cuda.device_count() < 2:
+        pytest.skip("needs a second NVIDIA GPU")
+    ds = make_clustered_corpus(0, 8000, 32, n_queries=64, n_components=32,
+                               k_gt=10, device=cuda)
+    idx = build_ivfpq(torch.Generator().manual_seed(0), ds.points, nlist=64,
+                      m=16, cb=256, kmeans_iters=6, pq_iters=6, device=cuda)
+    q = ds.queries.float()
+    card = torch.device("cuda", torch.cuda.current_device())
+    far = torch.device(other)
+    mesh = make_shard_mesh(8, devices=[card] * 4 + [far] * 4)
+    if far.type == "cpu":
+        assert mesh.streams[4:] == (None,) * 4
+    else:
+        assert all(s.device == far for s in mesh.streams[4:])
+    n_card = 4 if far.type == "cpu" else 8
+    cfg = ss.EngineConfig(n_shards=8, nprobe=8, k=10, tasks_per_shard=24,
+                          split_max=64, dup_budget_bytes=1 << 17,
+                          lut_dtype=lut_dtype)
+    probes = cluster_locate(q, idx.centroids, 8)[0].cpu().numpy()
+    fused = "pq_scan_topk_q" if lut_dtype == "uint8" else "pq_scan_topk"
+    lc = "lut_build_q" if lut_dtype == "uint8" else "lut_build"
+
+    def spliced(run):
+        """``run`` with shards 4-7's rows from the same call on the CPU."""
+        def step(sindex, *args, **kw):
+            a = run(sindex, *args, **kw)
+            b = run(_on_cpu(sindex), *(_on_cpu(x) for x in args), **kw)
+            return tuple(torch.cat([x[:4], y[4:].to(x.device)])
+                         for x, y in zip(a, b))
+        return step
+
+    for cached in (False, True):
+        def engine(m):
+            cache = (HotClusterLUTCache(capacity=4096, lut_dtype=lut_dtype)
+                     if cached else None)
+            return ss.DistributedEngine(idx, cfg, probes, mesh=m,
+                                        lut_cache=cache)
+        flat, on_mesh = engine(None), engine(mesh)
+        for s, piece in enumerate(on_mesh._shards[0]):
+            assert piece.device == mesh.devices[s]
+            assert (piece.data_ptr() == on_mesh.sindex.codes[s].data_ptr()
+                    ) == (s < 4)                # views on the engine's card
+        for _ in range(2 if cached else 1):
+            with monkeypatch.context() as patch:
+                if far.type == "cpu":
+                    for name in ("run_shards_vmap", "run_shards_vmap_lut"):
+                        patch.setattr(ss, name, spliced(getattr(ss, name)))
+                d0, i0, info0 = flat.search(q)
+            ops.reset_launches()
+            d1, i1, info1 = on_mesh.search(q)
+            torch.cuda.synchronize()
+            rounds = info1["rounds"]
+            assert rounds == info0["rounds"] > 1
+            np.testing.assert_array_equal(d1, d0)
+            np.testing.assert_array_equal(i1, i0)
+            assert ops.launches[fused] == n_card * rounds
+            if not cached:
+                assert ops.launches[lc] == n_card * rounds
+        if cached:
+            assert on_mesh.lut_cache.stats.hits == 64 * 8
+    mesh.close()
+
+
 def _service_index(cuda):
     ds = make_clustered_corpus(0, 8000, 32, n_queries=64, n_components=32,
                                k_gt=10, device=cuda)

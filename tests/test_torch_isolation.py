@@ -75,6 +75,10 @@ def test_port_imports_with_jax_and_reference_blocked():
         "from repro_torch.launch.train import train_loop, main\n"
         "from repro_torch.launch.specs import input_specs\n"
         "from repro_torch.runtime import RunSupervisor, plan_elastic_mesh\n"
+        "assert 'repro_torch.launch.mesh' in mods, mods\n"
+        "from repro_torch.launch.mesh import Mesh, make_shard_mesh\n"
+        "from repro_torch.core.sharded_search import (make_sharded_step,\n"
+        "                                             make_sharded_step_lut)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

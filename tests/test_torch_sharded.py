@@ -447,14 +447,21 @@ def test_sharded_recall_equals_reference_on_its_sample(small_index, port,
 
 
 def test_unported_options_raise(port, sample_probes):
+    """Every engine option is ported; what the engine refuses raises
+    ValueError.  The mesh (tests/test_torch_mesh.py) builds a mesh engine
+    and its two steps, and refuses a mesh whose size is not n_shards."""
+    from repro_torch.launch import make_shard_mesh
     idx, _ = port
-    with pytest.raises(NotImplementedError):
-        _engine(idx, sample_probes, extra={"mesh": object()})
-    eng = _engine(idx, sample_probes)
-    for call in (lambda: ss.make_sharded_step(None, eng.sindex),
-                 lambda: ss.make_sharded_step_lut(None, eng.sindex)):
-        with pytest.raises(NotImplementedError):
-            call()
+    cpu4 = [torch.device("cpu")] * 4
+    eng = _engine(idx, sample_probes, extra={"mesh": make_shard_mesh(
+        4, devices=cpu4)})
+    assert eng._step is not None and eng._step_lut is not None
+    with pytest.raises(ValueError, match="mesh size must equal n_shards"):
+        _engine(idx, sample_probes, extra={"mesh": make_shard_mesh(
+            2, devices=cpu4[:2])})
+    for build in (ss.make_sharded_step, ss.make_sharded_step_lut):
+        with pytest.raises(ValueError, match="mesh size must equal"):
+            build(make_shard_mesh(3, devices=cpu4[:3]), eng.sindex, k=K)
     # tenancy is ported (ROADMAP item 8): scoped search needs an engine
     # built with per-vector metadata, as in the reference
     with pytest.raises(ValueError, match="meta=None"):
