@@ -237,7 +237,18 @@ C on its f32 runs and B and D on its uint8 run; the autotune path the LC
 and DC kernels of the LUT dtypes it measured; the variants path all six:
 A-D in V1 and the local entry points, E by the distributed example, F by
 the sharded uint8 spec; the lm path A, C and E in LM3, LM1 and LM2
-launching none of the six; the train path none).
+launching none of the six; the train path none; the dryrun path A, B,
+E and F).
+Phase 15, the dry-run (``launch/dryrun.py``), runs this process as rank 0
+of a fake world of 256 on the (16, 16) production mesh: D1 the drim cell
+at rank 0's shard of the 100M shape (512 slots of 4,096 codes, 8,192
+tasks), fused, f32 then uint8, its launches held to plain afterwards
+(``at_dryrun_cell`` in A, B, E and F's rows); D2 ``qwen3_14b``
+``train_4k`` and D3 ``decode_32k`` (tp + FSDP, parameters and moments
+drawn on the card), one warm step counting FLOPs on local shards and
+collective bytes, one timed step, each held to ``fits`` (80 GB) and its
+record printed; D4 a smoke checkpoint restored onto the mesh, rank 0's
+slices equal to numpy's.  The world is destroyed at the end.
 Recall@10 is taken against the port's exact_search; the sharded results
 are held to the local path's on the same queries, and served results to
 a direct search: every local service cell bit for bit to the uncached
@@ -248,7 +259,7 @@ and F's rows their times at a mesh entry (``at_mesh_entry``); ``launches``
 sums the local and sharded paths, as before the service existed, and
 ``launches_by_path`` gives each path's own count, the mesh's, the
 service's, the mutation's, the tiered, the tenancy, the chaos, the autotune, the
-variants, the lm and the train path's included.  E's and F's
+variants, the lm, the train and the dryrun path's included.  E's and F's
 first sharded launches, with their LC inputs and those of the local
 path's first chunk, are written to ``build/sharded_launch.pt``, which
 ``tools/torch_fused_topk_bench.py`` and ``tools/torch_lut_build_bench.py``
@@ -4472,6 +4483,129 @@ def train_path(ops, seed: int, device: str = "cuda") -> tuple:
     return run, launches
 
 
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+DRYRUN_LM = (("D2", "qwen3_14b", "train_4k"), ("D3", "qwen3_14b",
+                                               "decode_32k"))
+
+
+def _dry_summary(rec: dict) -> dict:
+    keys = ("fits", "step_ms", "warm_ms", "peak_bytes", "per_device_flops",
+            "per_device_collective_bytes", "terms_s", "dominant", "chips",
+            "mesh", "oom")
+    return {k: rec.get(k) for k in keys}
+
+
+def dry_restore(seed: int) -> dict:
+    """D4: a smoke arch's checkpoint, saved by one process, restored onto
+    the production mesh with ``restore(shardings=)``: rank 0's slice of
+    every leaf on cuda:0, equal to numpy's slice of the saved array."""
+    import shutil
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import init_params_and_axes
+    from repro_torch.models.common import tree_leaves
+    cfg = registry.get_config("qwen3_14b", smoke=True)
+    params, axes = init_params_and_axes(cfg, seed, device="cpu")
+    ck_dir = DRYRUN_DIR / "ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    ck = Checkpointer(ck_dir)
+    ck.save(1, params)
+    mesh = meshlib.make_production_mesh()
+    sh = meshlib.shardings_for_tree(params, axes,
+                                    meshlib.rules_for(cfg, fsdp=True), mesh)
+    got, _ = ck.restore(1, params, shardings=sh)
+    with np.load(next(ck_dir.glob("step_*/proc_*/arrays.npz"))) as z:
+        saved = {k: z[k] for k in z.files}
+    leaves = sharded = 0
+    for (key, group, leaf, s) in _keyed_leaves(got, sh):
+        arr = saved[key] if group is None else saved[key][group]
+        want = arr[s.local_slices(arr.shape)]
+        local = leaf.to_local()
+        check(local.device == torch.device("cuda", 0),
+              f"D4 {key}: on {local.device}")
+        check(np.array_equal(local.cpu().numpy(), want),
+              f"D4 {key}: rank 0's slice differs from numpy's")
+        leaves += 1
+        sharded += want.size < arr.size
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    check(sharded > 0, "D4: no leaf sharded")
+    return {"arch": "qwen3_14b (smoke)", "leaves": leaves,
+            "sharded_leaves": sharded, "exact": True}
+
+
+def _keyed_leaves(tree, sh, path=(), group=None):
+    """(checkpoint key, group, leaf, sharding) in the checkpoint's keys."""
+    if isinstance(tree, torch.Tensor) or hasattr(tree, "to_local"):
+        yield "/".join(path), group, tree, sh
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "groups":
+                for g, sub in enumerate(v):
+                    yield from _keyed_leaves(sub, sh[k][g], path + (k,), g)
+            else:
+                yield from _keyed_leaves(v, sh[k], path + (k,), group)
+
+
+def dryrun_path(ops, ref, adc, seed: int) -> tuple:
+    """Phase 15: the dry-run as rank 0 of a fake world of 256 on the
+    (16, 16) production mesh.  D1 the drim cell (rank 0's shard at the
+    100M shape), fused, f32 then uint8, its launches captured and held to
+    plain after the counts were read; D2 / D3 ``qwen3_14b`` ``train_4k`` /
+    ``decode_32k`` (tp + FSDP), one warm and one timed step, held to
+    ``fits``; D4 a restore onto the mesh.  Returns (report, launches,
+    the D1 checks by kernel)."""
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"  device memory held entering the phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    run, seen, label = {}, {}, [""]
+    with meshlib.fake_world(256, "cuda"):
+        ops.reset_launches()
+        restore = capture_launches(ops, seen, label)
+        try:
+            for lut in (None, "uint8"):
+                label[0] = f"D1 {lut or 'f32'}"
+                rec = dryrun.run_drim_ann_cell(False, DRYRUN_DIR,
+                                               fused_scan=True,
+                                               lut_dtype=lut, seed=seed)
+                run[label[0]] = dict(_dry_summary(rec),
+                                     shard_shape=rec["shard_shape"])
+        finally:
+            restore()
+        launches = dict(ops.launches)
+        for name in SHARDED_KERNELS:
+            check(launches[name] > 0, f"{name} never launched in D1")
+        log("kernels vs plain, at the drim cell's rank-0 shape:")
+        checked = check_captured(ops, ref, adc, seen, phase="D1")
+        del seen
+        at_cell = {}
+        for where, errs in checked.items():
+            name = where.split(": ")[1].split(" ")[0]
+            at_cell[name] = {"where": where, **errs}
+        for tag, arch, shape in DRYRUN_LM:
+            rec = dryrun.run_cell(arch, registry.SHAPES_BY_NAME[shape],
+                                  False, DRYRUN_DIR, seed=seed)
+            check(rec["fits"], f"{tag} {arch} {shape} does not fit: "
+                               f"{rec['oom']}")
+            check(rec["step_ms"] > 0 and rec["per_device_flops"] > 0,
+                  f"{tag}: no step measured")
+            check(rec["per_device_collective_bytes"]["total"] > 0,
+                  f"{tag}: no collective counted")
+            run[tag] = dict(_dry_summary(rec), arch=arch, shape=shape)
+            log(f"  {tag} {arch} {shape}: " + json.dumps(run[tag]))
+        run["D4"] = dry_restore(seed)
+        log(f"  D4 restore: {run['D4']}")
+    check(not dist.is_initialized(), "the fake world outlived phase D")
+    run["secs"] = time.perf_counter() - t0
+    log(f"  dryrun path {run['secs']:.1f} s; launches {launches}")
+    return run, launches, at_cell
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-points", type=int, default=10_000_000)
@@ -4926,13 +5060,25 @@ def main() -> int:
         f"{TR2_STEPS} steps at B={TR2_BATCH} S={TR2_SEQ}; TR3 the train "
         f"entry point's restart and examples/torch_train_lm.py")
     train_run, train_launches = train_path(ops, args.seed)
+    # -- 15. the dry-run: rank 0 of the 256-GPU production mesh -----------
+    log("dryrun path: a fake world of 256 on the (16, 16) production mesh; "
+        "D1 the drim cell fused at rank 0's 100M shape (f32, uint8), D2 "
+        "qwen3_14b train_4k and D3 decode_32k (tp + FSDP), D4 a restore "
+        "onto the mesh")
+    dryrun_run, dryrun_launches, at_cell = dryrun_path(ops, ref, adc,
+                                                       args.seed)
+    for r in rows:
+        if r["name"] in at_cell:
+            r["at_dryrun_cell"] = dict(
+                at_cell[r["name"]],
+                shape=dryrun_run["D1 f32"]["shard_shape"])
     by_path = {"local": launches, "sharded": sharded_launches,
                "mesh": mesh_launches, "service": service_launches,
                "mutation": mutation_launches,
                "tiered": tiered_launches, "tenancy": tenancy_launches,
                "chaos": chaos_launches, "autotune": autotune_launches,
                "variants": variants_launches, "lm": lm_launches,
-               "train": train_launches}
+               "train": train_launches, "dryrun": dryrun_launches}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
     log(json.dumps({"mesh": mesh_run}))
@@ -4945,6 +5091,7 @@ def main() -> int:
     log(json.dumps({"variants": variants_run}))
     log(json.dumps({"lm": lm_run}))
     log(json.dumps({"train": train_run}))
+    log(json.dumps({"dryrun": dryrun_run}))
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,11 @@ The port keeps a model's groups as a list of per-group dicts where the
 reference stacks them on a leading axis: a ``groups`` list is stored
 stacked (one array a key, ``n_groups`` first) and split again on restore.
 
+``restore(..., shardings=)`` is the elastic path: a leaf named in the
+twin tree of ``launch/mesh.py::NamedSharding`` comes back as a DTensor
+holding only this rank's slice of the saved array, so a checkpoint saved
+on one mesh (or by one process) restores onto another.
+
 Async save: torch tensors are mutable and the optimizer updates them in
 place, so ``save`` copies every tensor to host memory before it returns
 (the reference relies on immutable arrays instead); only the file writes
@@ -74,6 +79,33 @@ def _flatten(tree) -> dict:
         tensors.append(x)
     _walk(tree, rec)
     return flat
+
+
+def _sharding_map(node, path=(), group=None, out=None) -> dict:
+    """{(key, group): NamedSharding} of a shardings twin tree, keyed as
+    :func:`_walk` keys the leaves; None or a missing branch names none."""
+    out = {} if out is None else out
+    if node is None:
+        return out
+    if hasattr(node, "placements") and hasattr(node, "local_slices"):
+        out[(_SEP.join(path), group)] = node
+    elif isinstance(node, dict):
+        for k, v in node.items():
+            if k == "groups" and isinstance(v, list):
+                for i, sub in enumerate(v):
+                    _sharding_map(sub, path + (k,), i, out)
+            else:
+                _sharding_map(v, path + (str(k),), group, out)
+    elif isinstance(node, tuple) and hasattr(node, "_fields"):
+        for f in node._fields:
+            _sharding_map(getattr(node, f), path + ("." + f,), group, out)
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _sharding_map(v, path + (str(i),), group, out)
+    else:
+        raise TypeError(f"unexpected sharding {type(node)} at "
+                        f"{_SEP.join(path)}")
+    return out
 
 
 def _to_host(x: torch.Tensor) -> np.ndarray:
@@ -165,12 +197,15 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int], like: Any,
+    def restore(self, step: Optional[int], like: Any, shardings=None,
                 device=None) -> tuple[Any, dict]:
         """Restore into the structure of ``like`` (a tree of tensors, meta
         tensors included) -> (tree, extra).  Each leaf takes its ``like``
         leaf's dtype, and goes to ``device`` (default: the ``like`` leaf's
-        own device)."""
+        own device).  A leaf named in ``shardings`` (a twin tree of
+        ``NamedSharding``, None where a leaf is not sharded) becomes a
+        DTensor of this rank's slice only, on ``device`` (default: the
+        mesh's device type, this rank's card)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -183,6 +218,7 @@ class Checkpointer:
                 for k in z.files:
                     data[k] = z[k]
         counts = {k: len(t) for k, (t, _) in _flatten(like).items()}
+        smap = _sharding_map(shardings)
 
         def load(key, group, leaf):
             if key not in data:
@@ -195,7 +231,24 @@ class Checkpointer:
                 raise ValueError(f"{key}: {arr.shape} != {want}")
             if group is not None:
                 arr = arr[group]
+            sh = smap.get((key, group))
+            if sh is not None:
+                return _shard_of(arr, sh, leaf.dtype, device)
             dev = leaf.device if device is None else torch.device(device)
             return torch.from_numpy(arr).to(dev, leaf.dtype, copy=True)
 
         return _walk(like, load), manifest["extra"]
+
+
+def _shard_of(arr: np.ndarray, sharding, dtype, device) -> torch.Tensor:
+    """This rank's slice of the saved ``arr`` as a DTensor of its shape."""
+    from repro_torch.launch.mesh import to_dtensor
+    mesh = sharding.mesh
+    if device is None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if mesh.device_type == "cuda"
+                  else torch.device(mesh.device_type))
+    part = np.ascontiguousarray(arr[sharding.local_slices(arr.shape)])
+    local = torch.from_numpy(part).to(torch.device(device), dtype,
+                                      copy=True)
+    return to_dtensor(local, sharding, arr.shape)

@@ -8,15 +8,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.registry import ShapeCell
-from repro_torch.models import ModelConfig, init_caches, init_params
+from repro_torch.models import ModelConfig, init_caches, init_params_and_axes
 from repro_torch.models.common import count_params
 
 _META = torch.device("meta")
 
 
-def param_specs(cfg: ModelConfig) -> dict:
-    """The parameter tree of ``cfg`` as meta tensors."""
-    return init_params(cfg, device="meta")
+def param_specs(cfg: ModelConfig) -> tuple:
+    """-> (the parameter tree of ``cfg`` as meta tensors, its logical-axes
+    twin tree), as the reference's ``param_specs`` returns them."""
+    return init_params_and_axes(cfg, device="meta")
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
@@ -25,7 +26,7 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 
 
 def count_params_analytic(cfg: ModelConfig) -> int:
-    return count_params(param_specs(cfg))
+    return count_params(param_specs(cfg)[0])
 
 
 def _meta(shape, dtype) -> torch.Tensor:

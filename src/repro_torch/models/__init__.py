@@ -4,10 +4,12 @@ RG-LRU mixers, and the decode step the serving loop runs."""
 
 from repro_torch.models.common import (ModelConfig, MoEConfig, MLAConfig,
                                        SSMConfig, RGLRUConfig, count_params)
-from repro_torch.models.transformer import (init_params, forward, encode,
-                                            init_caches, decode_step,
+from repro_torch.models.transformer import (init_params,
+                                            init_params_and_axes, forward,
+                                            encode, init_caches, decode_step,
                                             group_structure)
 
 __all__ = ["ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig",
-           "RGLRUConfig", "count_params", "init_params", "forward", "encode",
-           "init_caches", "decode_step", "group_structure"]
+           "RGLRUConfig", "count_params", "init_params",
+           "init_params_and_axes", "forward", "encode", "init_caches",
+           "decode_step", "group_structure"]

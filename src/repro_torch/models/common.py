@@ -3,10 +3,12 @@
 Parameters are plain nested dicts of tensors under the reference's names
 (``params["groups"][g]["l0"]["attn"]["wq"]``); the reference's stacked
 ``(n_groups, ...)`` leaves are a list of per-group dicts here, so a layer's
-tensors are its own and decode caches can be written in place.  The
-reference's logical sharding axes belong to the LM's mesh rules
-(``launch/mesh.py``'s rest), which are not ported yet; the trees carry no
-axes.
+tensors are its own and decode caches can be written in place.  Beside
+the parameters, :class:`TreeBuilder` records the reference's twin tree of
+logical axes (``("embed", "heads", "head_dim")`` for ``wq``), which
+``launch/mesh.py``'s rules turn into shardings; a group's axes are the
+per-group ones, and the reference's ``("layers",) + axes`` is what the
+stacked view of the same leaf carries.
 
 Initialisation draws ``trunc_normal(-2, 2) * 1/sqrt(fan_in)`` from one
 explicit :class:`torch.Generator` on the target device, tensor by tensor
@@ -132,19 +134,25 @@ class ModelConfig:
 
 class TreeBuilder:
     """Builds a nested dict of parameters on ``device``, drawing every
-    random tensor from ``generator`` (None on the ``meta`` device)."""
+    random tensor from ``generator`` (None on the ``meta`` device), and
+    its twin tree of logical axes (a tuple of names, one per dim)."""
 
     def __init__(self, generator: Optional[torch.Generator],
                  device: torch.device):
         self.generator = generator
         self.device = torch.device(device)
         self.params: dict = {}
+        self.axes: dict = {}
 
-    def add(self, name, shape, dtype, scale: Optional[float] = None,
+    def add(self, name, shape, axes: Tuple[Optional[str], ...], dtype,
+            scale: Optional[float] = None,
             init: Optional[torch.Tensor] = None) -> torch.Tensor:
         """A trunc-normal(-2, 2) tensor times ``scale`` (default 1 /
         sqrt(fan_in), fan_in = shape[-2], or shape[-1] for a vector), drawn
-        in f32 and cast to ``dtype``; or ``init`` as given."""
+        in f32 and cast to ``dtype``; or ``init`` as given.  ``axes``
+        names the logical axis of each dim."""
+        if len(axes) != len(shape):
+            raise ValueError(f"{name}: axes {axes} for shape {shape}")
         if init is not None:
             arr = init.to(self.device, dtype)
         elif self.device.type == "meta":
@@ -158,20 +166,22 @@ class TreeBuilder:
                                         generator=self.generator)
             arr = arr.mul_(scale).to(dtype)
         self.params[name] = arr
+        self.axes[name] = tuple(axes)
         return arr
 
-    def ones(self, name, n: int) -> torch.Tensor:
+    def ones(self, name, n: int, axes) -> torch.Tensor:
         """An f32 vector of ones (norm scales)."""
-        return self.add(name, (n,), torch.float32,
+        return self.add(name, (n,), axes, torch.float32,
                         init=torch.ones(n, device=self.device))
 
-    def zeros(self, name, n: int, dtype=torch.float32) -> torch.Tensor:
-        return self.add(name, (n,), dtype,
+    def zeros(self, name, n: int, axes, dtype=torch.float32) -> torch.Tensor:
+        return self.add(name, (n,), axes, dtype,
                         init=torch.zeros(n, device=self.device))
 
     def sub(self, name) -> "TreeBuilder":
         child = TreeBuilder(self.generator, self.device)
         self.params[name] = child.params
+        self.axes[name] = child.axes
         return child
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding as SH
 from repro_torch.models.common import ModelConfig, TreeBuilder
 
 MASK_LOGIT = -1e30           # padded vocab rows (the reference's, not -inf)
@@ -18,7 +19,7 @@ MASK_LOGIT = -1e30           # padded vocab rows (the reference's, not -inf)
 # -- norms -------------------------------------------------------------------
 
 def init_rmsnorm(tb: TreeBuilder, name: str, dim: int):
-    tb.ones(name, dim)
+    tb.ones(name, dim, ("embed",))
 
 
 def rmsnorm(w, x, eps: float = 1e-6):
@@ -29,14 +30,19 @@ def rmsnorm(w, x, eps: float = 1e-6):
 
 def init_layernorm(tb: TreeBuilder, name: str, dim: int):
     sub = tb.sub(name)
-    sub.ones("scale", dim)
-    sub.zeros("bias", dim)
+    sub.ones("scale", dim, ("embed",))
+    sub.zeros("bias", dim, ("embed",))
 
 
 def layernorm(p, x, eps: float = 1e-6):
     xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    var = xf.var(-1, unbiased=False, keepdim=True)
+    if SH.is_dtensor(xf):     # mean and var by sums: DTensor's backward
+        n = xf.shape[-1]      # cannot turn a P(sum) gradient into P(avg)
+        mu = xf.sum(-1, keepdim=True) / n
+        var = ((xf - mu) ** 2).sum(-1, keepdim=True) / n
+    else:
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, unbiased=False, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"]
             + p["bias"]).to(x.dtype)
 
@@ -44,12 +50,50 @@ def layernorm(p, x, eps: float = 1e-6):
 # -- embedding ---------------------------------------------------------------
 
 def init_embedding(tb: TreeBuilder, cfg: ModelConfig):
-    tb.add("embedding", (cfg.vocab_padded, cfg.d_model), cfg.dtype,
-           scale=1.0)
+    tb.add("embedding", (cfg.vocab_padded, cfg.d_model), ("vocab", "embed"),
+           cfg.dtype, scale=1.0)
 
 
 def embed(params, tokens):
-    return params["embedding"][tokens]
+    table = params["embedding"]
+    if SH.is_dtensor(table):
+        return _embed_sharded(table, tokens)
+    return table[tokens]
+
+
+def _embed_sharded(table, tokens):
+    """The lookup on local shards (DTensor's embedding backward is not
+    reliable across versions): each rank looks up the rows of its vocab
+    shard, zero elsewhere, a partial sum over the vocab's mesh dims; the
+    embed dim is gathered, the tokens keep their batch sharding."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    bdims = SH.sharded_dims(tokens.placements, 0) if SH.is_dtensor(
+        tokens) else []
+    vdims = [i for i in SH.sharded_dims(table.placements, 0)
+             if i not in bdims]
+
+    pl = SH.per_dim(mesh)
+
+    t_pl = pl(lambda i: Shard(0) if i in vdims else Replicate())
+    t_gpl = pl(lambda i: Shard(0) if i in vdims else
+               Partial() if i in bdims else Replicate())
+    tok_pl = pl(lambda i: Shard(0) if i in bdims else Replicate())
+    out_pl = pl(lambda i: Shard(0) if i in bdims else
+                Partial() if i in vdims else Replicate())
+    v_loc = table.shape[0]
+    for i in vdims:
+        v_loc = -(-v_loc // mesh.size(i))
+    v_off = SH.flat_coordinate(mesh, vdims) * v_loc
+
+    def fn(tl, tok):
+        loc = tok.long() - v_off
+        inr = (loc >= 0) & (loc < tl.shape[0])
+        rows = F.embedding(loc.clamp(0, tl.shape[0] - 1), tl)
+        return rows * inr[..., None].to(rows.dtype)
+
+    return SH.run_local(fn, mesh, (table, tokens), (t_pl, tok_pl),
+                        (t_gpl, None), (out_pl,))
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -77,14 +121,45 @@ def matmul_f32(x, w):
     directly (``torch.mm(..., out_dtype=)``, differentiable through
     ``_MatmulF32``), so the weight is never copied to f32; on the CPU the
     operands are cast."""
-    if x.dtype == w.dtype == torch.float32:
-        return x @ w.t()
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda:
-        out = _MatmulF32.apply(x2, w)
+    if SH.is_dtensor(w):
+        out = _matmul_f32_sharded(x2, w)
     else:
-        out = x2.float() @ w.float().t()
+        out = _matmul_f32_2d(x2, w)
     return out.reshape(*x.shape[:-1], w.shape[0])
+
+
+def _matmul_f32_2d(x2, w):
+    if x2.dtype == w.dtype == torch.float32:
+        return x2 @ w.t()
+    if x2.is_cuda:
+        return _MatmulF32.apply(x2, w)
+    return x2.float() @ w.float().t()
+
+
+def _matmul_f32_sharded(x2, w):
+    """:func:`matmul_f32` on local shards (``aten::mm.dtype`` has no
+    DTensor rule on the card, and DTensor may gather the vocab): rows of
+    ``x2`` and of ``w`` keep their sharding, the contracted dim is
+    gathered; the product is sharded on its rows as ``x2`` and on its
+    columns as ``w``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = w.device_mesh
+    xr = SH.sharded_dims(x2.placements, 0) if SH.is_dtensor(x2) else []
+    wr = [i for i in SH.sharded_dims(w.placements, 0) if i not in xr]
+
+    pl = SH.per_dim(mesh)
+
+    x_pl = pl(lambda i: Shard(0) if i in xr else Replicate())
+    w_pl = pl(lambda i: Shard(0) if i in wr else Replicate())
+    x_gpl = pl(lambda i: Shard(0) if i in xr else
+               Partial() if i in wr else Replicate())
+    w_gpl = pl(lambda i: Shard(0) if i in wr else
+               Partial() if i in xr else Replicate())
+    out_pl = pl(lambda i: Shard(0) if i in xr else
+                Shard(1) if i in wr else Replicate())
+    return SH.run_local(_matmul_f32_2d, mesh, (x2, w), (x_pl, w_pl),
+                        (x_gpl, w_gpl), (out_pl,))
 
 
 def unembed(params, x, cfg: ModelConfig):
@@ -92,7 +167,12 @@ def unembed(params, x, cfg: ModelConfig):
     w = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
     logits = matmul_f32(x, w)
     if cfg.vocab_padded != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = MASK_LOGIT
+        if SH.is_dtensor(logits):     # no in-place rule for every layout
+            pad = torch.arange(cfg.vocab_padded,
+                               device=logits.device) >= cfg.vocab_size
+            logits = logits.masked_fill(pad, MASK_LOGIT)
+        else:
+            logits[..., cfg.vocab_size:] = MASK_LOGIT
     return logits
 
 
@@ -126,18 +206,18 @@ def init_ffn(tb: TreeBuilder, cfg: ModelConfig, d_ff: int | None = None):
     d_ff = d_ff or cfg.d_ff
     sub = tb.sub("ffn")
     if cfg.ffn in ("swiglu", "geglu"):
-        sub.add("w_gate", (cfg.d_model, d_ff), cfg.dtype)
-        sub.add("w_up", (cfg.d_model, d_ff), cfg.dtype)
+        sub.add("w_gate", (cfg.d_model, d_ff), ("embed", "mlp"), cfg.dtype)
+        sub.add("w_up", (cfg.d_model, d_ff), ("embed", "mlp"), cfg.dtype)
     else:
-        sub.add("w_up", (cfg.d_model, d_ff), cfg.dtype)
-    sub.add("w_down", (d_ff, cfg.d_model), cfg.dtype)
+        sub.add("w_up", (cfg.d_model, d_ff), ("embed", "mlp"), cfg.dtype)
+    sub.add("w_down", (d_ff, cfg.d_model), ("mlp", "embed"), cfg.dtype)
 
 
 def ffn_apply(p, x, kind: str):
     if kind == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = F.silu(SH.linear(x, p["w_gate"])) * SH.linear(x, p["w_up"])
     elif kind == "geglu":
-        h = gelu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = gelu(SH.linear(x, p["w_gate"])) * SH.linear(x, p["w_up"])
     else:
-        h = gelu(x @ p["w_up"])
-    return h @ p["w_down"]
+        h = gelu(SH.linear(x, p["w_up"]))
+    return SH.linear(h, p["w_down"])

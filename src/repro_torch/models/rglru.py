@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding as SH
 from repro_torch.models.common import ModelConfig, RGLRUConfig, TreeBuilder
 from repro_torch.models.layers import gelu
 
@@ -34,21 +35,21 @@ def init_rglru(tb: TreeBuilder, cfg: ModelConfig, name="rglru"):
     d = cfg.d_model
     dr = rc.d_rnn or d
     sub = tb.sub(name)
-    sub.add("w_x", (d, dr), cfg.dtype)
-    sub.add("w_y", (d, dr), cfg.dtype)      # gate branch
-    sub.add("conv_w", (rc.conv_width, dr), cfg.dtype)
-    sub.zeros("conv_b", dr, cfg.dtype)
-    sub.add("w_a_gate", (dr, dr), cfg.dtype)
-    sub.add("w_i_gate", (dr, dr), cfg.dtype)
-    sub.add("lam", (dr,), torch.float32, init=torch.log(torch.expm1(
+    sub.add("w_x", (d, dr), ("embed", "mlp"), cfg.dtype)
+    sub.add("w_y", (d, dr), ("embed", "mlp"), cfg.dtype)     # gate branch
+    sub.add("conv_w", (rc.conv_width, dr), (None, "mlp"), cfg.dtype)
+    sub.zeros("conv_b", dr, ("mlp",), cfg.dtype)
+    sub.add("w_a_gate", (dr, dr), ("mlp", "mlp2"), cfg.dtype)
+    sub.add("w_i_gate", (dr, dr), ("mlp", "mlp2"), cfg.dtype)
+    sub.add("lam", (dr,), ("mlp",), torch.float32, init=torch.log(torch.expm1(
         torch.linspace(0.9, 0.999, dr) ** (-1.0 / _C) - 1.0 + 1e-8)))
-    sub.add("w_out", (dr, d), cfg.dtype)
+    sub.add("w_out", (dr, d), ("mlp", "embed"), cfg.dtype)
 
 
 def _gates(p, xr):
     """xr (..., dr) -> log-decay log_a and the gated input contribution."""
-    r = torch.sigmoid((xr @ p["w_a_gate"]).float())
-    i = torch.sigmoid((xr @ p["w_i_gate"]).float())
+    r = torch.sigmoid(SH.linear(xr, p["w_a_gate"]).float())
+    i = torch.sigmoid(SH.linear(xr, p["w_i_gate"]).float())
     log_a = -_C * F.softplus(p["lam"]) * r              # (..., dr) <= 0
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12))
@@ -82,22 +83,22 @@ def linear_scan(log_a, x):
 
 def rglru_apply(p, x, cfg: ModelConfig):
     """Full-sequence RG-LRU block.  x (B, L, d) -> (B, L, d)."""
-    xr = x @ p["w_x"]
+    xr = SH.linear(x, p["w_x"])
     xr, _ = _conv(xr, p["conv_w"], p["conv_b"])
     log_a, gx = _gates(p, xr)
     h = linear_scan(log_a, gx)
-    y = h.to(x.dtype) * gelu(x @ p["w_y"])
-    return y @ p["w_out"]
+    y = h.to(x.dtype) * gelu(SH.linear(x, p["w_y"]))
+    return SH.linear(y, p["w_out"])
 
 
 def rglru_decode(p, x, cfg: ModelConfig, cache: RGLRUCache):
     """One-step recurrence.  x (B, 1, d)."""
-    xr = x @ p["w_x"]
+    xr = SH.linear(x, p["w_x"])
     xr, new_conv = _conv(xr, p["conv_w"], p["conv_b"], cache=cache.conv)
     log_a, gx = _gates(p, xr[:, 0])
     h = torch.exp(log_a) * cache.h + gx
-    y = h[:, None, :].to(x.dtype) * gelu(x @ p["w_y"])
-    return y @ p["w_out"], RGLRUCache(h, new_conv)
+    y = h[:, None, :].to(x.dtype) * gelu(SH.linear(x, p["w_y"]))
+    return SH.linear(y, p["w_out"]), RGLRUCache(h, new_conv)
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, dtype, device=None):

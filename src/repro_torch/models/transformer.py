@@ -96,6 +96,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     drawn from one ``torch.Generator`` seeded with ``seed`` on that device,
     tensor by tensor (no f32 copy of the whole model).  On ``"meta"``
     nothing is allocated."""
+    return init_params_and_axes(cfg, seed, device=device)[0]
+
+
+def init_params_and_axes(cfg: ModelConfig, seed: int = 0, *,
+                         device="cuda") -> tuple:
+    """-> (params, logical axes): :func:`init_params`'s tree and its twin
+    of axis-name tuples, as the reference's ``init_params`` returns them
+    (``groups`` is a list of per-group axes, each the reference's group
+    axes without the leading ``"layers"``)."""
     dev = (torch.device("meta") if str(device) == "meta"
            else resolve_device(device))
     gen = (None if dev.type == "meta"
@@ -103,20 +112,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     tb = TreeBuilder(gen, dev)
     L.init_embedding(tb, cfg)
     if not cfg.tie_embeddings:
-        tb.add("lm_head", (cfg.vocab_padded, cfg.d_model), cfg.dtype)
+        tb.add("lm_head", (cfg.vocab_padded, cfg.d_model), ("vocab", "embed"),
+               cfg.dtype)
     L.init_rmsnorm(tb, "final_norm", cfg.d_model)
 
     period, n_groups, tail = group_structure(cfg)
     moe_types = _moe_types(cfg)
-    groups = []
+    groups, group_axes = [], []
     for _ in range(n_groups):
         gtb = TreeBuilder(gen, dev)
         for j in range(period):
             _init_layer(gtb.sub(f"l{j}"), cfg, cfg.layer_types[j],
                         moe_types[j], cfg.is_encdec)
         groups.append(gtb.params)
+        group_axes.append(gtb.axes)
     if groups:
         tb.params["groups"] = groups
+        tb.axes["groups"] = group_axes
     for t_i, ltype in enumerate(tail):
         _init_layer(tb.sub(f"tail{t_i}"), cfg, ltype,
                     moe_types[period * n_groups + t_i], cfg.is_encdec)
@@ -131,7 +143,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
             A.init_attention(letb, enc_cfg)
             L.init_rmsnorm(letb, "norm_ffn", cfg.d_model)
             L.init_ffn(letb, enc_cfg)
-    return tb.params
+    return tb.params, tb.axes
 
 
 def _layers(params, cfg: ModelConfig):

@@ -19,6 +19,14 @@ Two things differ from a transcription:
 
 The step counter lives on the host (a 0-dim int32 CPU tensor), so the
 schedule and the bias corrections cost no device synchronisation.
+
+On DTensor trees (``launch/mesh.py``'s shardings) the update is the same
+elementwise math on each rank's local shards: a gradient is first
+redistributed to its moment's placements (a reduce-scatter of a partial
+gradient), the parameter is updated on that slice and, where its own
+placements differ (ZeRO-1: moments sharded, parameters replicated),
+gathered back.  The global norm sums each leaf's local squares once per
+distinct shard across the mesh.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.models import sharding as SH
 from repro_torch.models.common import tree_leaves, tree_map
 
 CHUNK = 1 << 26          # elements a chunk: 256 MB of f32 temporaries
@@ -70,14 +79,17 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
+def _zeros_f32(p):
+    if SH.is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def init(params) -> AdamWState:
+    """Zero moments shaped (and, for DTensors, sharded) like ``params``."""
     return AdamWState(step=torch.zeros((), dtype=torch.int32),
-                      mu=tree_map(lambda p: torch.zeros(
-                          p.shape, dtype=torch.float32, device=p.device),
-                          params),
-                      nu=tree_map(lambda p: torch.zeros(
-                          p.shape, dtype=torch.float32, device=p.device),
-                          params))
+                      mu=tree_map(_zeros_f32, params),
+                      nu=tree_map(_zeros_f32, params))
 
 
 def _chunks(t: torch.Tensor):
@@ -85,12 +97,32 @@ def _chunks(t: torch.Tensor):
     return t.view(-1).split(CHUNK)
 
 
+def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+    total = torch.zeros((), device=x.device)
+    for c in _chunks(x.contiguous()):
+        total = total + torch.sum(torch.square(c.to(torch.float32)))
+    return total
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, accumulated in f32."""
+    """sqrt of the sum of every leaf's squares, accumulated in f32.  A
+    DTensor leaf adds its local shard's squares as a share that is summed
+    across the mesh dims sharding it (a replicated dim holds copies)."""
     total = torch.zeros(())
     for x in tree_leaves(tree):
-        for c in _chunks(x.contiguous()):
-            total = total + torch.sum(torch.square(c.to(torch.float32)))
+        if SH.is_dtensor(x):
+            from torch.distributed.tensor import DTensor, Partial, Replicate
+            if any(p.is_partial() for p in x.placements):
+                x = x.redistribute(x.device_mesh, tuple(
+                    Replicate() if p.is_partial() else p
+                    for p in x.placements))
+            share = DTensor.from_local(
+                _sum_squares(x.to_local()), x.device_mesh,
+                tuple(Partial() if p.is_shard() else Replicate()
+                      for p in x.placements), run_check=False)
+            total = total + share.full_tensor()
+        else:
+            total = total + _sum_squares(x)
     return torch.sqrt(total)
 
 
@@ -123,6 +155,14 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
     b1c = float(1 - _f32(cfg.b1) ** _f32(step))
     b2c = float(1 - _f32(cfg.b2) ** _f32(step))
     for p, g, m, v, rank in _walk(params, grads, state.mu, state.nu):
+        p_full = None
+        if SH.is_dtensor(p):
+            # the moments' placements name the slice each rank updates
+            mesh, pl = m.device_mesh, tuple(m.placements)
+            g = g.redistribute(mesh, pl).to_local()
+            if tuple(p.placements) != pl:
+                p_full, p = p, p.redistribute(mesh, pl)
+            p, m, v = p.to_local(), m.to_local(), v.to_local()
         if not (p.is_contiguous() and m.is_contiguous()
                 and v.is_contiguous()):
             raise ValueError("AdamW updates contiguous tensors in place")
@@ -141,5 +181,10 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
                 pc.sub_(delta.mul_(lr))
             else:
                 pc.copy_(pc.to(torch.float32).sub_(delta.mul_(lr)))
+        if p_full is not None:
+            from torch.distributed.tensor import DTensor
+            upd = DTensor.from_local(p, mesh, pl, run_check=False)
+            p_full.to_local().copy_(upd.redistribute(
+                mesh, p_full.placements).to_local())
     metrics = {"grad_norm": gnorm, "lr": lr_t}
     return params, AdamWState(step, state.mu, state.nu), metrics

@@ -1237,3 +1237,72 @@ def test_bf16_train_step_on_card(cuda):
     assert all(np.isfinite(h["loss"]) and h["grad_norm"] > 0 for h in hist)
     assert np.mean([h["loss"] for h in hist[-3:]]) < \
         np.mean([h["loss"] for h in hist[:3]])
+
+
+@pytest.mark.parametrize("lut_dtype", [None, "uint8"])
+def test_drim_dryrun_cell_launches_kernels_equal_plain(cuda, tmp_path,
+                                                       lut_dtype):
+    """The dry-run's drim cell at rank 0's 100M shape (512 slots of 4,096
+    codes, 8,192 tasks) launches A then E (f32) or B then F (uint8), fused,
+    and C or D unfused; rank 0's step on the card equals the same step
+    on CPU copies of its tensors (the kernels' plain versions)."""
+    from repro_torch.configs import drim_ann
+    from repro_torch.launch import dryrun
+    quant = lut_dtype == "uint8"
+    lc = "lut_build_q" if quant else "lut_build"
+    for fused, dc in ((True, "pq_scan_topk_q" if quant else "pq_scan_topk"),
+                      (False, "pq_scan_dc_q" if quant else "pq_scan_dc")):
+        ops.reset_launches()
+        rec = dryrun.run_drim_ann_cell(False, tmp_path, fused_scan=fused,
+                                       lut_dtype=lut_dtype)
+        assert rec["fits"] and rec["shard_shape"]["slots"] == 512
+        assert ops.launches[lc] == 2 and ops.launches[dc] == 2
+    shp = dryrun._drim_shape(drim_ann.config(), 256)
+    inp = dryrun.drim_inputs(shp, cuda)
+    cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else
+               type(v)(*(x.cpu() for x in v))) for k, v in inp.items()}
+    for fused in (True, False):
+        d1, i1 = dryrun.drim_step(inp, shp["k"], fused, quant)
+        d2, i2 = dryrun.drim_step(cpu, shp["k"], fused, quant)
+        torch.testing.assert_close(d1.cpu(), d2, rtol=RTOL, atol=ATOL)
+        assert (i1.cpu() == i2).float().mean() > 0.99
+
+
+def test_distribute_and_restore_under_fake_world_on_card(cuda, tmp_path):
+    """Under a fake world of 256, ``distribute_tree`` and
+    ``restore(shardings=)`` put on cuda:0 exactly rank 0's slices of a
+    smoke model sharded by the production rules."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import init_params_and_axes
+    from repro_torch.models.common import tree_leaves
+    cfg = registry.get_config("qwen3_14b", smoke=True)
+    params, axes = init_params_and_axes(cfg, 0, device="cpu")
+    ck = Checkpointer(tmp_path)
+    ck.save(3, params)
+    with M.fake_world(256, "cuda"):
+        mesh = M.make_production_mesh()
+        sh = M.shardings_for_tree(params, axes, M.rules_for(cfg, True), mesh)
+        put = M.distribute_tree(params, sh)
+        got, _ = ck.restore(3, params, shardings=sh)
+        n_sharded = 0
+        for a, b, t, s in zip(tree_leaves(put), tree_leaves(got),
+                              tree_leaves(params), _shardings(sh)):
+            part = t[s.local_slices(t.shape)]
+            for x in (a, b):
+                assert x.to_local().device == torch.device("cuda", 0)
+                assert torch.equal(x.to_local().cpu(), part)
+                assert tuple(x.placements) == s.placements
+            n_sharded += part.numel() < t.numel()
+        assert n_sharded > 0
+
+
+def _shardings(tree):
+    if hasattr(tree, "placements"):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _shardings(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _shardings(v)]
+    return []

@@ -79,6 +79,20 @@ def test_port_imports_with_jax_and_reference_blocked():
         "from repro_torch.launch.mesh import Mesh, make_shard_mesh\n"
         "from repro_torch.core.sharded_search import (make_sharded_step,\n"
         "                                             make_sharded_step_lut)\n"
+        "assert {'repro_torch.launch.dryrun', 'repro_torch.launch.roofline',\n"
+        "        'repro_torch.launch.roofline_patch',\n"
+        "        'repro_torch.launch.roofline_report',\n"
+        "        'repro_torch.launch.perf_iterations',\n"
+        "        'repro_torch.models.sharding'} <= set(mods), mods\n"
+        "from repro_torch.launch.mesh import (make_production_mesh,\n"
+        "    rules_for, resolve_pspec, shardings_for_tree, distribute_tree,\n"
+        "    fake_world, BASE_RULES, NamedSharding, PartitionSpec)\n"
+        "from repro_torch.launch.dryrun import run_cell, run_drim_ann_cell\n"
+        "from repro_torch.launch.roofline import (analytic_roofline,\n"
+        "    analyze_step, StepCounter, model_flops)\n"
+        "from repro_torch.models import init_params_and_axes\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()   # importing touches no group\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
