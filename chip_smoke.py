@@ -238,12 +238,18 @@ and DC kernels of the LUT dtypes it measured; the variants path all six:
 A-D in V1 and the local entry points, E by the distributed example, F by
 the sharded uint8 spec; the lm path A, C and E in LM3, LM1 and LM2
 launching none of the six; the train path none; the dryrun path A, B,
-E and F).
+E and F, and the bf16-table kernels A-bf16, C-bf16 and E-bf16).
 Phase 15, the dry-run (``launch/dryrun.py``), runs this process as rank 0
 of a fake world of 256 on the (16, 16) production mesh: D1 the drim cell
 at rank 0's shard of the 100M shape (512 slots of 4,096 codes, 8,192
-tasks), fused, f32 then uint8, its launches held to plain afterwards
-(``at_dryrun_cell`` in A, B, E and F's rows); D2 ``qwen3_14b``
+tasks), fused, f32, uint8 then bf16 (the reference's
+``_shard_tasks_fn(lut_dtype=bf16)``: A-bf16 then E-bf16), then bf16
+unfused (A-bf16, C-bf16, ``torch.topk``), its launches held to plain
+afterwards (``at_dryrun_cell`` in A, B, E, F and the bf16 rows), the bf16
+step's ms logged beside f32's and uint8's (the records' median of five
+steps, and each fused step's device time by CUDA events) with its
+``hbm_bytes`` and the top-10 overlap of the bf16 and f32 winners; D2
+``qwen3_14b``
 ``train_4k`` and D3 ``decode_32k`` (tp + FSDP, parameters and moments
 drawn on the card), one warm step counting FLOPs on local shards and
 collective bytes, one timed step, each held to ``fits`` (80 GB) and its
@@ -259,7 +265,11 @@ and F's rows their times at a mesh entry (``at_mesh_entry``); ``launches``
 sums the local and sharded paths, as before the service existed, and
 ``launches_by_path`` gives each path's own count, the mesh's, the
 service's, the mutation's, the tiered, the tenancy, the chaos, the autotune, the
-variants, the lm, the train and the dryrun path's included.  E's and F's
+variants, the lm, the train and the dryrun path's included.  The bf16
+rows (``lut_build_bf16``, ``pq_scan_dc_bf16``, ``pq_scan_topk_bf16``) are
+checked, timed and bounded at the first chunk's shape and the sharded
+step's (the table at 2 B an entry); their ``launches`` are D1's, the
+one path that runs them.  E's and F's
 first sharded launches, with their LC inputs and those of the local
 path's first chunk, are written to ``build/sharded_launch.pt``, which
 ``tools/torch_fused_topk_bench.py`` and ``tools/torch_lut_build_bench.py``
@@ -330,6 +340,19 @@ KERNELS = {   # wrapper counter -> (route source, TPU kernel it replaces)
 LOCAL_KERNELS = ("lut_build", "lut_build_q", "pq_scan_dc", "pq_scan_dc_q")
 SHARDED_KERNELS = ("lut_build", "lut_build_q", "pq_scan_topk",
                    "pq_scan_topk_q")
+# The bf16-table variants of A, C and E: the counter -> (route source, the
+# TPU kernel it is a variant of).  They compute the reference's bf16 step,
+# which the reference runs through XLA (BF16_COMPUTES), and run in D1.
+BF16_KERNELS = {
+    "lut_build_bf16": ("src/repro_torch/kernels/csrc/lut_build.cu",
+                       "src/repro/kernels/lut_build.py:49"),
+    "pq_scan_dc_bf16": ("src/repro_torch/kernels/csrc/pq_scan.cu",
+                        "src/repro/kernels/pq_scan.py:118"),
+    "pq_scan_topk_bf16": ("src/repro_torch/kernels/csrc/pq_scan_topk.cu",
+                          "src/repro/kernels/pq_scan.py:214"),
+}
+BF16_COMPUTES = "src/repro/core/sharded_search.py:201"   # lut_dtype=bf16
+BF16_RTOL = 2.0 ** -8          # the bf16 rule: within 2^-8 of the value
 SERVICE_BUCKETS = (1, 2, 4, 8, 16, 32)
 
 
@@ -384,17 +407,22 @@ def bound_ms(nbytes: float, ops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def lut_bytes_ops(t: int, m: int, cb: int, dsub: int, quant: bool):
+def lut_bytes_ops(t: int, m: int, cb: int, dsub: int, quant: bool,
+                  bf16: bool = False):
     """LC's bound inputs: bytes (residuals, codebooks and norms read once,
-    the f32 table, or the u8 table with scale and bias, written once) and
-    operations (per entry dsub FMAs, the combination and the clamp; per
-    row ||r||^2; B adds the min, max, subtraction, division, rounding and
-    clamp of each entry)."""
+    the f32 table, the bf16 table, or the u8 table with scale and bias,
+    written once) and operations (per entry dsub FMAs, the combination and
+    the clamp; per row ||r||^2; B adds the min, max, subtraction,
+    division, rounding and clamp of each entry, the bf16 table the
+    rounding)."""
     nbytes = t * m * dsub * 4 + m * cb * dsub * 4 + m * cb * 4
-    nbytes += t * m * cb + 2 * t * m * 4 if quant else t * m * cb * 4
+    nbytes += (t * m * cb + 2 * t * m * 4 if quant else
+               t * m * cb * (2 if bf16 else 4))
     nops = t * m * cb * (2 * dsub + 4) + t * m * 2 * dsub
     if quant:
         nops += t * m * cb * 6
+    elif bf16:
+        nops += t * m * cb
     return nbytes, nops
 
 
@@ -510,14 +538,64 @@ def check_lut(ops, ref, adc, res, books, sqn, where: str,
     return lut, q, err, counts[1][0]
 
 
+def tol_of(ops, lut):
+    """(rtol, atol) of a scan on ``lut`` against its plain version: the
+    kernel tolerance, or on a bf16 table the bf16 rule (within 2^-8 of
+    the value; the plain version sums in the kernels' order and rounds
+    once, so the two are expected bit-equal)."""
+    return (BF16_RTOL, 0.0) if ops.table_kind(lut) == "bf16" else (RTOL, ATOL)
+
+
+def bf16_ulps(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulp of each value: 2^(e - 7) for |x| in [2^e, 2^(e+1))."""
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def check_lut_bf16(ops, adc, res, books, sqn, where: str, chunk: int = 0):
+    """A-bf16 against A's table cast to bf16 (bit for bit) and against its
+    plain version, ``build_lut_batch`` cast to bf16 (within one bf16 ulp:
+    A's f32 entries and plain's may round to neighbouring bf16 values),
+    ``chunk`` rows at a time.  Returns (A-bf16's table, max |err| vs
+    plain)."""
+    from repro_torch.core.pq import PQCodebook
+    t = res.shape[0]
+    chunk = chunk or t
+    got = ops.lut_build_bf16(res, books, sqn)
+    cbk = PQCodebook(books, sqn)
+    err, same = 0.0, 0
+    for a in range(0, t, chunk):
+        r = res[a:a + chunk]
+        a_cast = ops.lut_build(r, books, sqn).to(torch.bfloat16)
+        plain = adc.build_lut_batch(cbk, r).to(torch.bfloat16).float()
+        g = got[a:a + chunk]
+        torch.cuda.synchronize()
+        check(torch.equal(g, a_cast), f"lut_build_bf16 {where}, rows {a}+: "
+                                      f"differs from lut_build's table cast "
+                                      f"to bf16")
+        d = (g.float() - plain).abs()
+        err = max(err, float(d.max()))
+        same += int((d == 0).sum())
+        check(bool((d <= bf16_ulps(plain)).all()),
+              f"lut_build_bf16 {where}, rows {a}+: more than one bf16 ulp "
+              f"from its plain version (max |err| {err})")
+    log(f"  {where}: lut_build_bf16 == lut_build cast to bf16 bit for bit; "
+        f"max|err| {err:.3e} vs plain, bit-equal on {same} of "
+        f"{got.numel()} entries")
+    return got, err
+
+
 def check_scan(ops, plain_f32, plain_u8, lut, q, codes, sizes, where: str):
-    """C on the f32 table ``lut`` and D on the QuantizedLUT ``q`` (either
-    may be None) against their plain versions, with and without sizes."""
+    """C on the f32 table ``lut`` (C-bf16 on a bf16 one) and D on the
+    QuantizedLUT ``q`` (either may be None) against their plain versions,
+    with and without sizes; a bf16 table by the bf16 rule, at least 99%
+    of the distances bit-equal."""
     errs = {}
-    for name, table, plain in (("pq_scan_dc", lut, plain_f32),
-                               ("pq_scan_dc_q", q, plain_u8)):
+    for table, plain in ((lut, plain_f32), (q, plain_u8)):
         if table is None:
             continue
+        name = "pq_scan_dc" + ops.KIND_SUFFIX[ops.table_kind(table)]
+        rtol, atol = tol_of(ops, table)
         for sz in (sizes, None):
             got = ops.pq_scan_dc(table, codes, sz)
             want = plain(table, codes, sz)
@@ -526,8 +604,12 @@ def check_scan(ops, plain_f32, plain_u8, lut, q, codes, sizes, where: str):
             check(torch.equal(fin, torch.isfinite(got)),
                   f"{name} {where}: +inf mask differs")
             e = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
-            check(torch.allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL),
+            check(torch.allclose(got[fin], want[fin], rtol=rtol, atol=atol),
                   f"{name} {where}: max |err| {e}")
+            if name.endswith("_bf16") and fin.any():
+                eq = float((got[fin] == want[fin]).float().mean())
+                check(eq >= 0.99, f"{name} {where}: only {eq:.4f} of the "
+                                  f"distances bit-equal to plain")
             errs[name] = max(errs.get(name, 0.0), e)
     log(f"  {where}: " + ", ".join(f"{name} max|err| {e:.3e}"
                                    for name, e in errs.items()))
@@ -536,12 +618,13 @@ def check_scan(ops, plain_f32, plain_u8, lut, q, codes, sizes, where: str):
 
 def check_topk(ops, lut, codes, ids, sizes, k: int, where: str,
                slots=None) -> float:
-    """E or F against its plain version (DC, then top-k_pad): distances
-    allclose with equal +inf masks, -1 ids exactly at +inf, per-task id
-    sets equal apart from ties at the k-th place.  Then, bit for bit, the
-    first k entries of the (distance, row) sort of C's or D's output on
-    the same (gathered) inputs and, with ``slots``, the dense launch on
-    the gathered inputs.  Returns max |err| against the plain version."""
+    """E, F or E-bf16 against its plain version (DC, then top-k_pad):
+    distances allclose (bf16: by the bf16 rule, ``tol_of``) with equal
+    +inf masks, -1 ids exactly at +inf, per-task id sets equal apart from
+    ties at the k-th place.  Then, bit for bit, the first k entries of the
+    (distance, row) sort of C's, D's or C-bf16's output on the same
+    (gathered) inputs and, with ``slots``, the dense launch on the
+    gathered inputs.  Returns max |err| against the plain version."""
     from repro_torch.util import next_pow2
     k_pad = next_pow2(max(k, 8))
     gd, gi = ops.pq_scan_topk(lut, codes, ids, sizes, k, slots=slots)
@@ -554,7 +637,8 @@ def check_topk(ops, lut, codes, ids, sizes, k: int, where: str,
     sd, row = sd[:, :k], row[:, :k]
     si = torch.where(torch.isinf(sd), -1, dense[1].gather(1, row))
     torch.cuda.synchronize()
-    name = "pq_scan_topk_q" if isinstance(lut, tuple) else "pq_scan_topk"
+    name = "pq_scan_topk" + ops.KIND_SUFFIX[ops.table_kind(lut)]
+    rtol, atol = tol_of(ops, lut)
     what = f"{name} {where} k={k}" + ("" if slots is None else " (slots)")
     n = sd.shape[1]
     check(torch.equal(gd[:, :n], sd) and torch.equal(gi[:, :n], si)
@@ -573,9 +657,9 @@ def check_topk(ops, lut, codes, ids, sizes, k: int, where: str,
           f"{what}: -1 ids not exactly at +inf")
     err = float(np.abs(gd[~inf] - pd[:, :k][~inf]).max()) if (~inf).any() \
         else 0.0
-    check(np.allclose(gd[~inf], pd[:, :k][~inf], rtol=RTOL, atol=ATOL),
+    check(np.allclose(gd[~inf], pd[:, :k][~inf], rtol=rtol, atol=atol),
           f"{what}: max |err| {err}")
-    bad = tie_diff_rows(gd, gi, pd[:, :k], pi[:, :k], RTOL, ATOL)
+    bad = tie_diff_rows(gd, gi, pd[:, :k], pi[:, :k], rtol, atol)
     check(bad == 0, f"{what}: ids differ on {bad} tasks beyond k-th-place "
                     f"ties")
     return err
@@ -1291,8 +1375,10 @@ def save_launch(ops, captured, local_lc) -> None:
         f"({LAUNCH_FILE.stat().st_size / 2**20:.1f} MiB)")
 
 
-def fused_bytes_ops(codes, sizes, k_pad: int, quant: bool, slots=None):
-    """E/F's bound inputs: bytes (non-empty tasks' tables, the codes of
+def fused_bytes_ops(codes, sizes, k_pad: int, quant: bool, slots=None,
+                    bf16: bool = False):
+    """E/F's bound inputs (E-bf16's with ``bf16``: the table at 2 B an
+    entry, one rounding a row): bytes (non-empty tasks' tables, the codes of
     the valid rows, winners' ids, slots, sizes and outputs) and
     operations, with the shape counts they come from.  Dense form (no
     ``slots``): every task's rows are read.  Slot form: tasks that share a
@@ -1314,10 +1400,12 @@ def fused_bytes_ops(codes, sizes, k_pad: int, quant: bool, slots=None):
     code_rows = int(read.sum())
     # only the winners' ids are read: min(valid rows, k_pad) per task
     winners = int(rows.clamp(max=k_pad).sum())
-    table = M * CB + 8 * M if quant else M * CB * 4
+    table = (M * CB + 8 * M if quant else M * CB * 2 if bf16
+             else M * CB * 4)
     nbytes = (nonempty * table + code_rows * M * codes.element_size()
               + winners * 4 + index_bytes + t * 8 * k_pad)
-    nops = valid * M * (2 if quant else 1) + (nonempty * M if quant else 0)
+    nops = (valid * M * (2 if quant else 1) + (nonempty * M if quant else 0)
+            + (valid if bf16 else 0))
     return nbytes, nops, {"T": t, "M": M, "CB": CB, "C": c, "k_pad": k_pad,
                           "nonempty_tasks": nonempty, "valid_rows": valid,
                           "code_rows_read": code_rows,
@@ -1383,6 +1471,118 @@ def fused_report(ops, captured, launches) -> list:
             f"({shape['nonempty_tasks']} non-empty) C={c} k_pad={k_pad}, "
             f"{shape['valid_rows']} valid rows, {shape['code_rows_read']} "
             f"of them in {shape['slots_read']} distinct slots")
+    return rows
+
+
+def bf16_report(ops, adc, res, books, sqn, codes, ids, sizes,
+                captured) -> list:
+    """The bf16-table kernels at fixed shapes, held to their plain
+    versions, timed and bounded (the table at 2 B an entry): A-bf16 and
+    C-bf16 on the main path's first chunk (E-bf16 checked there too, dense),
+    A-bf16 on the sharded step's first LC residuals and E-bf16 on its first
+    fused launch, by slot as the step launches it and dense on the
+    gathered inputs, on that launch's table cast to bf16 (= A-bf16 of its
+    residuals).  Library: ``torch.cdist`` squared, cast, for A-bf16; no one
+    call computes C-bf16 or E-bf16.  ``launches`` are D1's, filled in by
+    the caller."""
+    from repro_torch.core.pq import PQCodebook
+    from repro_torch.core.topk import topk_smallest
+    from repro_torch.util import next_pow2
+    t, c = codes.shape[0], codes.shape[1]
+    dsub = books.shape[2]
+    where = f"main path T={t} C={c}"
+    lut, err_a = check_lut_bf16(ops, adc, res, books, sqn, where)
+    err_c = check_scan(ops, adc.adc_distances, None, lut, None, codes, sizes,
+                       where)["pq_scan_dc_bf16"]
+    check_topk(ops, lut, codes, ids, sizes, K, where)
+    cbk = PQCodebook(books, sqn)
+    valid = int(sizes.clamp(max=c).sum())
+
+    def lc_row(r, b, q, err, chunk_where):
+        n = r.shape[0]
+        r3 = r.view(n, M, dsub)
+        nbytes, nops = lut_bytes_ops(n, M, CB, dsub, False, bf16=True)
+        ms = event_ms(lambda: ops.lut_build_bf16(r, b, q), reps=20,
+                      queued=True)
+        plain_ms = event_ms(lambda: adc.build_lut_batch(
+            PQCodebook(b, q), r).to(torch.bfloat16), reps=5, warm=1,
+            queued=True)
+        lib_ms = event_ms(lambda: torch.cdist(r3.transpose(0, 1), b)
+                          .square_().to(torch.bfloat16), reps=20, queued=True)
+        b_ms, b_by = bound_ms(nbytes, nops)
+        log(f"  lut_build_bf16 {chunk_where}: {ms:.4f} ms (bound {b_ms:.4f} "
+            f"ms by {b_by}, {ms / b_ms:.2f}x; plain {plain_ms:.4f} ms, "
+            f"library {lib_ms:.4f} ms); T={n}")
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err,
+                "bytes": nbytes, "ops": nops,
+                "shape": {"T": n, "M": M, "CB": CB, "dsub": dsub}}
+
+    rows = []
+    a_row = lc_row(res, books, sqn, err_a, where)
+    step_res, step_books, step_sqn = captured["lut_build"]
+    _, err_step = check_lut_bf16(ops, adc, step_res, step_books, step_sqn,
+                                 f"sharded step T={step_res.shape[0]}",
+                                 chunk=QUERY_CHUNK * NPROBE)
+    a_row["at_sharded_step"] = lc_row(step_res, step_books, step_sqn,
+                                      err_step, "at the sharded step")
+    rows.append(dict(name="lut_build_bf16", **a_row))
+
+    c_bytes = (t * M * CB * 2 + valid * M * codes.element_size() + t * 4
+               + t * c * 4)
+    c_ops = valid * M + valid
+    ms = event_ms(lambda: ops.pq_scan_dc(lut, codes, sizes), reps=20,
+                  queued=True)
+    plain_ms = event_ms(lambda: adc.adc_distances(lut, codes, sizes), reps=5,
+                        warm=1, queued=True)
+    b_ms, b_by = bound_ms(c_bytes, c_ops)
+    log(f"  pq_scan_dc_bf16: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+        f"{ms / b_ms:.2f}x; plain {plain_ms:.4f} ms, library none); T={t} "
+        f"C={c}")
+    rows.append({"name": "pq_scan_dc_bf16", "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "max_abs_err": err_c, "bytes": c_bytes, "ops": c_ops,
+                 "shape": {"T": t, "M": M, "CB": CB, "C": c,
+                           "valid_rows": valid}})
+
+    lut32, scodes, sids, ssizes, k, slots = captured["pq_scan_topk"]
+    lut_h = lut32.to(torch.bfloat16)
+    st, sc = slots.shape[0], scodes.shape[1]
+    k_pad = next_pow2(max(k, 8))
+    swhere = f"sharded step T={st} C={sc}"
+    err = check_topk(ops, lut_h, scodes, sids, ssizes, k, swhere, slots)
+    gathered = ops.gather_slots(scodes, sids, ssizes, slots)
+    err = max(err, check_topk(ops, lut_h, *gathered, k, swhere))
+    nbytes, nops, shape = fused_bytes_ops(scodes, ssizes, k_pad, False,
+                                          slots, bf16=True)
+    dense_bytes, _, _ = fused_bytes_ops(gathered[0], gathered[2], k_pad,
+                                        False, bf16=True)
+    ms = event_ms(lambda: ops.pq_scan_topk(lut_h, scodes, sids, ssizes, k,
+                                           slots=slots), reps=20, queued=True)
+    dense_ms = event_ms(lambda: ops.pq_scan_topk(lut_h, *gathered, k),
+                        reps=20, queued=True)
+    plain_ms = event_ms(lambda: ops.pq_scan_topk_plain(
+        lut_h, scodes, sids, ssizes, k_pad, slots=slots), reps=3, warm=1,
+        queued=True)
+    pair_ms = event_ms(lambda: topk_smallest(
+        ops.pq_scan_dc(lut_h, gathered[0], gathered[2]), gathered[1], k_pad),
+        reps=20, queued=True)
+    b_ms, b_by = bound_ms(nbytes, nops)
+    dense_b_ms, _ = bound_ms(dense_bytes, nops)
+    log(f"  pq_scan_topk_bf16: {ms:.4f} ms by slot (bound {b_ms:.4f} ms by "
+        f"{b_by}, {ms / b_ms:.2f}x), {dense_ms:.4f} ms dense (bound "
+        f"{dense_b_ms:.4f} ms); plain {plain_ms:.4f} ms, unfused pair "
+        f"(C-bf16 + top-k) {pair_ms:.4f} ms, library none; {swhere}")
+    rows.append({"name": "pq_scan_topk_bf16", "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": None, "max_abs_err": err, "dense_ms": dense_ms,
+                 "dense_bound_ms": dense_b_ms, "unfused_pair_ms": pair_ms,
+                 "bytes": nbytes, "dense_bytes": dense_bytes, "ops": nops,
+                 "shape": shape})
+    for r in rows:
+        src, replaces = BF16_KERNELS[r["name"]]
+        r.update(route="cuda", source=src, replaces=replaces,
+                 computes=BF16_COMPUTES, launches=0)
     return rows
 
 
@@ -3386,7 +3586,8 @@ def capture_launches(ops, seen: dict, label: list):
     wrapped call launches and counts as before.  Returns a function that
     restores the wrappers."""
     from repro_torch.core.adc import QuantizedLUT
-    names = ("lut_build", "lut_build_q", "pq_scan_dc", "pq_scan_topk")
+    names = ("lut_build", "lut_build_q", "lut_build_bf16", "pq_scan_dc",
+             "pq_scan_topk")
     orig = {n: getattr(ops, n) for n in names}
 
     def keep(key, args):
@@ -3401,25 +3602,25 @@ def capture_launches(ops, seen: dict, label: list):
         return wrapped
 
     def table_of(lut):
-        q = isinstance(lut, QuantizedLUT)
-        return q, (lut.lut_q if q else lut)
+        table = lut.lut_q if isinstance(lut, QuantizedLUT) else lut
+        return ops.KIND_SUFFIX[ops.table_kind(lut)], table
 
     def dc(lut, codes, sizes=None, **kw):
-        q, table = table_of(lut)
+        sfx, table = table_of(lut)
         if table.shape[0]:
-            keep(("pq_scan_dc_q" if q else "pq_scan_dc", *table.shape[1:],
-                  str(codes.dtype)), (lut, codes, sizes))
+            keep(("pq_scan_dc" + sfx, *table.shape[1:], str(codes.dtype)),
+                 (lut, codes, sizes))
         return orig["pq_scan_dc"](lut, codes, sizes, **kw)
 
     def topk(lut, codes, ids, sizes, k, **kw):
-        q, table = table_of(lut)
+        sfx, table = table_of(lut)
         if table.shape[0]:
-            keep(("pq_scan_topk_q" if q else "pq_scan_topk",
-                  *table.shape[1:], str(codes.dtype), k),
-                 (lut, codes, ids, sizes, kw.get("slots")))
+            keep(("pq_scan_topk" + sfx, *table.shape[1:], str(codes.dtype),
+                  k), (lut, codes, ids, sizes, kw.get("slots")))
         return orig["pq_scan_topk"](lut, codes, ids, sizes, k, **kw)
 
     ops.lut_build, ops.lut_build_q = lc("lut_build"), lc("lut_build_q")
+    ops.lut_build_bf16 = lc("lut_build_bf16")
     ops.pq_scan_dc, ops.pq_scan_topk = dc, topk
 
     def restore():
@@ -3430,19 +3631,26 @@ def capture_launches(ops, seen: dict, label: list):
 
 def check_captured(ops, ref, adc, seen: dict, phase: str = "L1") -> dict:
     """Each captured launch's inputs through its kernel again, held to the
-    plain version: A and B with check_lut, C or D with check_scan, E or F
-    with check_topk.  Returns {where: max errors}."""
+    plain version: A and B with check_lut, A-bf16 with check_lut_bf16, C,
+    D or C-bf16 with check_scan, E, F or E-bf16 with check_topk.  Returns
+    {where: max errors}."""
     out = {}
     for key, (label, args) in sorted(seen.items(), key=str):
         name, m, cb = key[:3]
         where = f"{phase} {label}: {name} M={m} CB={cb}"
-        if name in ("lut_build", "lut_build_q"):
+        if name == "lut_build_bf16":
+            res, books, sqn = args
+            where += f" dsub={books.shape[2]} T={res.shape[0]}"
+            _, err = check_lut_bf16(ops, adc, res, books, sqn, where,
+                                    chunk=QUERY_CHUNK * NPROBE)
+            out[where] = {name: err}
+        elif name in ("lut_build", "lut_build_q"):
             res, books, sqn = args
             where += f" dsub={books.shape[2]} T={res.shape[0]}"
             _, _, err_a, count_b = check_lut(ops, ref, adc, res, books, sqn,
                                              where)
             out[where] = {"lut_build": err_a, "lut_build_q_counts": count_b}
-        elif name in ("pq_scan_dc", "pq_scan_dc_q"):
+        elif name.startswith("pq_scan_dc"):
             lut, codes, sizes = args
             where += f" T={codes.shape[0]} C={codes.shape[1]} {key[3]}"
             lut, q = (None, lut) if name == "pq_scan_dc_q" else (lut, None)
@@ -4490,8 +4698,8 @@ DRYRUN_LM = (("D2", "qwen3_14b", "train_4k"), ("D3", "qwen3_14b",
 
 def _dry_summary(rec: dict) -> dict:
     keys = ("fits", "step_ms", "warm_ms", "peak_bytes", "per_device_flops",
-            "per_device_collective_bytes", "terms_s", "dominant", "chips",
-            "mesh", "oom")
+            "per_device_hbm_bytes", "per_device_collective_bytes", "terms_s",
+            "dominant", "chips", "mesh", "oom")
     return {k: rec.get(k) for k in keys}
 
 
@@ -4547,11 +4755,46 @@ def _keyed_leaves(tree, sh, path=(), group=None):
                 yield from _keyed_leaves(v, sh[k], path + (k,), group)
 
 
+def d1_compare(dryrun, f32_run: dict, seed: int) -> dict:
+    """The D1 cell's fused step on its own inputs at f32, uint8 and bf16:
+    each step's device time (CUDA events over 20 steps queued behind a
+    device-side sleep, so the host's dispatch is not in it); the mean
+    share of each task's f32 top-10 ids that the bf16 step also returns
+    (tasks with k valid winners); the largest relative gap of the bf16
+    distances to the f32 ones at each rank."""
+    shp = f32_run["shard_shape"]
+    inp = dryrun.drim_inputs(shp, torch.device("cuda"), seed)
+    steps = {"f32": (False, None), "uint8": (True, None),
+             "bf16": (False, "bf16")}
+    device_ms = {
+        name: event_ms(lambda: dryrun.drim_step(inp, shp["k"], True, *how),
+                       reps=20, queued=True)
+        for name, how in steps.items()}
+    d32, i32 = dryrun.drim_step(inp, shp["k"], True, False)
+    dbf, ibf = dryrun.drim_step(inp, shp["k"], True, False, "bf16")
+    i32, ibf = i32.cpu().numpy(), ibf.cpu().numpy()
+    full = (i32 >= 0).all(1)
+    share = float(np.mean([len(set(a) & set(b)) / len(a) for a, b in
+                           zip(i32[full], ibf[full])]))
+    gap = float(((dbf - d32).abs() / d32.abs()).max())
+    # each entry and each sum rounds to bf16 (unit roundoff 2^-8): the
+    # k-th distance moves by at most (1 + 2^-8)^2 - 1 of itself
+    check(bool(torch.isfinite(dbf).all()) and gap <= 2.0 ** -7 + 2.0 ** -15,
+          f"D1 bf16: distances {gap:.3e} from f32's (more than the bf16 "
+          f"rounding of the tables and the sum)")
+    del inp
+    return {"device_ms": device_ms, "tasks": int(full.sum()),
+            "top10_overlap": share, "max_rel_gap_by_rank": gap}
+
+
 def dryrun_path(ops, ref, adc, seed: int) -> tuple:
     """Phase 15: the dry-run as rank 0 of a fake world of 256 on the
     (16, 16) production mesh.  D1 the drim cell (rank 0's shard at the
-    100M shape), fused, f32 then uint8, its launches captured and held to
-    plain after the counts were read; D2 / D3 ``qwen3_14b`` ``train_4k`` /
+    100M shape), fused, f32, uint8 then bf16, then bf16 unfused (A-bf16,
+    C-bf16, ``torch.topk``), its launches captured and held to plain after
+    the counts were read, then the three fused steps' device time and the
+    top-10 overlap of the bf16 and f32 winners on the cell's inputs
+    (``d1_compare``); D2 / D3 ``qwen3_14b`` ``train_4k`` /
     ``decode_32k`` (tp + FSDP), one warm and one timed step, held to
     ``fits``; D4 a restore onto the mesh.  Returns (report, launches,
     the D1 checks by kernel)."""
@@ -4568,18 +4811,24 @@ def dryrun_path(ops, ref, adc, seed: int) -> tuple:
         ops.reset_launches()
         restore = capture_launches(ops, seen, label)
         try:
-            for lut in (None, "uint8"):
-                label[0] = f"D1 {lut or 'f32'}"
+            for lut, fused in ((None, True), ("uint8", True),
+                               ("bf16", True), ("bf16", False)):
+                label[0] = f"D1 {lut or 'f32'}" + ("" if fused
+                                                   else " unfused")
                 rec = dryrun.run_drim_ann_cell(False, DRYRUN_DIR,
-                                               fused_scan=True,
+                                               fused_scan=fused,
                                                lut_dtype=lut, seed=seed)
                 run[label[0]] = dict(_dry_summary(rec),
                                      shard_shape=rec["shard_shape"])
         finally:
             restore()
         launches = dict(ops.launches)
-        for name in SHARDED_KERNELS:
+        for name in SHARDED_KERNELS + tuple(BF16_KERNELS):
             check(launches[name] > 0, f"{name} never launched in D1")
+        for lab, r in run.items():
+            log(f"  {lab}: step {r['step_ms']:.4f} ms, hbm_bytes "
+                f"{r['per_device_hbm_bytes']:.6g} "
+                f"(roofline.drim_search_work), peak {r['peak_bytes']} B")
         log("kernels vs plain, at the drim cell's rank-0 shape:")
         checked = check_captured(ops, ref, adc, seen, phase="D1")
         del seen
@@ -4587,6 +4836,9 @@ def dryrun_path(ops, ref, adc, seed: int) -> tuple:
         for where, errs in checked.items():
             name = where.split(": ")[1].split(" ")[0]
             at_cell[name] = {"where": where, **errs}
+        run["D1 steps"] = d1_compare(dryrun, run["D1 f32"], seed)
+        log(f"  D1 fused steps, device time and bf16 vs f32 winners: "
+            f"{run['D1 steps']}")
         for tag, arch, shape in DRYRUN_LM:
             rec = dryrun.run_cell(arch, registry.SHAPES_BY_NAME[shape],
                                   False, DRYRUN_DIR, seed=seed)
@@ -4896,6 +5148,12 @@ def main() -> int:
         if r["name"] in at_step:
             r["at_sharded_step"] = at_step[r["name"]]
     rows += fused_report(ops, captured, total)
+    log("kernels vs plain, the bf16-table kernels at the first chunk's and "
+        "the sharded step's shapes:")
+    rows += bf16_report(ops, adc, *local_lc,
+                        clusters.codes.index_select(0, flat),
+                        clusters.ids.index_select(0, flat),
+                        clusters.sizes.index_select(0, flat), captured)
     for r in rows:
         if r["name"] in at_entry:
             r["at_mesh_entry"] = at_entry[r["name"]]
@@ -5062,12 +5320,14 @@ def main() -> int:
     train_run, train_launches = train_path(ops, args.seed)
     # -- 15. the dry-run: rank 0 of the 256-GPU production mesh -----------
     log("dryrun path: a fake world of 256 on the (16, 16) production mesh; "
-        "D1 the drim cell fused at rank 0's 100M shape (f32, uint8), D2 "
-        "qwen3_14b train_4k and D3 decode_32k (tp + FSDP), D4 a restore "
-        "onto the mesh")
+        "D1 the drim cell at rank 0's 100M shape (fused f32, uint8, bf16; "
+        "bf16 unfused), D2 qwen3_14b train_4k and D3 decode_32k (tp + "
+        "FSDP), D4 a restore onto the mesh")
     dryrun_run, dryrun_launches, at_cell = dryrun_path(ops, ref, adc,
                                                        args.seed)
     for r in rows:
+        if r["name"] in BF16_KERNELS:     # D1 is the path that runs them
+            r["launches"] = dryrun_launches[r["name"]]
         if r["name"] in at_cell:
             r["at_dryrun_cell"] = dict(
                 at_cell[r["name"]],
@@ -5080,7 +5340,8 @@ def main() -> int:
                "variants": variants_launches, "lm": lm_launches,
                "train": train_launches, "dryrun": dryrun_launches}
     for r in rows:
-        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
+        r["launches_by_path"] = {p: c.get(r["name"], 0)
+                                 for p, c in by_path.items()}
     log(json.dumps({"mesh": mesh_run}))
     log(json.dumps({"service": service_runs}))
     log(json.dumps({"mutation": mutation_run}))

@@ -6,8 +6,9 @@ Dataset shape mirrors §V-A: 100M uint8 points, D=128, 10k queries/batch,
 nlist=2^16, M=16, CB=256, nprobe=96, recall@10 >= 0.8 regime.
 ``chip_smoke.py`` takes D, M, CB, k, the query batch, the duplication
 budget and the code dtype from :func:`config`, and cuts N, nlist,
-nprobe, split_max and tasks_per_shard to fit one card and run.  (The
-JAX package's ``smoke_config`` is left out: nothing calls it.)
+nprobe, split_max and tasks_per_shard to fit one card and run.
+:func:`smoke_config` is the JAX package's reduced config of the same
+family, field for field.
 """
 
 import dataclasses
@@ -33,3 +34,8 @@ class DrimAnnConfig:
 def config() -> DrimAnnConfig:
     return DrimAnnConfig()
 
+
+def smoke_config() -> DrimAnnConfig:
+    return DrimAnnConfig(n_points=8000, dim=32, nlist=64, m=8, cb=64,
+                         nprobe=8, queries_per_batch=64, split_max=128,
+                         tasks_per_shard=256)

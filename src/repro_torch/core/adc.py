@@ -8,6 +8,10 @@ against these on the card; on CPU tensors ``kernels.ops`` runs these.
   LC  lut[m, cb] = || residual_m - codebook[m, cb] ||^2
   DC  dist[i]   = sum_m lut[m, codes[i, m]]
 
+bf16 tables: each entry is widened to f32 and a row's terms are summed
+in f32, then the sum is rounded once to bf16 (round to nearest even) and
+widened back, the reference's ``jnp.sum`` over a bf16 gather.
+
 Quantized-LUT path: :func:`quantize_lut` compresses each (M, CB) table
 to uint8 with a per-subspace affine map ``lut ~ lut_q * scale_m +
 bias_m``, so ``dist ~ sum_m scale_m * lut_q[m, code_m] + sum_m bias_m``.
@@ -64,7 +68,15 @@ def build_lut_direct(codebook: PQCodebook, residual: torch.Tensor
 
 
 def scan_codes(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """DC via gather, batched: lut (T, M, CB), codes (T, C, M) -> (T, C)."""
+    """DC via gather, batched: lut (T, M, CB), codes (T, C, M) -> (T, C)
+    f32.  A bf16 table's terms are summed in f32 in order m = 0..M-1 (the
+    kernels' order) and each row's sum is rounded once to bf16."""
+    if lut.dtype == torch.bfloat16:
+        g = torch.gather(lut, 2, codes.transpose(1, 2).long())   # (T, M, C)
+        acc = g[:, 0].float()
+        for m in range(1, g.shape[1]):
+            acc = acc + g[:, m].float()
+        return acc.to(torch.bfloat16).float()
     g = torch.gather(lut.float(), 2, codes.transpose(1, 2).long())  # (T, M, C)
     return g.sum(1)
 
@@ -99,7 +111,8 @@ def adc_distances(lut: torch.Tensor, codes: torch.Tensor,
                   strategy: str = "gather") -> torch.Tensor:
     """Batched DC over padded clusters.
 
-    lut    (T, M, CB)   one LUT per task (= (query, probe) pair)
+    lut    (T, M, CB)   one LUT per task (= (query, probe) pair), f32 or
+                        bf16 (:func:`scan_codes`)
     codes  (T, C, M)    padded cluster codes per task
     sizes  (T,)         valid row count per task (None = all valid)
     -> dists (T, C), padding rows set to +inf.

@@ -15,14 +15,15 @@ The reference runs its per-shard function under ``vmap`` over S.  Here
 (S, T) is flattened into one axis of S*T tasks, and slot ``slot`` of
 shard ``s`` becomes row ``s * slots + slot`` of the flattened
 (S*slots, cpart, M) code tensor, so RC, LC (``lut_build`` or
-``lut_build_q``) and the fused DC+TS kernel (``pq_scan_topk``) launch
-once per step instead of once per shard.  The fused kernel reads each
-task's codes and ids from its row of that tensor in place (its
-``slots=``), so a step copies no codes.  Padding tasks (``qidx == -1``)
-get slot -1, size 0, and come out as (+inf, -1).  The steps always call
-``repro_torch.kernels.ops``, which launches the kernels on the card and
-runs their plain versions on CPU tensors, so ``EngineConfig`` has no
-``use_kernels`` switch.
+``lut_build_q``; ``lut_build_bf16`` for the reference's bf16 table,
+``_shard_tasks_fn(lut_dtype="bf16")``) and the fused DC+TS kernel
+(``pq_scan_topk``) launch once per step instead of once per shard.  The
+fused kernel reads each task's codes and ids from its row of that tensor
+in place (its ``slots=``), so a step copies no codes.  Padding tasks
+(``qidx == -1``) get slot -1, size 0, and come out as (+inf, -1).  The
+steps always call ``repro_torch.kernels.ops``, which launches the kernels
+on the card and runs their plain versions on CPU tensors, so
+``EngineConfig`` has no ``use_kernels`` switch.
 
 Serving collaborators, as in the reference: ``lut_cache`` (a
 :class:`repro_torch.runtime.cache.HotClusterLUTCache`; LUTs assembled
@@ -273,9 +274,23 @@ def _task_slots(si: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, si, -1).to(torch.int32)
 
 
+def _lut_kind(quantize: bool, lut_dtype) -> str:
+    """The table a step builds, as the reference's ``lut_dtype``: "u8"
+    for ``quantize`` or ``"uint8"``, "bf16" for ``"bf16"`` /
+    ``torch.bfloat16``, "f32" for None / ``"f32"``."""
+    if quantize or lut_dtype == "uint8":
+        return "u8"
+    if lut_dtype in ("bf16", torch.bfloat16):
+        return "bf16"
+    if lut_dtype in (None, "f32"):
+        return "f32"
+    raise ValueError(f"lut_dtype {lut_dtype!r}: None, 'f32', 'bf16' or "
+                     f"'uint8'")
+
+
 def _shard_tasks_fn(codes, ids, sizes, cluster_of, qidx, sidx, queries,
                     centroids, codebook: PQCodebook, rotation, *, k: int,
-                    strategy: str, quantize: bool = False):
+                    strategy: str, quantize: bool = False, lut_dtype=None):
     """One step's tasks: flat (T,) task table -> (T, k) candidates.
 
     codes (slots, cpart, M), ids (slots, cpart), sizes / cluster_of
@@ -284,26 +299,29 @@ def _shard_tasks_fn(codes, ids, sizes, cluster_of, qidx, sidx, queries,
     axis, a mesh step once per entry on that shard's own tensors.
 
     LC runs through ``kernels.ops.lut_build`` (``lut_build_q`` for
-    ``quantize``, the uint8 path) and DC+TS through the fused
-    ``ops.pq_scan_topk``: the CUDA kernels on the card, their plain
-    versions on CPU tensors.  DC+TS reads each task's codes and ids from
-    its slot in place (``slots=``); nothing is gathered."""
+    ``quantize`` or ``lut_dtype="uint8"``, the uint8 path;
+    ``lut_build_bf16`` for ``lut_dtype="bf16"`` or ``torch.bfloat16``)
+    and DC+TS through the fused ``ops.pq_scan_topk`` on that table: the
+    CUDA kernels on the card, their plain versions on CPU tensors.  DC+TS
+    reads each task's codes and ids from its slot in place (``slots=``);
+    nothing is gathered."""
     from repro_torch.kernels import ops as kops
     valid = qidx >= 0
     si = sidx.clamp(0, codes.shape[0] - 1).long()
     lut = _task_lut(cluster_of, qidx, si, queries, centroids, codebook,
-                    rotation, quantize)                           # RC + LC
+                    rotation, quantize, lut_dtype)                # RC + LC
     bd, bi = kops.pq_scan_topk(lut, codes, ids, sizes, k, strategy=strategy,
                                slots=_task_slots(si, valid))      # DC + TS
     return bd, bi.masked_fill(~torch.isfinite(bd), -1)
 
 
 def _task_lut(cluster_of, qidx, si, queries, centroids, codebook: PQCodebook,
-              rotation, quantize: bool):
+              rotation, quantize: bool, lut_dtype=None):
     """RC + LC of a flat task table: each task's query minus its slot's
     centroid (rotated under OPQ), then the LC kernel (``lut_build_q`` on
-    the uint8 path).  Padding tasks get some row's table; their size 0
-    keeps it out of every result."""
+    the uint8 path, ``lut_build_bf16`` for a bf16 ``lut_dtype``:
+    :func:`_lut_kind`).  Padding tasks get some row's table; their size
+    0 keeps it out of every result."""
     from repro_torch.kernels import ops as kops
     qi = qidx.clamp(0, queries.shape[0] - 1).long()
     q = queries.index_select(0, qi).float()                   # (T, D)
@@ -312,7 +330,8 @@ def _task_lut(cluster_of, qidx, si, queries, centroids, codebook: PQCodebook,
     if rotation is not None:
         residual = _rotate(residual, rotation)
     residual = residual.contiguous()
-    lc = kops.lut_build_q if quantize else kops.lut_build
+    lc = {"f32": kops.lut_build, "u8": kops.lut_build_q,
+          "bf16": kops.lut_build_bf16}[_lut_kind(quantize, lut_dtype)]
     return lc(residual, codebook.codebooks, codebook.sqnorms)     # LC
 
 
@@ -357,7 +376,8 @@ def _fused_scan_topk(lut, task_codes, task_ids, task_sizes, k: int,
                      block: int = 512, *, slots: Optional[torch.Tensor] = None):
     """Streaming DC+TS in plain PyTorch: scan C in blocks, carrying the
     (T, k) running winners -- the dataflow of the fused kernels.  ``lut``
-    is the f32 (T, M, CB) table or a (T,)-batched QuantizedLUT; ``slots``
+    is the f32 or bf16 (T, M, CB) table or a (T,)-batched QuantizedLUT;
+    ``slots``
     as ``ops.pq_scan_topk``'s (codes, ids and sizes are then P slots).
 
     No step selects it: the steps call ``ops.pq_scan_topk``.  It is the

@@ -35,12 +35,14 @@ SIGNATURES = {
     "lut_build": {
         "lut_build_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "lut_build_u8": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "lut_build_bf16": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "lut_build_smem_bytes": ([_I, _I, _I], _S),
         "lut_build_error_string": ([_I], ctypes.c_char_p),
     },
     "pq_scan": {
         "pq_scan_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "pq_scan_u8": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "pq_scan_bf16": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "pq_scan_smem_bytes": ([_I, _I, _I], _S),
         "pq_scan_error_string": ([_I], ctypes.c_char_p),
     },
@@ -49,6 +51,8 @@ SIGNATURES = {
                               _I, _I, _I, _P], _I),
         "pq_scan_topk_u8": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _I, _P], _I),
+        "pq_scan_topk_bf16": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _P], _I),
         "pq_scan_topk_smem_bytes": ([_I, _I, _I, _I], _S),
         "pq_scan_topk_error_string": ([_I], ctypes.c_char_p),
     },

@@ -14,17 +14,24 @@
 //     scale = hi > lo ? (hi - lo) / 255 : 1,  bias = lo
 //     q = clamp(rint((lut - lo) / scale), 0, 255)   (round half to even)
 //
-// with IEEE divisions (never a multiply by a reciprocal).  Both variants
-// compute the f32 entry with one __device__ function (`entry`), so the u8
-// table equals the host quantization of the f32 kernel's output, and every
+// with IEEE divisions (never a multiply by a reciprocal).  A third variant
+// writes the table in bf16, the reference's `lut.astype(bfloat16)` under
+// `_shard_tasks_fn(lut_dtype=bf16)` (src/repro/core/sharded_search.py):
+//
+//     lut_h[t, m, cb] = bf16_rn(lut[t, m, cb])    (round to nearest even)
+//
+// All variants compute the f32 entry with one __device__ function
+// (`entry`), so the u8 table equals the host quantization of the f32
+// kernel's output, the bf16 table the f32 table cast to bf16, and every
 // instance below gives the same bits as every other.
 //
 // What bounds it on an H100: bytes for the f32 table, operations for the
 // u8 one.  At the sharded step (T=65,536, M=16, CB=256, dsub=8) A writes
 // 1.07 GB (~0.33 ms at 3.35 TB/s) against ~5.4 G operations (~0.08 ms at
 // 67 TFLOP/s, an FMA counting two); B writes a quarter of that and adds an
-// IEEE division per entry.  Everything but the tables stays on chip, and an
-// entry costs dsub FMAs out of registers and shared memory:
+// IEEE division per entry; the bf16 variant writes half of A's bytes.
+// Everything but the tables stays on chip, and an entry costs dsub FMAs
+// out of registers and shared memory:
 //
 //   * dsub is a template parameter (1, 2, 4, 8, 16), so the d-loops
 //     unroll and a task's residual subvector and ||r||^2 live in
@@ -38,8 +45,8 @@
 //     evenly over the M subspaces (blockIdx.y = m; fewer blocks when T is
 //     small), so each block loads its subspace's codebook slice once and a
 //     warp then walks T / (warps on m) tasks t0, t0 + stride, ...;
-//   * a warp computes kRowsF32 (A) or kRowsU8 (B) (t, m) rows at once,
-//     each codebook read serving all of them; lane j owns the quads of
+//   * a warp computes kRowsF32 (A and bf16) or kRowsU8 (B) (t, m) rows at
+//     once, each codebook read serving all of them; lane j owns the quads of
 //     4 consecutive entries q = j and j + 32, i.e. cb 4j..4j+3 and
 //     128+4j..128+4j+3 at CB = 256 (quads past CB masked out of
 //     everything).  Below dsub kStageDsub a lane holds its 8 codebook
@@ -54,8 +61,9 @@
 //     this 32 is computed; every lane then reads a row as one broadcast;
 //   * stores are vectors: A writes a lane's quad as one float4 (512 B a
 //     warp instruction, a 1 KB row in two) with __stcs (evict-first: the
-//     table streams past L2); B packs a quad's 4 u8 into one uint32 (a
-//     256-B row in two instructions) after the row's min and max come from
+//     table streams past L2), the bf16 variant as 4 bf16 in one uint2 the
+//     same way; B packs a quad's 4 u8 into one uint32 (a 256-B row in two
+//     instructions) after the row's min and max come from
 //     registers by __shfl_xor_sync (no shared row buffer, no barrier).
 //     Lanes 0 and 1 write scale and bias in one instruction: a warp owns
 //     one subspace, so its rows are M floats apart in those two arrays and
@@ -66,6 +74,7 @@
 // table passes 2^31 bytes at T = 65,536).  Build without --use_fast_math.
 // The kernels allocate nothing and never synchronise with the host.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -74,6 +83,12 @@
 #include <type_traits>
 
 namespace {
+
+// The table a launch writes (the template parameter kOut): f32 (A), u8
+// with scale and bias (B), bf16.
+constexpr int kOutF32 = 0;
+constexpr int kOutU8 = 1;
+constexpr int kOutBF16 = 2;
 
 constexpr int kThreads = 128;        // 4 warps a block
 // blocks an SM must hold (__launch_bounds__): with only the block size
@@ -85,11 +100,11 @@ constexpr int kGroups = 2;           // quads a lane owns in a row (CB <= 256)
 constexpr int kMaxCB = 32 * 4 * kGroups;
 constexpr int kStreamStores = 1;     // A's stores evict-first (__stcs)
 constexpr int kRowsF32 = 4;          // rows a warp computes at once: A
-constexpr int kRowsU8 = 2;           // and B
+constexpr int kRowsU8 = 2;           // and B (the bf16 table: kRowsF32)
 constexpr int kStageDsub = 8;        // least dsub whose slice is staged
 constexpr int kMaxDevices = 64;
 
-// The one f32 entry both variants compute.  nvcc may contract it into
+// The one f32 entry every variant computes.  nvcc may contract it into
 // fma(-2, cross, rsq + sqn), which rounds the same (2 * cross is exact), so
 // its bits do not depend on the contraction.
 __device__ __forceinline__ float entry(float rsq, float sqn, float cross) {
@@ -118,6 +133,18 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
     __stcs(reinterpret_cast<float4*>(p), v);
   else
     *reinterpret_cast<float4*>(p) = v;
+}
+
+// A quad of entries rounded to bf16 (nearest even), one 8-byte store.
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  const uint2 w = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                             *reinterpret_cast<const uint32_t*>(&hi));
+  if (kStreamStores)
+    __stcs(reinterpret_cast<uint2*>(p), w);
+  else
+    *reinterpret_cast<uint2*>(p) = w;
 }
 
 // Asynchronous copies from device memory into shared memory (cp.async),
@@ -179,7 +206,8 @@ __device__ __forceinline__ void read_res(const float* p, float (&r)[DSUB]) {
 // DSUB > 0: dsub at compile time; DSUB == 0: the generic instance (runtime
 // dsub and CB, scalar stores).  kSmemBook: the codebook slice in shared
 // memory ([d][quad] float4, then the quads' norms) instead of registers.
-template <int DSUB, bool kSmemBook, bool kQuant>
+// kOut: the table written; a bf16 table goes to `out` as bf16 entries.
+template <int DSUB, bool kSmemBook, int kOut>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     lut_build_kernel(const float* __restrict__ res,
                      const float* __restrict__ books,
@@ -189,6 +217,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                      float* __restrict__ out_bias, int T, int M, int CB,
                      int dsub_rt, int res_vec) {
   constexpr bool kGeneric = DSUB == 0;
+  constexpr bool kQuant = kOut == kOutU8;
+  // the f32 or bf16 table (`out` holds bf16 entries for kOutBF16)
+  using OutT = std::conditional_t<kOut == kOutBF16, __nv_bfloat16, float>;
+  OutT* const table = reinterpret_cast<OutT*>(out);
   constexpr int kRD = kGeneric ? 1 : DSUB;          // residual registers
   constexpr int kBD = kSmemBook ? 1 : DSUB;         // codebook registers
   static_assert(kSmemBook || !kGeneric, "the generic instance stages");
@@ -331,7 +363,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
             quads(g, q, r, rsq, v);
 #pragma unroll
             for (int k = 0; k < kR; ++k)
-              if (ok[k]) store4(out + row[k] * CB + 4 * q, v[k]);
+              if (ok[k]) store4(table + row[k] * CB + 4 * q, v[k]);
           }
         } else {
           float4 v[kGroups][kR];
@@ -388,7 +420,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         const float x = __ldg(rr + d);
         rsq = fmaf(x, x, rsq);
       }
-      if constexpr (!kQuant) {
+      if constexpr (kOut == kOutF32) {
         float* o = out + row * CB;
         for (int q = lane; q < cbq; q += 32) {
           const float4 v = quad_generic(q, rr, rsq);
@@ -397,6 +429,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
           if (cb + 1 < CB) o[cb + 1] = v.y;
           if (cb + 2 < CB) o[cb + 2] = v.z;
           if (cb + 3 < CB) o[cb + 3] = v.w;
+        }
+      } else if constexpr (kOut == kOutBF16) {
+        __nv_bfloat16* o = table + row * CB;
+        for (int q = lane; q < cbq; q += 32) {
+          const float4 v = quad_generic(q, rr, rsq);
+          const int cb = 4 * q;
+          o[cb] = __float2bfloat16_rn(v.x);
+          if (cb + 1 < CB) o[cb + 1] = __float2bfloat16_rn(v.y);
+          if (cb + 2 < CB) o[cb + 2] = __float2bfloat16_rn(v.z);
+          if (cb + 3 < CB) o[cb + 3] = __float2bfloat16_rn(v.w);
         }
       } else {
         float lo = INFINITY, hi = -INFINITY;
@@ -440,12 +482,12 @@ size_t tile_bytes(int dsub) {
   return (size_t)kWarps * 64 * dsub * sizeof(float);
 }
 
-template <int DSUB, bool kSmemBook, bool kQuant>
+template <int DSUB, bool kSmemBook, int kOut>
 int launch_instance(const void* res, const void* books, const void* sqnorms,
                     void* out, void* out_q, void* out_scale, void* out_bias,
                     int T, int M, int CB, int dsub, bool res_vec,
                     void* stream) {
-  auto kernel = lut_build_kernel<DSUB, kSmemBook, kQuant>;
+  auto kernel = lut_build_kernel<DSUB, kSmemBook, kOut>;
   const size_t smem = (kSmemBook ? book_bytes(CB, dsub) : 0) +
                       (DSUB ? tile_bytes(DSUB) : 0);
   // The blocks of this instance that fit on the card at once, looked up on
@@ -496,22 +538,23 @@ bool compiled_shape(int CB, int dsub) {
          (dsub == 1 || dsub == 2 || dsub == 4 || dsub == 8 || dsub == 16);
 }
 
-template <bool kQuant>
+template <int kOut>
 int launch(const void* res, const void* books, const void* sqnorms,
            void* out, void* out_q, void* out_scale, void* out_bias, int T,
            int M, int CB, int dsub, void* stream) {
   if (T < 0 || M < 0 || CB < 1 || dsub < 1 || M > 65535)
     return (int)cudaErrorInvalidValue;
   if (T == 0 || M == 0) return (int)cudaSuccess;
-  const uintptr_t o = (uintptr_t)(kQuant ? out_q : out);
+  const uintptr_t o = (uintptr_t)(kOut == kOutU8 ? out_q : out);
   const uintptr_t rp = (uintptr_t)res;
-  const bool whole =
-      compiled_shape(CB, dsub) && o % (kQuant ? 4 : 16) == 0;
+  // the vector stores: 4 u8, 4 bf16 or 4 f32 a quad
+  const int align = kOut == kOutU8 ? 4 : kOut == kOutBF16 ? 8 : 16;
+  const bool whole = compiled_shape(CB, dsub) && o % align == 0;
   // the instance for dsub kD (0: generic); vec: the residuals are aligned
   // for 16-byte (8-byte at dsub 2) copies
   auto go = [&](auto d, bool vec) {
     constexpr int kD = decltype(d)::value;
-    return launch_instance<kD, kD == 0 || kD >= kStageDsub, kQuant>(
+    return launch_instance<kD, kD == 0 || kD >= kStageDsub, kOut>(
         res, books, sqnorms, out, out_q, out_scale, out_bias, T, M, CB, dsub,
         vec, stream);
   };
@@ -532,9 +575,10 @@ extern "C" {
 
 // Shared memory one block may need (a staged codebook slice and norms,
 // residual tiles), so the caller can refuse a shape that does not fit the
-// card before launching.  The same for A and B (quant).
-size_t lut_build_smem_bytes(int quant, int CB, int dsub) {
-  (void)quant;
+// card before launching.  The same for every table kind (0 f32, 1 u8, 2
+// bf16).
+size_t lut_build_smem_bytes(int kind, int CB, int dsub) {
+  (void)kind;
   const size_t generic = book_bytes(CB, dsub);
   if (!compiled_shape(CB, dsub)) return generic;
   const size_t compiled =
@@ -546,16 +590,24 @@ size_t lut_build_smem_bytes(int quant, int CB, int dsub) {
 // -> out (T, M, CB) f32.  Returns cudaGetLastError().
 int lut_build_f32(const void* res, const void* books, const void* sqnorms,
                   void* out, int T, int M, int CB, int dsub, void* stream) {
-  return launch<false>(res, books, sqnorms, out, nullptr, nullptr, nullptr,
-                       T, M, CB, dsub, stream);
+  return launch<kOutF32>(res, books, sqnorms, out, nullptr, nullptr, nullptr,
+                         T, M, CB, dsub, stream);
 }
 
 // Same inputs -> out_q (T, M, CB) u8, scale (T, M) f32, bias (T, M) f32.
 int lut_build_u8(const void* res, const void* books, const void* sqnorms,
                  void* out_q, void* scale, void* bias, int T, int M, int CB,
                  int dsub, void* stream) {
-  return launch<true>(res, books, sqnorms, nullptr, out_q, scale, bias, T, M,
-                      CB, dsub, stream);
+  return launch<kOutU8>(res, books, sqnorms, nullptr, out_q, scale, bias, T,
+                        M, CB, dsub, stream);
+}
+
+// Same inputs -> out (T, M, CB) bf16: each entry of lut_build_f32's table
+// rounded to bf16 (nearest even).
+int lut_build_bf16(const void* res, const void* books, const void* sqnorms,
+                   void* out, int T, int M, int CB, int dsub, void* stream) {
+  return launch<kOutBF16>(res, books, sqnorms, out, nullptr, nullptr,
+                          nullptr, T, M, CB, dsub, stream);
 }
 
 const char* lut_build_error_string(int err) {

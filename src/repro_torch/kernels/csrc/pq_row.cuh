@@ -2,26 +2,41 @@
 // kernels (pq_scan.cu) and the fused DC+TS kernels (pq_scan_topk.cu).
 //
 // Both score a row by summing its terms in order m = 0..M-1 (row_sum,
-// then the u8 path's bias sum), so the fused and the unfused scans give
-// the same float for every row.  The DC kernels stage a task's table with
-// stage_table; the fused kernels copy theirs in with stage_table_async,
-// which other blocks' scans overlap.
+// then the u8 path's bias sum, or the bf16 path's one rounding), so the
+// fused and the unfused scans give the same float for every row.  The DC
+// kernels stage a task's table with stage_table; the fused kernels copy
+// theirs in with stage_table_async, which other blocks' scans overlap.
 //
-// Shared-memory layout of one staged table: f32 (M, CB), or u8 (M, CB)
-// padded to 16 bytes and followed by the M scales, the bias sum and the
-// M biases it was summed from.
+// Three kinds of table (the template parameter kKind):
+//   kF32   f32 entries, summed in f32;
+//   kU8    u8 entries with a scale and a bias per subspace;
+//   kBF16  bf16 entries, each widened to f32 and summed in f32, the row's
+//          sum rounded once to bf16 (round to nearest even) and widened
+//          back: the reference's jnp.sum over a bf16 gather.
+//
+// Shared-memory layout of one staged table: f32 (M, CB); bf16 (M, CB); or
+// u8 (M, CB) padded to 16 bytes and followed by the M scales, the bias sum
+// and the M biases it was summed from.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
 namespace pqrow {
 
-inline size_t table_smem_bytes(bool quant, int M, int CB) {
+// Table kinds; the values are those of the C entry points' `kind`
+// arguments (the f32 / u8 ones were `quant` 0 / 1).
+constexpr int kF32 = 0;
+constexpr int kU8 = 1;
+constexpr int kBF16 = 2;
+
+inline size_t table_smem_bytes(int kind, int M, int CB) {
   const size_t mcb = (size_t)M * CB;
-  if (!quant) return mcb * sizeof(float);
+  if (kind == kF32) return mcb * sizeof(float);
+  if (kind == kBF16) return mcb * sizeof(__nv_bfloat16);
   return ((mcb + 15) & ~(size_t)15) + (2 * M + 1) * sizeof(float);
 }
 
@@ -31,23 +46,40 @@ __device__ __forceinline__ float u8_float(uint32_t q) {
   return __uint_as_float(0x4b000000u | q) - 8388608.0f;
 }
 
-template <bool kQuant, typename Scales>
+// A row's f32 sum of bf16 entries as the bf16 path scores it: rounded
+// once to bf16 (nearest even) and widened back.
+__device__ __forceinline__ float round_bf16(float acc) {
+  return __bfloat162float(__float2bfloat16_rn(acc));
+}
+
+// The views of a staged table: f32 entries, u8 entries, bf16 entries, the
+// scales (sc[0..M-1]) with the bias sum at sc[M].
+struct Table {
+  const float* lut_f;
+  const uint8_t* lut_q;
+  const __nv_bfloat16* lut_h;
+  const float* sc;
+};
+
+template <int kKind, typename Scales>
 __device__ __forceinline__ float add_entry(float acc, int m, int code,
-                                           const float* lut_f,
-                                           const uint8_t* lut_q,
+                                           const Table& tab,
                                            const Scales& sc, int CB) {
-  if constexpr (kQuant)
-    return fmaf(sc[m], u8_float(lut_q[m * CB + code]), acc);
-  return acc + lut_f[m * CB + code];
+  if constexpr (kKind == kU8)
+    return fmaf(sc[m], u8_float(tab.lut_q[m * CB + code]), acc);
+  else if constexpr (kKind == kBF16)
+    return acc + __bfloat162float(tab.lut_h[m * CB + code]);
+  else
+    return acc + tab.lut_f[m * CB + code];
 }
 
 // The M=16 u8 codes of one row, loaded as one 16-byte word, against the
-// table: the terms summed in order m = 0..15, without the u8 bias sum.
-// `sc` is the staged scales or a copy of them in registers; kCB > 0 fixes
-// CB at compile time (the table offsets become immediates).
-template <bool kQuant, int kCB = 0, typename Scales>
-__device__ __forceinline__ float row_sum_vec16(uint4 v, const float* lut_f,
-                                               const uint8_t* lut_q,
+// table: the terms summed in order m = 0..15, without the u8 bias sum
+// (bf16: the sum rounded once).  `sc` is the staged scales or a copy of
+// them in registers; kCB > 0 fixes CB at compile time (the table offsets
+// become immediates).
+template <int kKind, int kCB = 0, typename Scales>
+__device__ __forceinline__ float row_sum_vec16(uint4 v, const Table& tab,
                                                const Scales& sc, int CB) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
   const int cb = kCB > 0 ? kCB : CB;
@@ -55,37 +87,37 @@ __device__ __forceinline__ float row_sum_vec16(uint4 v, const float* lut_f,
 #pragma unroll
   for (int m = 0; m < 16; ++m) {
     const int code = __byte_perm(w[m >> 2], 0, 0x4440 + (m & 3));  // byte m
-    acc = add_entry<kQuant>(acc, m, code, lut_f, lut_q, sc, cb);
+    acc = add_entry<kKind>(acc, m, code, tab, sc, cb);
   }
+  if constexpr (kKind == kBF16) acc = round_bf16(acc);
   return acc;
 }
 
 // One code row of any M and code type: the terms summed in order m =
-// 0..M-1, without the u8 bias sum.
-template <typename CodeT, bool kQuant>
-__device__ __forceinline__ float row_sum(const CodeT* row, const float* lut_f,
-                                         const uint8_t* lut_q,
+// 0..M-1, without the u8 bias sum (bf16: the sum rounded once).
+template <typename CodeT, int kKind>
+__device__ __forceinline__ float row_sum(const CodeT* row, const Table& tab,
                                          const float* sc, int M, int CB) {
   float acc = 0.0f;
   for (int m = 0; m < M; ++m)
-    acc = add_entry<kQuant>(acc, m, (int)row[m], lut_f, lut_q, sc, CB);
+    acc = add_entry<kKind>(acc, m, (int)row[m], tab, sc, CB);
+  if constexpr (kKind == kBF16) acc = round_bf16(acc);
   return acc;
 }
 
 // Distance of one code row, summed in order m = 0..M-1, plus the bias sum
 // sc[M] on the u8 path.  kVec16: M == 16 u8 codes read as one 16-byte load
 // (the row must be 16-byte aligned).
-template <typename CodeT, bool kQuant, bool kVec16>
-__device__ __forceinline__ float row_dist(const CodeT* row, const float* lut_f,
-                                          const uint8_t* lut_q,
-                                          const float* sc, int M, int CB) {
+template <typename CodeT, int kKind, bool kVec16>
+__device__ __forceinline__ float row_dist(const CodeT* row, const Table& tab,
+                                          int M, int CB) {
   float acc;
   if constexpr (kVec16)
-    acc = row_sum_vec16<kQuant>(*reinterpret_cast<const uint4*>(row), lut_f,
-                                lut_q, sc, CB);
+    acc = row_sum_vec16<kKind>(*reinterpret_cast<const uint4*>(row), tab,
+                               tab.sc, CB);
   else
-    acc = row_sum<CodeT, kQuant>(row, lut_f, lut_q, sc, M, CB);
-  if constexpr (kQuant) acc += sc[M];
+    acc = row_sum<CodeT, kKind>(row, tab, tab.sc, M, CB);
+  if constexpr (kKind == kU8) acc += tab.sc[M];
   return acc;
 }
 
@@ -119,13 +151,13 @@ __device__ __forceinline__ float bias_sum(const float* sc, int M) {
 // Copy task t's table into shared memory with the whole block; ends with
 // a barrier.  The bias sum sc[M] is taken in order m = 0..M-1 by one
 // thread, from biases staged in shared memory first.
-template <bool kQuant, int kThreads>
+template <int kKind, int kThreads>
 __device__ __forceinline__ void stage_table(const void* lut,
                                             const float* scale,
                                             const float* bias, int t, int M,
                                             int CB, unsigned char* smem) {
   const int mcb = M * CB;
-  if constexpr (kQuant) {
+  if constexpr (kKind == kU8) {
     float* sc = reinterpret_cast<float*>(smem + ((mcb + 15) & ~15));
     copy_in<uint8_t, kThreads>(
         smem, static_cast<const uint8_t*>(lut) + (size_t)t * mcb, mcb);
@@ -135,6 +167,10 @@ __device__ __forceinline__ void stage_table(const void* lut,
     }
     __syncthreads();
     if (threadIdx.x == 0) sc[M] = bias_sum(sc, M);
+  } else if constexpr (kKind == kBF16) {
+    copy_in<uint16_t, kThreads>(
+        reinterpret_cast<uint16_t*>(smem),
+        static_cast<const uint16_t*>(lut) + (size_t)t * mcb, mcb);
   } else {
     copy_in<float, kThreads>(reinterpret_cast<float*>(smem),
                              static_cast<const float*>(lut) + (size_t)t * mcb,
@@ -187,14 +223,14 @@ __device__ __forceinline__ void copy_in_async(unsigned char* dst,
 // stage_table) without waiting for it.  The bias sum sc[M] is not
 // written: once the copy has landed, the caller sums the biases
 // sc[M+1..2M] in order m = 0..M-1 itself (bias_sum).
-template <bool kQuant, int kThreads>
+template <int kKind, int kThreads>
 __device__ __forceinline__ void stage_table_async(const void* lut,
                                                   const float* scale,
                                                   const float* bias, int t,
                                                   int M, int CB,
                                                   unsigned char* smem) {
   const size_t mcb = (size_t)M * CB;
-  if constexpr (kQuant) {
+  if constexpr (kKind == kU8) {
     float* sc = reinterpret_cast<float*>(smem + ((mcb + 15) & ~(size_t)15));
     copy_in_async<kThreads>(
         smem, static_cast<const uint8_t*>(lut) + (size_t)t * mcb, mcb);
@@ -202,6 +238,12 @@ __device__ __forceinline__ void stage_table_async(const void* lut,
       cp_async4(sc + i, scale + (size_t)t * M + i);
       cp_async4(sc + M + 1 + i, bias + (size_t)t * M + i);
     }
+  } else if constexpr (kKind == kBF16) {
+    copy_in_async<kThreads>(
+        smem,
+        reinterpret_cast<const unsigned char*>(static_cast<const uint16_t*>(
+                                                   lut) + (size_t)t * mcb),
+        mcb * sizeof(uint16_t));
   } else {
     copy_in_async<kThreads>(
         smem,
@@ -211,18 +253,12 @@ __device__ __forceinline__ void stage_table_async(const void* lut,
   }
 }
 
-// Views of a staged table: the f32 entries, the u8 entries, the scales
-// (sc[0..M-1]) with the bias sum at sc[M].
-struct Table {
-  const float* lut_f;
-  const uint8_t* lut_q;
-  const float* sc;
-};
-
+// A staged table's views (the one of its kind is read).
 __device__ __forceinline__ Table table_view(const unsigned char* smem, int M,
                                             int CB) {
   const int mcb = M * CB;
   return {reinterpret_cast<const float*>(smem), smem,
+          reinterpret_cast<const __nv_bfloat16*>(smem),
           reinterpret_cast<const float*>(smem + ((mcb + 15) & ~15))};
 }
 

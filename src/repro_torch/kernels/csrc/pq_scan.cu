@@ -2,11 +2,14 @@
 //
 // Replaces the Pallas TPU kernels `pq_scan_dc_pallas` and
 // `pq_scan_dc_q_pallas` (src/repro/kernels/pq_scan.py), plus the sizes
-// mask their wrapper applied afterwards (src/repro/kernels/ops.py):
+// mask their wrapper applied afterwards (src/repro/kernels/ops.py), and
+// computes the reference's plain DC over a bf16 table
+// (src/repro/core/sharded_search.py `_shard_tasks_fn(lut_dtype=bf16)`):
 //
 //     f32:  d[t, c] = sum_m lut[t, m, codes[t, c, m]]
 //     u8:   d[t, c] = sum_m scale[t, m] * lut_q[t, m, codes[t, c, m]]
 //                     + sum_m bias[t, m]
+//     bf16: d[t, c] = bf16_rn(sum_m f32(lut_h[t, m, codes[t, c, m]]))
 //     rows c >= sizes[t] are written as +inf (sizes == NULL: all valid).
 //
 // The TPU kernels turned the gather into a one-hot MXU contraction,
@@ -14,9 +17,9 @@
 // memory is cheap, so this is the paper's own loop: table lookups + adds.
 //
 // What bounds it on an H100: bytes.  Per task it reads the table (16 KB
-// f32 or 4 KB u8 at M=16, CB=256) and 16 bytes of codes per valid row,
-// and writes 4 bytes per row; the adds are ~1 op per byte read.  The
-// design:
+// f32, 8 KB bf16 or 4 KB u8 at M=16, CB=256) and 16 bytes of codes per
+// valid row, and writes 4 bytes per row; the adds are ~1 op per byte
+// read.  The design:
 //
 //   * grid (T, ceil(C / 1024)): a block stages its task's table in
 //     shared memory once and scores up to 1024 rows with 256 threads;
@@ -40,7 +43,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = 1024;
 
-template <typename CodeT, bool kQuant, bool kVec16>
+template <typename CodeT, int kKind, bool kVec16>
 __global__ void __launch_bounds__(kThreads)
     pq_scan_kernel(const void* __restrict__ lut,
                    const float* __restrict__ scale,
@@ -50,7 +53,7 @@ __global__ void __launch_bounds__(kThreads)
                    int C, int M, int CB) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = blockIdx.x;
-  pqrow::stage_table<kQuant, kThreads>(lut, scale, bias, t, M, CB, smem);
+  pqrow::stage_table<kKind, kThreads>(lut, scale, bias, t, M, CB, smem);
   const pqrow::Table tab = pqrow::table_view(smem, M, CB);
 
   const int size = sizes == nullptr ? C : min(sizes[t], C);
@@ -58,23 +61,22 @@ __global__ void __launch_bounds__(kThreads)
   const int c1 = min(c0 + kRowsPerBlock, C);
   for (int c = c0 + threadIdx.x; c < c1; c += kThreads) {
     out[(size_t)t * C + c] =
-        c < size ? pqrow::row_dist<CodeT, kQuant, kVec16>(
-                       codes + ((size_t)t * C + c) * M, tab.lut_f,
-                       tab.lut_q, tab.sc, M, CB)
+        c < size ? pqrow::row_dist<CodeT, kKind, kVec16>(
+                       codes + ((size_t)t * C + c) * M, tab, M, CB)
                  : INFINITY;
   }
 }
 
-size_t smem_bytes(bool quant, int M, int CB) {
-  return pqrow::table_smem_bytes(quant, M, CB);
+size_t smem_bytes(int kind, int M, int CB) {
+  return pqrow::table_smem_bytes(kind, M, CB);
 }
 
-template <typename CodeT, bool kQuant, bool kVec16>
+template <typename CodeT, int kKind, bool kVec16>
 int launch_typed(const void* lut, const void* scale, const void* bias,
                  const void* codes, const void* sizes, void* out, int T,
                  int C, int M, int CB, void* stream) {
-  auto kernel = pq_scan_kernel<CodeT, kQuant, kVec16>;
-  const size_t smem = smem_bytes(kQuant, M, CB);
+  auto kernel = pq_scan_kernel<CodeT, kKind, kVec16>;
+  const size_t smem = smem_bytes(kKind, M, CB);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -87,7 +89,7 @@ int launch_typed(const void* lut, const void* scale, const void* bias,
   return (int)cudaGetLastError();
 }
 
-template <bool kQuant>
+template <int kKind>
 int launch(const void* lut, const void* scale, const void* bias,
            const void* codes, const void* sizes, void* out, int T, int C,
            int M, int CB, int code_bytes, void* stream) {
@@ -95,14 +97,14 @@ int launch(const void* lut, const void* scale, const void* bias,
   if (code_bytes != 1 && code_bytes != 4)
     return (int)cudaErrorInvalidValue;
   if (code_bytes == 4)
-    return launch_typed<int32_t, kQuant, false>(lut, scale, bias, codes,
+    return launch_typed<int32_t, kKind, false>(lut, scale, bias, codes,
                                                 sizes, out, T, C, M, CB,
                                                 stream);
   if (M == 16 && reinterpret_cast<uintptr_t>(codes) % 16 == 0)
-    return launch_typed<uint8_t, kQuant, true>(lut, scale, bias, codes,
+    return launch_typed<uint8_t, kKind, true>(lut, scale, bias, codes,
                                                sizes, out, T, C, M, CB,
                                                stream);
-  return launch_typed<uint8_t, kQuant, false>(lut, scale, bias, codes, sizes,
+  return launch_typed<uint8_t, kKind, false>(lut, scale, bias, codes, sizes,
                                               out, T, C, M, CB, stream);
 }
 
@@ -110,8 +112,9 @@ int launch(const void* lut, const void* scale, const void* bias,
 
 extern "C" {
 
-size_t pq_scan_smem_bytes(int quant, int M, int CB) {
-  return smem_bytes(quant != 0, M, CB);
+// kind: 0 f32, 1 u8, 2 bf16 table.
+size_t pq_scan_smem_bytes(int kind, int M, int CB) {
+  return smem_bytes(kind, M, CB);
 }
 
 // lut (T, M, CB) f32, codes (T, C, M) u8 (code_bytes=1) or i32 (4),
@@ -119,16 +122,25 @@ size_t pq_scan_smem_bytes(int quant, int M, int CB) {
 int pq_scan_f32(const void* lut, const void* codes, const void* sizes,
                 void* out, int T, int C, int M, int CB, int code_bytes,
                 void* stream) {
-  return launch<false>(lut, nullptr, nullptr, codes, sizes, out, T, C, M, CB,
-                       code_bytes, stream);
+  return launch<pqrow::kF32>(lut, nullptr, nullptr, codes, sizes, out, T, C,
+                             M, CB, code_bytes, stream);
 }
 
 // lut_q (T, M, CB) u8, scale/bias (T, M) f32, codes, sizes as above.
 int pq_scan_u8(const void* lut_q, const void* scale, const void* bias,
                const void* codes, const void* sizes, void* out, int T, int C,
                int M, int CB, int code_bytes, void* stream) {
-  return launch<true>(lut_q, scale, bias, codes, sizes, out, T, C, M, CB,
-                      code_bytes, stream);
+  return launch<pqrow::kU8>(lut_q, scale, bias, codes, sizes, out, T, C, M,
+                            CB, code_bytes, stream);
+}
+
+// lut (T, M, CB) bf16, codes, sizes as above -> out (T, C) f32, each
+// valid row's value a bf16 one.
+int pq_scan_bf16(const void* lut, const void* codes, const void* sizes,
+                 void* out, int T, int C, int M, int CB, int code_bytes,
+                 void* stream) {
+  return launch<pqrow::kBF16>(lut, nullptr, nullptr, codes, sizes, out, T, C,
+                              M, CB, code_bytes, stream);
 }
 
 const char* pq_scan_error_string(int err) {

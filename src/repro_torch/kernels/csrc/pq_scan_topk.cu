@@ -2,11 +2,13 @@
 //
 // Replaces the Pallas TPU kernels `pq_scan_topk_pallas` and
 // `pq_scan_topk_q_pallas` (src/repro/kernels/pq_scan.py), the per-shard
-// scan of the sharded engine:
+// scan of the sharded engine, and computes the reference's fused scan
+// over a bf16 table (src/repro/core/sharded_search.py `_fused_scan_topk`
+// under `_shard_tasks_fn(lut_dtype=bf16)`):
 //
 //     s        = slots[t]   (slots == NULL: s = t, the TPU's dense form)
-//     d[t, c]  = the row distance of pq_scan.cu (f32 or u8 table lut[t])
-//                for the code row codes[s, c]
+//     d[t, c]  = the row distance of pq_scan.cu (f32, u8 or bf16 table
+//                lut[t]) for the code row codes[s, c]
 //     out[t]   = the k_pad smallest (d[t, c], c) over rows c < sizes[s],
 //                ascending, as (distance, ids[s, c]); slots past the
 //                valid rows are (+inf, -1).
@@ -24,11 +26,11 @@
 // output is a function of the inputs alone.
 //
 // What bounds it on an H100: bytes.  The function reads each non-empty
-// task's table (M*CB*4 bytes f32; M*CB + 8*M u8), the codes of the valid
-// rows of the slots it reads (once a slot, however many tasks share it;
-// in the dense form every task's own), the ids of the winners only
-// (min(size, k_pad) a task), the slots and sizes, and writes
-// T * k_pad * 8 bytes:
+// task's table (M*CB*4 bytes f32; M*CB*2 bf16; M*CB + 8*M u8), the codes
+// of the valid rows of the slots it reads (once a slot, however many
+// tasks share it; in the dense form every task's own), the ids of the
+// winners only (min(size, k_pad) a task), the slots and sizes, and
+// writes T * k_pad * 8 bytes:
 //
 //     T_nonempty * table_bytes + slot_rows * M*code_bytes
 //         + winner_rows * 4 + (T + slots_read) * 4 + T * 8*k_pad
@@ -44,15 +46,16 @@
 //     looked up on the first launch on a device) walks the tasks, block
 //     b taking b, b + grid, ...; a block writes the empty tasks it meets
 //     and stages no table for them;
-//   * a block is few warps (kThreadsF32 = 64, kThreadsU8 = 32), so a warp
-//     sees half or all of a task's rows and the warps' lists merge in at
-//     most one round.  The table is copied into shared memory with
-//     cp.async (pq_row.cuh stage_table_async) as soon as every warp is
-//     past the previous task's scan; a block holds 17 KB (f32) or 4.2 KB
-//     (u8), so up to 13 or 32 blocks share an SM and one block's copy
-//     overlaps the others' scans (a second buffer, to overlap it inside
-//     the block, fits fewer blocks and was slower on the H100: PERF.md
-//     lists what was tried);
+//   * a block is few warps (kThreadsF32 = kThreadsBF16 = 64, kThreadsU8 =
+//     32), so a warp sees half or all of a task's rows and the warps'
+//     lists merge in at most one round.  The table is copied into shared
+//     memory with cp.async (pq_row.cuh stage_table_async) as soon as
+//     every warp is past the previous task's scan; a block holds 17 KB
+//     (f32), 9 KB (bf16) or 4.2 KB (u8), so up to 13 (f32) or 32 (u8)
+//     blocks share an SM, more bf16 ones than f32 ones, and one block's
+//     copy overlaps the others' scans (a second buffer, to overlap it
+//     inside the block, fits fewer blocks and was slower on the H100:
+//     PERF.md lists what was tried);
 //   * lane = row, 32 rows a warp a round: a row is one 16-byte code load
 //     at M = 16 u8 (the next round's load in flight while this one is
 //     scored) and M lookups out of shared memory summed in order m =
@@ -82,11 +85,13 @@
 namespace {
 
 // Threads of a block (one task at a time, 32 rows a warp a round) for
-// f32 and u8 tables.  Chosen on an H100 with tools/torch_fused_topk_bench.py
-// --variant, which replays the sharded path's first launch (PERF.md):
-// fewer warps a task cost less selection and merging.
+// f32, u8 and bf16 tables.  Chosen on an H100 with
+// tools/torch_fused_topk_bench.py --variant, which replays the sharded
+// path's first launch (PERF.md): fewer warps a task cost less selection
+// and merging.  The bf16 tables take the f32 tables' block (not tuned).
 constexpr int kThreadsF32 = 64;
 constexpr int kThreadsU8 = 32;
+constexpr int kThreadsBF16 = 64;
 constexpr int kMaxKPad = 256;
 constexpr int kMaxDevices = 64;   // devices whose grid size is remembered
 // Kept rows in a round up to which they are inserted one at a time; more
@@ -97,9 +102,17 @@ constexpr unsigned long long kNone = 0xff800000ffffffffull;  // (+inf, none)
 
 typedef unsigned long long u64;
 
-template <bool kQuant>
+template <int kKind>
 __host__ __device__ constexpr int threads_of() {
-  return kQuant ? kThreadsU8 : kThreadsF32;
+  return kKind == pqrow::kU8     ? kThreadsU8
+         : kKind == pqrow::kBF16 ? kThreadsBF16
+                                 : kThreadsF32;
+}
+
+int threads_of(int kind) {
+  return kind == pqrow::kU8     ? kThreadsU8
+         : kind == pqrow::kBF16 ? kThreadsBF16
+                                : kThreadsF32;
 }
 
 __device__ __forceinline__ uint32_t ordered_bits(float d) {
@@ -216,22 +229,22 @@ __device__ __forceinline__ int next_task(int t, int T, const int* slots,
   return t;
 }
 
-size_t table_bytes(bool quant, int M, int CB) {
-  return (pqrow::table_smem_bytes(quant, M, CB) + 15) & ~(size_t)15;
+size_t table_bytes(int kind, int M, int CB) {
+  return (pqrow::table_smem_bytes(kind, M, CB) + 15) & ~(size_t)15;
 }
 
 int keys_per_lane(int kp) { return kp <= 32 ? 1 : kp / 32; }
 
 // The table and, with more than one warp, the warps' lists.
-size_t smem_bytes(bool quant, int M, int CB, int kp) {
-  const int warps = (quant ? kThreadsU8 : kThreadsF32) / 32;
-  return table_bytes(quant, M, CB) +
+size_t smem_bytes(int kind, int M, int CB, int kp) {
+  const int warps = threads_of(kind) / 32;
+  return table_bytes(kind, M, CB) +
          (warps > 1 ? (size_t)warps * 32 * keys_per_lane(kp) * sizeof(u64)
                     : 0);
 }
 
-template <int KPL, typename CodeT, bool kQuant, bool kVec16>
-__global__ void __launch_bounds__(threads_of<kQuant>())
+template <int KPL, typename CodeT, int kKind, bool kVec16>
+__global__ void __launch_bounds__(threads_of<kKind>())
     pq_scan_topk_kernel(const void* __restrict__ lut,
                         const float* __restrict__ scale,
                         const float* __restrict__ bias,
@@ -242,7 +255,8 @@ __global__ void __launch_bounds__(threads_of<kQuant>())
                         float* __restrict__ out_d, int* __restrict__ out_i,
                         int T, int P, int C, int M, int CB, int kp,
                         int tbytes) {
-  constexpr int kThreads = threads_of<kQuant>();
+  constexpr bool kQuant = kKind == pqrow::kU8;
+  constexpr int kThreads = threads_of<kKind>();
   constexpr int kWarps = kThreads / 32;
   constexpr int L = 32 * KPL;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -253,8 +267,8 @@ __global__ void __launch_bounds__(threads_of<kQuant>())
   int t = next_task<kThreads>(blockIdx.x, T, slots, sizes, P, C, kp, out_d,
                               out_i, &slot, &rows);
   if (t < T)
-    pqrow::stage_table_async<kQuant, kThreads>(lut, scale, bias, t, M, CB,
-                                               smem);
+    pqrow::stage_table_async<kKind, kThreads>(lut, scale, bias, t, M, CB,
+                                              smem);
   while (t < T) {
     pqrow::cp_async_wait_all();        // this thread's copies of task t
     __syncthreads();                   // ... and everyone's
@@ -288,17 +302,14 @@ __global__ void __launch_bounds__(threads_of<kQuant>())
         if (c < rows) {
           float d;
           if constexpr (kQuant)
-            d = pqrow::row_sum_vec16<kQuant, 256>(w, tab.lut_f, tab.lut_q,
-                                                  scl, CB) + bsum;
+            d = pqrow::row_sum_vec16<kKind, 256>(w, tab, scl, CB) + bsum;
           else
-            d = pqrow::row_sum_vec16<kQuant, 256>(w, tab.lut_f, tab.lut_q,
-                                                  tab.sc, CB);
+            d = pqrow::row_sum_vec16<kKind, 256>(w, tab, tab.sc, CB);
           key = ((u64)ordered_bits(d) << 32) | (uint32_t)c;
         }
       } else if (c < rows) {
-        float d = pqrow::row_sum<CodeT, kQuant>(base + (size_t)c * M,
-                                                tab.lut_f, tab.lut_q, tab.sc,
-                                                M, CB);
+        float d = pqrow::row_sum<CodeT, kKind>(base + (size_t)c * M, tab,
+                                               tab.sc, M, CB);
         if constexpr (kQuant) d += bsum;
         key = ((u64)ordered_bits(d) << 32) | (uint32_t)c;
       }
@@ -339,8 +350,8 @@ __global__ void __launch_bounds__(threads_of<kQuant>())
     const int t1 = next_task<kThreads>(t + gridDim.x, T, slots, sizes, P, C,
                                        kp, out_d, out_i, &slot1, &rows1);
     if (t1 < T)
-      pqrow::stage_table_async<kQuant, kThreads>(lut, scale, bias, t1, M, CB,
-                                                 smem);
+      pqrow::stage_table_async<kKind, kThreads>(lut, scale, bias, t1, M, CB,
+                                                smem);
     if (warp == 0) {
 #pragma unroll
       for (int j = 0; j < KPL; ++j) {
@@ -358,13 +369,13 @@ __global__ void __launch_bounds__(threads_of<kQuant>())
   }
 }
 
-template <int KPL, typename CodeT, bool kQuant, bool kVec16>
+template <int KPL, typename CodeT, int kKind, bool kVec16>
 int launch_typed(const void* lut, const void* scale, const void* bias,
                  const void* codes, const void* ids, const void* sizes,
                  const void* slots, void* out_d, void* out_i, int T, int P,
                  int C, int M, int CB, int kp, void* stream) {
-  auto kernel = pq_scan_topk_kernel<KPL, CodeT, kQuant, kVec16>;
-  const size_t smem = smem_bytes(kQuant, M, CB, kp);
+  auto kernel = pq_scan_topk_kernel<KPL, CodeT, kKind, kVec16>;
+  const size_t smem = smem_bytes(kKind, M, CB, kp);
   // The blocks of this instance that fit on the card at once, looked up on
   // the first launch per device and shared-memory size: (smem << 32) |
   // blocks, 0 until then.
@@ -385,7 +396,7 @@ int launch_typed(const void* lut, const void* scale, const void* bias,
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess ||
         (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, threads_of<kQuant>(), smem)) != cudaSuccess)
+             &per_sm, kernel, threads_of<kKind>(), smem)) != cudaSuccess)
       return (int)e;
     if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
     blocks = sms * per_sm;
@@ -394,32 +405,32 @@ int launch_typed(const void* lut, const void* scale, const void* bias,
                           std::memory_order_relaxed);
   }
   const int grid = T < blocks ? T : blocks;
-  kernel<<<grid, threads_of<kQuant>(), smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, threads_of<kKind>(), smem, (cudaStream_t)stream>>>(
       lut, (const float*)scale, (const float*)bias, (const CodeT*)codes,
       (const int*)ids, (const int*)sizes, (const int*)slots, (float*)out_d,
-      (int*)out_i, T, P, C, M, CB, kp, (int)table_bytes(kQuant, M, CB));
+      (int*)out_i, T, P, C, M, CB, kp, (int)table_bytes(kKind, M, CB));
   return (int)cudaGetLastError();
 }
 
-template <int KPL, bool kQuant>
+template <int KPL, int kKind>
 int launch_codes(const void* lut, const void* scale, const void* bias,
                  const void* codes, const void* ids, const void* sizes,
                  const void* slots, void* out_d, void* out_i, int T, int P,
                  int C, int M, int CB, int code_bytes, int kp, void* stream) {
   if (code_bytes == 4)
-    return launch_typed<KPL, int32_t, kQuant, false>(
+    return launch_typed<KPL, int32_t, kKind, false>(
         lut, scale, bias, codes, ids, sizes, slots, out_d, out_i, T, P, C, M,
         CB, kp, stream);
   if (M == 16 && CB == 256 && reinterpret_cast<uintptr_t>(codes) % 16 == 0)
-    return launch_typed<KPL, uint8_t, kQuant, true>(
+    return launch_typed<KPL, uint8_t, kKind, true>(
         lut, scale, bias, codes, ids, sizes, slots, out_d, out_i, T, P, C, M,
         CB, kp, stream);
-  return launch_typed<KPL, uint8_t, kQuant, false>(
+  return launch_typed<KPL, uint8_t, kKind, false>(
       lut, scale, bias, codes, ids, sizes, slots, out_d, out_i, T, P, C, M,
       CB, kp, stream);
 }
 
-template <bool kQuant>
+template <int kKind>
 int launch(const void* lut, const void* scale, const void* bias,
            const void* codes, const void* ids, const void* sizes,
            const void* slots, void* out_d, void* out_i, int T, int P, int C,
@@ -430,21 +441,21 @@ int launch(const void* lut, const void* scale, const void* bias,
   if (T == 0) return (int)cudaSuccess;
   switch (keys_per_lane(kp)) {
     case 1:
-      return launch_codes<1, kQuant>(lut, scale, bias, codes, ids, sizes,
-                                     slots, out_d, out_i, T, P, C, M, CB,
-                                     code_bytes, kp, stream);
+      return launch_codes<1, kKind>(lut, scale, bias, codes, ids, sizes,
+                                    slots, out_d, out_i, T, P, C, M, CB,
+                                    code_bytes, kp, stream);
     case 2:
-      return launch_codes<2, kQuant>(lut, scale, bias, codes, ids, sizes,
-                                     slots, out_d, out_i, T, P, C, M, CB,
-                                     code_bytes, kp, stream);
+      return launch_codes<2, kKind>(lut, scale, bias, codes, ids, sizes,
+                                    slots, out_d, out_i, T, P, C, M, CB,
+                                    code_bytes, kp, stream);
     case 4:
-      return launch_codes<4, kQuant>(lut, scale, bias, codes, ids, sizes,
-                                     slots, out_d, out_i, T, P, C, M, CB,
-                                     code_bytes, kp, stream);
+      return launch_codes<4, kKind>(lut, scale, bias, codes, ids, sizes,
+                                    slots, out_d, out_i, T, P, C, M, CB,
+                                    code_bytes, kp, stream);
     default:
-      return launch_codes<8, kQuant>(lut, scale, bias, codes, ids, sizes,
-                                     slots, out_d, out_i, T, P, C, M, CB,
-                                     code_bytes, kp, stream);
+      return launch_codes<8, kKind>(lut, scale, bias, codes, ids, sizes,
+                                    slots, out_d, out_i, T, P, C, M, CB,
+                                    code_bytes, kp, stream);
   }
 }
 
@@ -452,8 +463,9 @@ int launch(const void* lut, const void* scale, const void* bias,
 
 extern "C" {
 
-size_t pq_scan_topk_smem_bytes(int quant, int M, int CB, int k_pad) {
-  return smem_bytes(quant != 0, M, CB, k_pad);
+// kind: 0 f32, 1 u8, 2 bf16 table.
+size_t pq_scan_topk_smem_bytes(int kind, int M, int CB, int k_pad) {
+  return smem_bytes(kind, M, CB, k_pad);
 }
 
 // lut (T, M, CB) f32; codes (P, C, M) u8 (code_bytes=1) or i32 (4), ids
@@ -464,9 +476,9 @@ int pq_scan_topk_f32(const void* lut, const void* codes, const void* ids,
                      const void* sizes, const void* slots, void* out_d,
                      void* out_i, int T, int P, int C, int M, int CB,
                      int code_bytes, int k_pad, void* stream) {
-  return launch<false>(lut, nullptr, nullptr, codes, ids, sizes, slots,
-                       out_d, out_i, T, P, C, M, CB, code_bytes, k_pad,
-                       stream);
+  return launch<pqrow::kF32>(lut, nullptr, nullptr, codes, ids, sizes,
+                             slots, out_d, out_i, T, P, C, M, CB, code_bytes,
+                             k_pad, stream);
 }
 
 // lut_q (T, M, CB) u8, scale/bias (T, M) f32, the rest as above.
@@ -475,8 +487,20 @@ int pq_scan_topk_u8(const void* lut_q, const void* scale, const void* bias,
                     const void* slots, void* out_d, void* out_i, int T, int P,
                     int C, int M, int CB, int code_bytes, int k_pad,
                     void* stream) {
-  return launch<true>(lut_q, scale, bias, codes, ids, sizes, slots, out_d,
-                      out_i, T, P, C, M, CB, code_bytes, k_pad, stream);
+  return launch<pqrow::kU8>(lut_q, scale, bias, codes, ids, sizes, slots,
+                            out_d, out_i, T, P, C, M, CB, code_bytes, k_pad,
+                            stream);
+}
+
+// lut (T, M, CB) bf16, the rest as for pq_scan_topk_f32; each distance
+// out is a bf16 value.
+int pq_scan_topk_bf16(const void* lut, const void* codes, const void* ids,
+                      const void* sizes, const void* slots, void* out_d,
+                      void* out_i, int T, int P, int C, int M, int CB,
+                      int code_bytes, int k_pad, void* stream) {
+  return launch<pqrow::kBF16>(lut, nullptr, nullptr, codes, ids, sizes,
+                              slots, out_d, out_i, T, P, C, M, CB,
+                              code_bytes, k_pad, stream);
 }
 
 const char* pq_scan_topk_error_string(int err) {

@@ -1,9 +1,12 @@
 """Public wrappers around the LC, DC and fused DC+TS kernels.
 
-On a CUDA tensor each wrapper launches its hand-written kernel (built
-from ``csrc/`` at first use) or raises; on a CPU tensor it runs the
-kernel's plain PyTorch version from :mod:`repro_torch.core.adc`.  There
-is no fallback from the kernel to the plain version.
+A table is f32 (T, M, CB), bf16 (T, M, CB) or a :class:`QuantizedLUT`
+(uint8 with per-subspace scale and bias); each kind has its own kernel
+instance and launch counter.  On a CUDA tensor each wrapper launches its
+hand-written kernel (built from ``csrc/`` at first use) or raises; on a
+CPU tensor it runs the kernel's plain PyTorch version from
+:mod:`repro_torch.core.adc`.  There is no fallback from the kernel to
+the plain version.
 
 ``launches`` counts kernel launches per wrapper (plain runs do not
 count), so a run can show which kernels its path went through.
@@ -24,8 +27,14 @@ from repro_torch.core.topk import topk_smallest
 from repro_torch.kernels import _build
 from repro_torch.util import next_pow2
 
-launches = {"lut_build": 0, "lut_build_q": 0, "pq_scan_dc": 0,
-            "pq_scan_dc_q": 0, "pq_scan_topk": 0, "pq_scan_topk_q": 0}
+launches = {"lut_build": 0, "lut_build_q": 0, "lut_build_bf16": 0,
+            "pq_scan_dc": 0, "pq_scan_dc_q": 0, "pq_scan_dc_bf16": 0,
+            "pq_scan_topk": 0, "pq_scan_topk_q": 0, "pq_scan_topk_bf16": 0}
+
+# The C entry points' table kinds (csrc/pq_row.cuh) and each kind's
+# launch-counter suffix.
+_KIND = {"f32": 0, "u8": 1, "bf16": 2}
+KIND_SUFFIX = {"f32": "", "u8": "_q", "bf16": "_bf16"}
 
 # Dynamic shared memory one block may use on an H100 (227 KB).
 _SMEM_LIMIT = 232448
@@ -105,23 +114,41 @@ def _lut_inputs(residuals, codebooks, sqnorms):
     return dev, t, m, cbn, dsub
 
 
+def _lut_table(residuals, codebooks, sqnorms, kind: str) -> torch.Tensor:
+    """LC into a (T, M, CB) f32 or bf16 table (``kind``)."""
+    dev, t, m, cbn, dsub = _lut_inputs(residuals, codebooks, sqnorms)
+    if not _route(dev):
+        lut = build_lut_batch(PQCodebook(codebooks, sqnorms), residuals)
+        return lut if kind == "f32" else lut.to(torch.bfloat16)
+    name = "lut_build" + KIND_SUFFIX[kind]
+    lib = _build.library("lut_build")
+    _smem(name, lib.lut_build_smem_bytes(_KIND[kind], cbn, dsub))
+    out = torch.empty((t, m, cbn), device=dev, dtype=(
+        torch.float32 if kind == "f32" else torch.bfloat16))
+    fn = lib.lut_build_f32 if kind == "f32" else lib.lut_build_bf16
+    with torch.cuda.device(dev):
+        err = fn(residuals.data_ptr(), codebooks.data_ptr(),
+                 sqnorms.data_ptr(), out.data_ptr(), t, m, cbn, dsub,
+                 _stream(dev))
+    _ok(lib, err, name, "lut_build")
+    _launched(name)
+    return out
+
+
 def lut_build(residuals: torch.Tensor, codebooks: torch.Tensor,
               sqnorms: torch.Tensor) -> torch.Tensor:
     """LC: (T, D) residuals, codebooks (M, CB, dsub), sqnorms (M, CB), all
     f32 -> (T, M, CB) f32 LUTs."""
-    dev, t, m, cbn, dsub = _lut_inputs(residuals, codebooks, sqnorms)
-    if not _route(dev):
-        return build_lut_batch(PQCodebook(codebooks, sqnorms), residuals)
-    lib = _build.library("lut_build")
-    _smem("lut_build", lib.lut_build_smem_bytes(0, cbn, dsub))
-    out = torch.empty((t, m, cbn), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.lut_build_f32(residuals.data_ptr(), codebooks.data_ptr(),
-                                sqnorms.data_ptr(), out.data_ptr(), t, m, cbn,
-                                dsub, _stream(dev))
-    _ok(lib, err, "lut_build", "lut_build")
-    _launched("lut_build")
-    return out
+    return _lut_table(residuals, codebooks, sqnorms, "f32")
+
+
+def lut_build_bf16(residuals: torch.Tensor, codebooks: torch.Tensor,
+                   sqnorms: torch.Tensor) -> torch.Tensor:
+    """LC into a bf16 table: the inputs of :func:`lut_build` -> (T, M, CB)
+    bf16, each entry :func:`lut_build`'s f32 one rounded to nearest even
+    (the reference's ``lut.astype(bfloat16)``).  On the card the f32 table
+    never leaves the kernel."""
+    return _lut_table(residuals, codebooks, sqnorms, "bf16")
 
 
 def lut_build_q(residuals: torch.Tensor, codebooks: torch.Tensor,
@@ -148,15 +175,24 @@ def lut_build_q(residuals: torch.Tensor, codebooks: torch.Tensor,
     return QuantizedLUT(lut_q, scale, bias)
 
 
+def table_kind(lut) -> str:
+    """A scan's table kind: "f32", "bf16", or "u8" for a
+    :class:`QuantizedLUT`."""
+    if isinstance(lut, QuantizedLUT):
+        return "u8"
+    return "bf16" if lut.dtype == torch.bfloat16 else "f32"
+
+
 def _scan_inputs(lut, codes, sizes, slots=None):
-    """Check a scan's table, codes, sizes and slots; returns (quantized,
-    table, device, T, P, C, M, CB): T tasks (tables), P code slots (T
-    without ``slots``)."""
-    quantized = isinstance(lut, QuantizedLUT)
+    """Check a scan's table, codes, sizes and slots; returns (kind, table,
+    device, T, P, C, M, CB): the table's kind (:func:`table_kind`), T
+    tasks (tables), P code slots (T without ``slots``)."""
+    kind = table_kind(lut)
+    quantized = kind == "u8"
     table = lut.lut_q if quantized else lut
     dev = table.device
-    _check(table, "lut", (torch.uint8,) if quantized else (torch.float32,),
-           3, dev)
+    _check(table, "lut", (torch.uint8,) if quantized else
+           (torch.float32, torch.bfloat16), 3, dev)
     _check(codes, "codes", (torch.uint8, torch.int32), 3, dev)
     p, c, m = codes.shape
     t = p
@@ -176,7 +212,7 @@ def _scan_inputs(lut, codes, sizes, slots=None):
         _check(sizes, "sizes", (torch.int32,), 1, dev)
         if sizes.shape[0] != p:
             raise ValueError(f"sizes {tuple(sizes.shape)} != ({p},)")
-    return quantized, table, dev, t, p, c, m, cbn
+    return kind, table, dev, t, p, c, m, cbn
 
 
 def pq_scan_dc(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
@@ -185,32 +221,32 @@ def pq_scan_dc(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
     """DC: (T, M, CB) table x (T, C, M) codes -> (T, C) f32; rows
     ``>= sizes[t]`` are +inf (``sizes`` None: all rows valid).
 
-    ``lut`` is the f32 table or a :class:`QuantizedLUT` (uint8 path).
-    Codes are uint8 or int32.  ``strategy`` names a TPU dataflow and does
-    not change the result."""
+    ``lut`` is the f32 table, a bf16 table (each row's f32 sum rounded
+    once to bf16, :func:`~repro_torch.core.adc.scan_codes`) or a
+    :class:`QuantizedLUT` (uint8 path).  Codes are uint8 or int32.
+    ``strategy`` names a TPU dataflow and does not change the result."""
     check_strategy(strategy)
-    quantized, table, dev, t, _, c, m, cbn = _scan_inputs(lut, codes,
-                                                          sizes)
+    kind, table, dev, t, _, c, m, cbn = _scan_inputs(lut, codes, sizes)
     if not _route(dev):
-        if quantized:
+        if kind == "u8":
             return adc_distances_quantized(lut, codes, sizes, strategy)
         return adc_distances(lut, codes, sizes, strategy)
+    name = "pq_scan_dc" + KIND_SUFFIX[kind]
     lib = _build.library("pq_scan")
-    _smem("pq_scan_dc", lib.pq_scan_smem_bytes(int(quantized), m, cbn))
+    _smem(name, lib.pq_scan_smem_bytes(_KIND[kind], m, cbn))
     out = torch.empty((t, c), dtype=torch.float32, device=dev)
     sizes_ptr = None if sizes is None else sizes.data_ptr()
     code_bytes = codes.element_size()
     with torch.cuda.device(dev):
-        if quantized:
+        if kind == "u8":
             err = lib.pq_scan_u8(table.data_ptr(), lut.scale.data_ptr(),
                                  lut.bias.data_ptr(), codes.data_ptr(),
                                  sizes_ptr, out.data_ptr(), t, c, m, cbn,
                                  code_bytes, _stream(dev))
         else:
-            err = lib.pq_scan_f32(table.data_ptr(), codes.data_ptr(),
-                                  sizes_ptr, out.data_ptr(), t, c, m, cbn,
-                                  code_bytes, _stream(dev))
-    name = "pq_scan_dc_q" if quantized else "pq_scan_dc"
+            fn = lib.pq_scan_f32 if kind == "f32" else lib.pq_scan_bf16
+            err = fn(table.data_ptr(), codes.data_ptr(), sizes_ptr,
+                     out.data_ptr(), t, c, m, cbn, code_bytes, _stream(dev))
     _ok(lib, err, name, "pq_scan")
     _launched(name)
     return out
@@ -233,8 +269,9 @@ def pq_scan_topk_plain(lut: Union[torch.Tensor, QuantizedLUT],
                        codes: torch.Tensor, ids: torch.Tensor,
                        sizes: torch.Tensor, k_pad: int, *,
                        slots: Optional[torch.Tensor] = None):
-    """The fused kernels' plain version: DC (``adc_distances`` or
-    ``adc_distances_quantized``), masked ids, then ``topk_smallest``.
+    """The fused kernels' plain version: DC (``adc_distances``, f32 or
+    bf16 table, or ``adc_distances_quantized``), masked ids, then
+    ``topk_smallest``.
     Returns (T, k_pad) ascending distances and ids, (+inf, -1) past the
     valid rows, C < k_pad included.  ``slots``: as :func:`pq_scan_topk`,
     through :func:`gather_slots`."""
@@ -271,12 +308,12 @@ def pq_scan_topk(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
 
     As the reference's wrapper: ``k_pad = next_pow2(max(k, 8))`` winners
     are selected and the outputs are sliced to ``k``; ``k_pad`` may not
-    exceed :data:`MAX_K_PAD`.  ``lut`` is the f32 table or a
-    :class:`QuantizedLUT`; codes uint8 or int32; ids and sizes int32.
+    exceed :data:`MAX_K_PAD`.  ``lut`` is the f32 table, a bf16 table or
+    a :class:`QuantizedLUT`; codes uint8 or int32; ids and sizes int32.
     On the card ties are broken by row, so the output is deterministic."""
     check_strategy(strategy)
-    quantized, table, dev, t, p, c, m, cbn = _scan_inputs(lut, codes, sizes,
-                                                          slots)
+    kind, table, dev, t, p, c, m, cbn = _scan_inputs(lut, codes, sizes,
+                                                     slots)
     if sizes is None:
         raise ValueError("pq_scan_topk needs sizes")
     _check(ids, "ids", (torch.int32,), 2, dev)
@@ -292,27 +329,27 @@ def pq_scan_topk(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
         bd, bi = pq_scan_topk_plain(lut, codes, ids, sizes, k_pad,
                                     slots=slots)
         return bd[:, :k], bi[:, :k]
+    name = "pq_scan_topk" + KIND_SUFFIX[kind]
     lib = _build.library("pq_scan_topk")
-    _smem("pq_scan_topk",
-          lib.pq_scan_topk_smem_bytes(int(quantized), m, cbn, k_pad))
+    _smem(name, lib.pq_scan_topk_smem_bytes(_KIND[kind], m, cbn, k_pad))
     out_d = torch.empty((t, k_pad), dtype=torch.float32, device=dev)
     out_i = torch.empty((t, k_pad), dtype=torch.int32, device=dev)
     code_bytes = codes.element_size()
     slots_ptr = None if slots is None else slots.data_ptr()
     with torch.cuda.device(dev):
-        if quantized:
+        if kind == "u8":
             err = lib.pq_scan_topk_u8(
                 table.data_ptr(), lut.scale.data_ptr(), lut.bias.data_ptr(),
                 codes.data_ptr(), ids.data_ptr(), sizes.data_ptr(), slots_ptr,
                 out_d.data_ptr(), out_i.data_ptr(), t, p, c, m, cbn,
                 code_bytes, k_pad, _stream(dev))
         else:
-            err = lib.pq_scan_topk_f32(
-                table.data_ptr(), codes.data_ptr(), ids.data_ptr(),
-                sizes.data_ptr(), slots_ptr, out_d.data_ptr(),
-                out_i.data_ptr(), t, p, c, m, cbn, code_bytes, k_pad,
-                _stream(dev))
-    name = "pq_scan_topk_q" if quantized else "pq_scan_topk"
+            fn = (lib.pq_scan_topk_f32 if kind == "f32"
+                  else lib.pq_scan_topk_bf16)
+            err = fn(table.data_ptr(), codes.data_ptr(), ids.data_ptr(),
+                     sizes.data_ptr(), slots_ptr, out_d.data_ptr(),
+                     out_i.data_ptr(), t, p, c, m, cbn, code_bytes, k_pad,
+                     _stream(dev))
     _ok(lib, err, name, "pq_scan_topk")
     _launched(name)
     return out_d[:, :k], out_i[:, :k]

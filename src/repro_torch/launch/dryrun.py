@@ -36,6 +36,7 @@ import gc
 import json
 import math
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -56,6 +57,10 @@ ART_DIR = (pathlib.Path(__file__).resolve().parents[3] / "experiments"
            / "dryrun_torch")
 
 FSDP_THRESHOLD = 8e9     # params; above this, shard "embed" over data axis
+# timed steps of the drim cell after its warm one: a ~1 ms step timed once
+# moved 1.78 -> 8.45 ms between two runs of one process on the H100; the
+# record's step_ms is their median
+DRIM_TIMED_STEPS = 5
 
 _HBM_SOURCE = ("analytic: roofline.analytic_roofline (torch has no "
                "counterpart of XLA's bytes accessed)")
@@ -489,11 +494,14 @@ def drim_inputs(shape: dict, device, seed: int = 0) -> dict:
     }
 
 
-def drim_step(inp: dict, k: int, fused_scan: bool, quantize: bool):
+def drim_step(inp: dict, k: int, fused_scan: bool, quantize: bool,
+              lut_dtype=None):
     """Rank 0's shard program: ``core/sharded_search.py::_shard_tasks_fn``
-    (LC through A or B, then the fused DC+TS E or F) or, with
-    ``fused_scan`` off, LC then DC (C or D) over the gathered slots and
-    ``torch.topk``.  -> ((T, k) distances, (T, k) ids)."""
+    (LC through A, B or A-bf16, then the fused DC+TS E, F or E-bf16) or,
+    with ``fused_scan`` off, LC then DC (C, D or C-bf16) over the gathered
+    slots and ``torch.topk``.  ``lut_dtype``: ``_shard_tasks_fn``'s (None,
+    "f32" or "bf16"; ``quantize`` is the uint8 path).  -> ((T, k)
+    distances, (T, k) ids)."""
     from repro_torch.core import sharded_search as ss
     from repro_torch.kernels import ops as kops
     args = (inp["codes"], inp["ids"], inp["sizes"], inp["cluster_of"],
@@ -501,12 +509,13 @@ def drim_step(inp: dict, k: int, fused_scan: bool, quantize: bool):
             inp["codebook"], None)
     if fused_scan:
         return ss._shard_tasks_fn(*args, k=k, strategy="gather",
-                                  quantize=quantize)
+                                  quantize=quantize, lut_dtype=lut_dtype)
     codes, ids, sizes, cluster_of, qidx, sidx = args[:6]
     valid = qidx >= 0
     si = sidx.clamp(0, codes.shape[0] - 1).long()
     lut = ss._task_lut(cluster_of, qidx, si, inp["queries"],
-                       inp["centroids"], inp["codebook"], None, quantize)
+                       inp["centroids"], inp["codebook"], None, quantize,
+                       lut_dtype)
     c, i, sz = kops.gather_slots(codes, ids, sizes, ss._task_slots(si, valid))
     dist = kops.pq_scan_dc(lut, c, sz)
     bd, pos = torch.topk(dist, k, dim=1, largest=False)
@@ -522,19 +531,19 @@ def run_drim_ann_cell(multi_pod: bool, out_dir: pathlib.Path = ART_DIR,
     sharded search step at ``configs/drim_ann.py``'s 100M shape (the mesh
     axes act as one flat pool of shards; queries replicated, exactly the
     engine's layout; no collective, as the reference's out spec is
-    ``P(shard_axes)``).  ``lut_dtype``: None / ``"f32"`` (A, then E or C)
-    or ``"uint8"`` (B, then F or D); ``"bf16"`` is not ported.  ``shape``
-    overrides the shard shape (the tests' small size)."""
-    if lut_dtype == "bf16":
-        raise NotImplementedError(
-            "--lut-dtype bf16: the port has no bf16-table DC kernel "
-            "(ROADMAP.md section 1, the bf16-LUT drim variant)")
-    if lut_dtype not in (None, "f32", "uint8"):
+    ``P(shard_axes)``).  ``lut_dtype``: None / ``"f32"`` (A, then E or C),
+    ``"uint8"`` (B, then F or D) or ``"bf16"`` (A-bf16, then E-bf16 or
+    C-bf16: the reference's ``jnp.bfloat16``, record tag ``lut_bf16``).
+    ``shape`` overrides the shard shape (the tests' small size).  After
+    one warm step (FLOPs and collectives counted), ``step_ms`` is the
+    median of ``DRIM_TIMED_STEPS`` timed ones (``step_ms_samples``)."""
+    if lut_dtype not in (None, "f32", "uint8", "bf16"):
         raise ValueError(f"lut_dtype {lut_dtype!r}")
     from repro_torch.configs import drim_ann
     t0 = time.time()
     dev = _resolve(device)
     quant = lut_dtype == "uint8"
+    bf16 = lut_dtype == "bf16"
     with _world(multi_pod, dev.type):
         mesh = meshlib.make_production_mesh(multi_pod=multi_pod,
                                             device_type=dev.type)
@@ -556,17 +565,20 @@ def run_drim_ann_cell(multi_pod: bool, out_dir: pathlib.Path = ART_DIR,
     _sync(dev)
     arg_bytes = torch.cuda.memory_allocated(dev) if cuda else 0
     counter = rooflib.StepCounter()
+
+    def step():
+        return drim_step(inp, shp["k"], fused_scan, quant,
+                         "bf16" if bf16 else None)
     with counter:
-        (bd, bi), warm_ms = _timed_ms(
-            lambda: drim_step(inp, shp["k"], fused_scan, quant), dev)
+        (bd, bi), warm_ms = _timed_ms(step, dev)
     out_bytes = bd.numel() * 4 + bi.numel() * 4
-    _, step_ms = _timed_ms(
-        lambda: drim_step(inp, shp["k"], fused_scan, quant), dev)
+    samples = [_timed_ms(step, dev)[1] for _ in range(DRIM_TIMED_STEPS)]
+    step_ms = statistics.median(samples)
     peak = torch.cuda.max_memory_allocated(dev) if cuda else None
     work = rooflib.drim_search_work(shp["tasks"], shp["cpart"], shp["m"],
                                     shp["cb"], shp["d"] // shp["m"],
                                     shp["k"], quant, fused_scan,
-                                    shp["slots"])
+                                    shp["slots"], bf16=bf16)
     analysis = rooflib.analyze_step(
         {"flops": work["flops"], "hbm_bytes": work["hbm_bytes"],
          "collective_bytes": counter.collective_bytes(),
@@ -582,7 +594,8 @@ def run_drim_ann_cell(multi_pod: bool, out_dir: pathlib.Path = ART_DIR,
                                "(roofline.drim_search_work)",
            "aten_flops": counter.flops,
            "fits": True, "peak_bytes": peak, "step_ms": step_ms,
-           "warm_ms": warm_ms, "oom": None, "wall_s": time.time() - t0}
+           "step_ms_samples": samples, "warm_ms": warm_ms, "oom": None,
+           "wall_s": time.time() - t0}
     _write(rec, name, out_dir)
     del inp, bd, bi
     _free(dev)
@@ -603,7 +616,8 @@ def main(argv=None):
     ap.add_argument("--lut-dtype", choices=("f32", "bf16", "uint8"),
                     default=None,
                     help="drim_ann cell: LUT dtype (uint8 = the quantized "
-                         "path, B then F or D)")
+                         "path, B then F or D; bf16 = A-bf16 then E-bf16 "
+                         "or C-bf16)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out-dir", default=str(ART_DIR))
     args = ap.parse_args(argv)

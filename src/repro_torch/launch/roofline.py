@@ -381,17 +381,26 @@ def model_flops(cfg, cell) -> float:
 
 
 def drim_search_work(tasks: int, cpart: int, m: int, cb: int, dsub: int,
-                     k: int, quant: bool, fused: bool, slots: int) -> Dict:
+                     k: int, quant: bool, fused: bool, slots: int,
+                     bf16: bool = False) -> Dict:
     """One shard's search step at full tasks: LC's and DC's operations
     and bytes as ``chip_smoke.py`` bounds the kernels (LC: per entry
-    ``2 dsub + 4`` operations, +6 for the uint8 table; DC: one add per code
-    entry, two for uint8), TS not counted; bytes read once and written
-    once, the (T, C) distances written and read back when not fused."""
+    ``2 dsub + 4`` operations, +6 for the uint8 table, +1 (the rounding)
+    for the bf16 one; DC: one add per code entry, two for uint8, and for
+    bf16 one rounding per row), TS not counted; the table at 4 B an entry
+    (f32), 2 B (``bf16``) or 1 B with scale and bias (``quant``); bytes
+    read once and written once, the (T, C) distances written and read
+    back when not fused."""
     lc_ops = tasks * m * cb * (2 * dsub + 4) + tasks * m * 2 * dsub
     if quant:
         lc_ops += tasks * m * cb * 6
+    elif bf16:
+        lc_ops += tasks * m * cb
     dc_ops = tasks * cpart * m * (2 if quant else 1)
-    table = (m * cb + 8 * m) if quant else m * cb * 4
+    if bf16 and not quant:
+        dc_ops += tasks * cpart
+    table = ((m * cb + 8 * m) if quant else m * cb * 2 if bf16
+             else m * cb * 4)
     nbytes = (tasks * m * dsub * 4 + m * cb * (dsub + 1) * 4
               + 2 * tasks * table                      # LC writes, DC reads
               + slots * cpart * m + slots * cpart * 4  # codes + ids

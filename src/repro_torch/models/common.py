@@ -211,3 +211,9 @@ def tree_map(fn, tree):
 
 def count_params(tree) -> int:
     return sum(x.numel() for x in tree_leaves(tree))
+
+
+def cast_tree(tree, dtype):
+    """Every tensor of ``tree`` cast to ``dtype`` (a new tree; the
+    reference's ``jax.tree.map(lambda x: x.astype(dtype), tree)``)."""
+    return tree_map(lambda x: x.to(dtype), tree)

@@ -334,6 +334,199 @@ def test_kernels_refuse_cpu_mixed_inputs(cuda):
         ops.pq_scan_topk(lut, codes, ids, sizes, 4)
 
 
+# ---------------------------------------------------------------------------
+# The bf16-table kernels: A-bf16, C-bf16, E-bf16
+# ---------------------------------------------------------------------------
+
+BF16_ULP = 2.0 ** -8           # one bf16 ulp, relative
+
+
+def _assert_bf16_close(got, want, min_equal=0.99):
+    """Within one bf16 ulp with equal +inf masks, at least ``min_equal``
+    of the finite values bit-equal."""
+    got, want = got.cpu(), want.cpu()
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf)
+    g, w = got[~inf], want[~inf]
+    assert bool(((g - w).abs() <= BF16_ULP * w.abs()).all())
+    if g.numel():
+        assert float((g == w).float().mean()) >= min_equal
+
+
+def _bf16_ulps(x):
+    """The bf16 ulp of each finite value: 2^(e - 7) for |x| in [2^e,
+    2^(e+1)), i.e. 2^-7 to 2^-8 of it."""
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def _assert_within_a_bf16_ulp(got, want):
+    """Each finite value within one bf16 ulp of ``want``'s, equal +inf
+    masks: two different f32 LC computations (the card's and the CPU's),
+    each rounded to bf16, may land a table entry, and so a row's sum, on
+    neighbouring bf16 values."""
+    got, want = got.cpu(), want.cpu()
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf)
+    g, w = got[~inf], want[~inf]
+    assert bool(((g - w).abs() <= _bf16_ulps(w)).all())
+
+
+def _assert_topk_bf16(gd, gi, pd, pi, k, same_table=True):
+    """Kernel (T, k) against the plain version's (T, k_pad): distances by
+    the bf16 rule (``same_table``) or within one bf16 ulp (tables from
+    two LC computations), ids -1 exactly at +inf, and each task's ids two
+    ulps below its k-th distance present in the kernel's set."""
+    if same_table:
+        _assert_bf16_close(gd, pd[:, :k])
+    else:
+        _assert_within_a_bf16_ulp(gd, pd[:, :k])
+    kth = pd[:, k - 1].cpu()
+    thr = (kth - 2 * _bf16_ulps(kth)).numpy()
+    gd, gi, pd, pi = (x.cpu().numpy() for x in (gd, gi, pd, pi))
+    inf = np.isinf(gd)
+    assert (gi[inf] == -1).all() and (gi[~inf] >= 0).all()
+    for t in range(gd.shape[0]):
+        sure = set(pi[t, :k][pd[t, :k] < thr[t]].tolist())
+        assert sure <= set(gi[t].tolist()), t
+
+
+@pytest.mark.parametrize("t,m,cb,dsub", [(7, 8, 64, 4), (32, 16, 256, 8),
+                                         (130, 8, 256, 16), (9, 32, 32, 2),
+                                         (8192, 16, 256, 8), (1, 16, 256, 8),
+                                         (50, 4, 256, 1), (33, 6, 64, 3),
+                                         (5, 3, 20, 8), (12, 2, 512, 8)])
+def test_lut_build_bf16_equals_cast_of_a(cuda, t, m, cb, dsub):
+    """A-bf16 at every instance of the launcher (dsub 1-16 compiled, the
+    generic one at dsub 3, CB 20, CB 512) is A's table rounded to bf16,
+    bit for bit, and within one bf16 ulp of the oracle's."""
+    r, b, s, _, _ = _mk(7, t, m, cb, 4, dsub, np.uint8, cuda)
+    ops.reset_launches()
+    got = ops.lut_build_bf16(r, b, s)
+    a = ops.lut_build(r, b, s)
+    torch.cuda.synchronize()
+    assert ops.launches["lut_build_bf16"] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (t, m, cb)
+    assert torch.equal(got, a.to(torch.bfloat16))
+    # A's tolerance against the oracle, widened by the bf16 rounding
+    torch.testing.assert_close(got.float(),
+                               ref.lut_build_ref(r.view(t, m, dsub), b, s),
+                               rtol=BF16_ULP, atol=ATOL)
+
+
+def test_lut_build_bf16_unaligned_residuals(cuda):
+    """Residuals off a 16-byte boundary give the aligned copy's bits."""
+    m, cb, dsub, t = 16, 256, 8, 301
+    rng = np.random.default_rng(13)
+    flat = torch.from_numpy(rng.normal(size=t * m * dsub + 1)
+                            .astype(np.float32)).to(cuda)
+    r = flat[1:].view(t, m * dsub)
+    assert r.data_ptr() % 16 != 0
+    _, b, s, _, _ = _mk(14, 1, m, cb, 1, dsub, np.uint8, cuda)
+    got = ops.lut_build_bf16(r, b, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.lut_build_bf16(r.clone(), b, s))
+    assert torch.equal(got, ops.lut_build(r, b, s).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("t,m,cb,c", [(3, 8, 64, 300), (8, 16, 256, 512),
+                                      (5, 8, 256, 1000), (2, 32, 32, 64),
+                                      (1000, 16, 256, 1500)])
+@pytest.mark.parametrize("code_dtype", [np.uint8, np.int32])
+def test_scan_bf16_matches_plain(cuda, t, m, cb, c, code_dtype):
+    """C-bf16 against its plain version (``adc_distances`` on the bf16
+    table), with and without sizes; its values are bf16 ones."""
+    r, b, s, codes, sizes = _mk(8, t, m, cb, c, 4, code_dtype, cuda)
+    lut = ops.lut_build_bf16(r, b, s)
+    ops.reset_launches()
+    got = ops.pq_scan_dc(lut, codes, sizes)
+    full = ops.pq_scan_dc(lut, codes, None)
+    torch.cuda.synchronize()
+    assert ops.launches["pq_scan_dc_bf16"] == 2
+    assert ops.launches["pq_scan_dc"] == 0
+    _assert_bf16_close(got, adc_distances(lut, codes, sizes))
+    _assert_bf16_close(full, adc_distances(lut, codes, None))
+    assert torch.isinf(got[0]).all()
+    assert torch.equal(full.to(torch.bfloat16).float(), full)
+
+
+@pytest.mark.parametrize("t,c", [(1, 1), (37, 1029), (300, 77),
+                                 (5000, 2050)])
+@pytest.mark.parametrize("code_dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_fused_scan_topk_bf16_matches_plain(cuda, t, c, code_dtype, k):
+    """E-bf16, dense, against its plain version (C < k_pad, an empty task
+    and a task with fewer rows than k_pad included), and equal to the
+    sort of C-bf16's output."""
+    r, b, s, codes, sizes = _mk(10, t, 16, 256, c, 8, code_dtype, cuda)
+    sizes = torch.minimum(sizes, torch.full_like(sizes, max(c - 1, 0)))
+    sizes[-1] = min(c, 3)
+    sizes[0] = 0
+    ids = torch.randperm(t * c, device=cuda).int().view(t, c)
+    lut = ops.lut_build_bf16(r, b, s)
+    ops.reset_launches()
+    gd, gi = ops.pq_scan_topk(lut, codes, ids, sizes, k)
+    again = ops.pq_scan_topk(lut, codes, ids, sizes, k)
+    torch.cuda.synchronize()
+    assert ops.launches["pq_scan_topk_bf16"] == 2
+    assert ops.launches["pq_scan_topk"] == 0
+    assert torch.equal(gd, again[0]) and torch.equal(gi, again[1])
+    k_pad = max(8, 1 << (k - 1).bit_length())
+    pd, pi = ops.pq_scan_topk_plain(lut, codes, ids, sizes, k_pad)
+    _assert_topk_bf16(gd, gi, pd, pi, k)
+    assert torch.isinf(gd[0]).all() and bool((gi[0] == -1).all())
+    wd, wi = _lexsort_dc(lut, codes, ids, sizes, k_pad)
+    assert torch.equal(gd, wd[:, :k]) and torch.equal(gi, wi[:, :k])
+
+
+@pytest.mark.parametrize("p,t,c", [(5, 4, 700), (37, 300, 1029),
+                                   (400, 20000, 300), (3000, 70000, 64)])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_fused_scan_topk_bf16_slots_match_plain(cuda, p, t, c, k):
+    """E-bf16 by slot: against its plain version, against the dense launch
+    on the gathered inputs and the sort of C-bf16's output bit for bit;
+    -1, out-of-range and empty slots give (+inf, -1)."""
+    g = torch.Generator(device=cuda).manual_seed(30)
+    _, codes, ids, sizes, slots = _slot_topk_inputs(30, p, t, c, np.uint8,
+                                                    False, cuda)
+    res = torch.randn(t, 16 * 8, device=cuda, generator=g)
+    books = torch.randn(16, 256, 8, device=cuda, generator=g)
+    lut = ops.lut_build_bf16(res, books, (books * books).sum(-1))
+    ops.reset_launches()
+    gd, gi = ops.pq_scan_topk(lut, codes, ids, sizes, k, slots=slots)
+    dense = ops.gather_slots(codes, ids, sizes, slots)
+    dd, di = ops.pq_scan_topk(lut, *dense, k)
+    torch.cuda.synchronize()
+    assert ops.launches["pq_scan_topk_bf16"] == 2
+    assert torch.equal(gd, dd) and torch.equal(gi, di)
+    for row in (0, 3) + ((4,) if t > 4 else ()):
+        assert torch.isinf(gd[row]).all() and bool((gi[row] == -1).all())
+    k_pad = max(8, 1 << (k - 1).bit_length())
+    pd, pi = ops.pq_scan_topk_plain(lut, codes, ids, sizes, k_pad,
+                                    slots=slots)
+    _assert_topk_bf16(gd, gi, pd, pi, k)
+    wd, wi = _lexsort_dc(lut, *dense, k_pad)
+    assert torch.equal(gd, wd[:, :k]) and torch.equal(gi, wi[:, :k])
+
+
+def test_fused_scan_topk_bf16_all_empty_and_ties(cuda):
+    """No task with rows gives (+inf, -1) everywhere; equal rows break
+    ties by row."""
+    r, b, s, codes, sizes = _mk(11, 64, 16, 256, 700, 8, np.uint8, cuda)
+    lut = ops.lut_build_bf16(r, b, s)
+    ids = torch.randperm(64 * 700, device=cuda).int().view(64, 700)
+    d, i = ops.pq_scan_topk(lut, codes, ids, torch.zeros_like(sizes), 10)
+    assert torch.isinf(d).all() and bool((i == -1).all())
+    same = codes[:, :1].expand_as(codes).contiguous()
+    sizes[1:] = torch.arange(1, 64, device=cuda, dtype=torch.int32) * 11
+    gd, gi = ops.pq_scan_topk(lut, same, ids, sizes, 10)
+    torch.cuda.synchronize()
+    for t in range(1, 64):
+        n = min(10, int(sizes[t]))
+        assert torch.equal(gi[t, :n], ids[t, :n])
+        assert bool((gi[t, n:] == -1).all())
+
+
 @pytest.mark.parametrize("lut_dtype", ["f32", "uint8"])
 def test_search_goes_through_kernels(cuda, lut_dtype):
     ds = make_clustered_corpus(0, 8000, 32, n_queries=64, n_components=32,
@@ -1239,31 +1432,39 @@ def test_bf16_train_step_on_card(cuda):
         np.mean([h["loss"] for h in hist[:3]])
 
 
-@pytest.mark.parametrize("lut_dtype", [None, "uint8"])
+@pytest.mark.parametrize("lut_dtype", [None, "uint8", "bf16"])
 def test_drim_dryrun_cell_launches_kernels_equal_plain(cuda, tmp_path,
                                                        lut_dtype):
     """The dry-run's drim cell at rank 0's 100M shape (512 slots of 4,096
-    codes, 8,192 tasks) launches A then E (f32) or B then F (uint8), fused,
-    and C or D unfused; rank 0's step on the card equals the same step
-    on CPU copies of its tensors (the kernels' plain versions)."""
+    codes, 8,192 tasks) launches A then E (f32), B then F (uint8) or
+    A-bf16 then E-bf16, fused, and C, D or C-bf16 unfused; rank 0's step
+    on the card equals the same step on CPU copies of its tensors (the
+    kernels' plain versions; bf16 by the one-ulp rule)."""
     from repro_torch.configs import drim_ann
     from repro_torch.launch import dryrun
     quant = lut_dtype == "uint8"
-    lc = "lut_build_q" if quant else "lut_build"
-    for fused, dc in ((True, "pq_scan_topk_q" if quant else "pq_scan_topk"),
-                      (False, "pq_scan_dc_q" if quant else "pq_scan_dc")):
+    sfx = {None: "", "uint8": "_q", "bf16": "_bf16"}[lut_dtype]
+    lc = "lut_build" + sfx
+    for fused, dc in ((True, "pq_scan_topk" + sfx),
+                      (False, "pq_scan_dc" + sfx)):
         ops.reset_launches()
         rec = dryrun.run_drim_ann_cell(False, tmp_path, fused_scan=fused,
                                        lut_dtype=lut_dtype)
         assert rec["fits"] and rec["shard_shape"]["slots"] == 512
-        assert ops.launches[lc] == 2 and ops.launches[dc] == 2
+        steps = 1 + dryrun.DRIM_TIMED_STEPS          # the warm one, timed
+        assert len(rec["step_ms_samples"]) == dryrun.DRIM_TIMED_STEPS
+        assert ops.launches[lc] == steps and ops.launches[dc] == steps
     shp = dryrun._drim_shape(drim_ann.config(), 256)
     inp = dryrun.drim_inputs(shp, cuda)
     cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else
                type(v)(*(x.cpu() for x in v))) for k, v in inp.items()}
+    bf16 = "bf16" if lut_dtype == "bf16" else None
     for fused in (True, False):
-        d1, i1 = dryrun.drim_step(inp, shp["k"], fused, quant)
-        d2, i2 = dryrun.drim_step(cpu, shp["k"], fused, quant)
+        d1, i1 = dryrun.drim_step(inp, shp["k"], fused, quant, bf16)
+        d2, i2 = dryrun.drim_step(cpu, shp["k"], fused, quant, bf16)
+        if bf16:        # bf16 distances tie often: ids up to those ties
+            _assert_topk_bf16(d1, i1, d2, i2, shp["k"], same_table=False)
+            continue
         torch.testing.assert_close(d1.cpu(), d2, rtol=RTOL, atol=ATOL)
         assert (i1.cpu() == i2).float().mean() > 0.99
 

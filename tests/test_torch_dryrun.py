@@ -14,8 +14,8 @@ and the two post-processors, against the reference.
   256, at the smoke configs and small cells, for every arch and kind: the
   reference's record keys and the card's own, ``per_device_flops`` equal
   to this file's own count of the local matmuls' shapes.  The
-  post-processors over those records; ``--lut-dtype bf16`` raises
-  ``NotImplementedError``.
+  post-processors over those records.  The drim cell's ``--lut-dtype
+  bf16`` is held to the reference in ``test_torch_bf16_lut.py``.
 """
 
 import contextlib
@@ -361,14 +361,6 @@ def test_drim_shape_at_the_paper_config():
         512, 4096, 16, 8192)
     assert shp["slots"] * shp["cpart"] * shp["m"] == 33_554_432
     assert dryrun._drim_shape(drim_ann.config(), 512)["slots"] == 256
-
-
-def test_lut_dtype_bf16_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dryrun.run_drim_ann_cell(False, lut_dtype="bf16", device="cpu")
-    with pytest.raises(NotImplementedError):
-        dryrun.main(["--arch", "drim_ann", "--lut-dtype", "bf16",
-                     "--device", "cpu"])
 
 
 def test_cuda_is_the_default_device():

@@ -2,7 +2,10 @@
 held to the reference on the same arguments: the tenant mix of
 ``make_query_stream``, ``BucketPolicy.pow2`` / ``single``,
 ``MicroBatcher.flush``, the subtraction-form LUT and the one-hot scans,
-and the package exports."""
+the package exports, ``configs/drim_ann.py::smoke_config`` and
+``models/common.py::cast_tree``."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -159,3 +162,35 @@ def test_exports_present_as_in_reference(port, ref, names):
     assert service.MutationCoordinator is MutationCoordinator
     assert runtime.entry_nbytes is entry_nbytes
     assert runtime.entry_nbytes(torch.zeros(4, 8)) == 128
+
+
+def test_drim_ann_smoke_config_equals_reference():
+    from repro.configs import drim_ann as ref_drim
+    from repro_torch.configs import drim_ann
+    got, want = drim_ann.smoke_config(), ref_drim.smoke_config()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got != drim_ann.config()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
+def test_cast_tree_equals_reference(dtype):
+    from repro.models.common import cast_tree as ref_cast_tree
+    from repro_torch.models.common import cast_tree
+    rng = np.random.default_rng(9)
+    leaves = [np.asarray(rng.normal(size=s) * 7, np.float32)
+              for s in ((3, 4), (5,), (2, 2, 3), ())]
+
+    def tree(wrap):
+        return {"embed": wrap(leaves[0]),
+                "groups": [{"w": wrap(leaves[1])}, {"w": wrap(leaves[2])}],
+                "final_norm": wrap(leaves[3])}
+
+    got = cast_tree(tree(torch.from_numpy), getattr(torch, dtype))
+    want = ref_cast_tree(tree(jnp.asarray), getattr(jnp, dtype))
+    assert got["groups"][1]["w"].dtype == getattr(torch, dtype)
+    pairs = [(got["embed"], want["embed"]),
+             (got["final_norm"], want["final_norm"])] + [
+        (g["w"], w["w"]) for g, w in zip(got["groups"], want["groups"])]
+    for g, w in pairs:
+        assert tuple(g.shape) == tuple(w.shape)
+        assert np.array_equal(g.float().numpy(), np.asarray(w, np.float32))
