@@ -106,6 +106,10 @@ paths once at the configuration below:
              for bit; the 5-row tenant's (inf, -1) tail; the mask timed
              alone); N2 one scoped DistributedEngine (64 shards), 1,000
              queries at f32 and at uint8, == N1 at the sharded tolerance,
+             the reference's names of its step on raw scope arrays
+             (run_shards_vmap_scoped, f32 and uint8;
+             run_shards_vmap_lut_scoped on a bank of the step's tables)
+             == run_shards_scoped with the batch's Scope bit for bit,
              and C/D against their plain versions at the scoped step's
              shape; N3 the tier (a quarter resident), two scoped passes
              == N1 bit for bit; N4 a live Index with 1,024 upserts tagged
@@ -245,7 +249,9 @@ at rank 0's shard of the 100M shape (512 slots of 4,096 codes, 8,192
 tasks), fused, f32, uint8 then bf16 (the reference's
 ``_shard_tasks_fn(lut_dtype=bf16)``: A-bf16 then E-bf16), then bf16
 unfused (A-bf16, C-bf16, ``torch.topk``), its launches held to plain
-afterwards (``at_dryrun_cell`` in A, B, E, F and the bf16 rows), the bf16
+afterwards (``at_dryrun_cell`` in A, B, E, F and the bf16 rows), E-bf16
+timed alone on its captured launch beside its bound, with the instance
+the wrapper picked (key bits, threads), the bf16
 step's ms logged beside f32's and uint8's (the records' median of five
 steps, and each fused step's device time by CUDA events) with its
 ``hbm_bytes`` and the top-10 overlap of the bf16 and f32 winners; D2
@@ -268,8 +274,8 @@ service's, the mutation's, the tiered, the tenancy, the chaos, the autotune, the
 variants, the lm, the train and the dryrun path's included.  The bf16
 rows (``lut_build_bf16``, ``pq_scan_dc_bf16``, ``pq_scan_topk_bf16``) are
 checked, timed and bounded at the first chunk's shape and the sharded
-step's (the table at 2 B an entry); their ``launches`` are D1's, the
-one path that runs them.  E's and F's
+step's (the table at 2 B an entry; E-bf16's instance logged); their
+``launches`` are D1's, the one path that runs them.  E's and F's
 first sharded launches, with their LC inputs and those of the local
 path's first chunk, are written to ``build/sharded_launch.pt``, which
 ``tools/torch_fused_topk_bench.py`` and ``tools/torch_lut_build_bench.py``
@@ -1572,7 +1578,8 @@ def bf16_report(ops, adc, res, books, sqn, codes, ids, sizes,
     log(f"  pq_scan_topk_bf16: {ms:.4f} ms by slot (bound {b_ms:.4f} ms by "
         f"{b_by}, {ms / b_ms:.2f}x), {dense_ms:.4f} ms dense (bound "
         f"{dense_b_ms:.4f} ms); plain {plain_ms:.4f} ms, unfused pair "
-        f"(C-bf16 + top-k) {pair_ms:.4f} ms, library none; {swhere}")
+        f"(C-bf16 + top-k) {pair_ms:.4f} ms, library none; {swhere}; "
+        f"instance {ops.pq_scan_topk_instance(lut_h, scodes)}")
     rows.append({"name": "pq_scan_topk_bf16", "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": None, "max_abs_err": err, "dense_ms": dense_ms,
@@ -2643,6 +2650,49 @@ def bucket_shed(times, rate: float, burst: int) -> int:
     return shed
 
 
+def scoped_names_check(ss, steps, meta) -> None:
+    """The reference's names of the scoped step on N2's first steps (f32
+    and uint8), with the scope as raw arrays (the meta tables on the host,
+    the batch's tenants and u32 terms): ``run_shards_vmap_scoped`` and
+    ``run_shards_vmap_lut_scoped`` (a bank of the f32 step's tasks' own
+    tables, every other task's row withheld) == ``run_shards_scoped``
+    with N2's ``Scope``, bit for bit."""
+    raw = (meta.tenant_of, meta.tags)
+    for quantize, (sx, qidx, sidx, qs, scope, k) in sorted(steps.items()):
+        q_raw = (scope.tenants, scope.terms)
+        want = ss.run_shards_scoped(sx, qidx, sidx, qs, scope, k=k,
+                                    quantize=quantize)
+        got = ss.run_shards_vmap_scoped(sx, qidx, sidx, qs, *raw, *q_raw,
+                                        k=k, quantize=quantize)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"N2: run_shards_vmap_scoped (quantize={quantize}) differs "
+              f"from run_shards_scoped")
+        if quantize:
+            continue
+        codes, ids, sizes, cluster_of = ss._flat(sx)
+        dev = codes.device
+        si = ss._flat_slots(torch.from_numpy(sidx).to(dev), sx.slots)
+        bank = ss._task_lut(cluster_of, torch.from_numpy(qidx).to(dev)
+                            .reshape(-1), si.clamp_min(0).long(), qs,
+                            sx.centroids, sx.codebook, sx.rotation, False)
+        lidx = np.arange(qidx.size).reshape(qidx.shape)
+        lidx[:, 1::2] = -1
+        want = ss.run_shards_scoped(sx, qidx, sidx, qs, scope, k=k,
+                                    lidx=lidx, lut_bank=bank)
+        got = ss.run_shards_vmap_lut_scoped(sx, qidx, sidx, lidx, bank,
+                                            *raw, *q_raw, k=k)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              "N2: run_shards_vmap_lut_scoped differs from "
+              "run_shards_scoped")
+        check(bool((want[1][:, 1::2] == -1).all()),
+              "N2: a task without a bank row returned rows")
+        del bank
+    log(f"  N2 run_shards_vmap_scoped (f32, uint8) and "
+        f"run_shards_vmap_lut_scoped on the raw scope arrays == "
+        f"run_shards_scoped with the batch's Scope, bit for bit "
+        f"({qidx.shape[0]} shards x {qidx.shape[1]} tasks)")
+
+
 def tenancy_path(ops, index, clusters, points, queries, results, trace,
                  s5_runs, n: int, seed: int) -> dict:
     """Multi-tenant serving on the main path's index: N1 scoped local
@@ -2842,8 +2892,17 @@ def tenancy_path(ops, index, clusters, points, queries, results, trace,
         captured.setdefault(name, (lut, codes, sizes))
         return launch(lut, codes, sizes, **kw)
 
+    from repro_torch.core import sharded_search as ss_mod
+    steps, step_fn = {}, ss_mod.run_shards_scoped
+
+    def capture_step(sindex, qidx, sidx, qs, scope, **kw):
+        steps.setdefault(kw.get("quantize", False),
+                         (sindex, qidx, sidx, qs, scope, kw["k"]))
+        return step_fn(sindex, qidx, sidx, qs, scope, **kw)
+
     n2 = []
     ops.pq_scan_dc = capture
+    ss_mod.run_shards_scoped = capture_step
     try:
         for dt, (label, terms) in (("f32", TENANCY_MODES[0]),
                                    ("uint8", TENANCY_MODES[1])):
@@ -2871,7 +2930,12 @@ def tenancy_path(ops, index, clusters, points, queries, results, trace,
                 + ", ".join(f"{k} {v:.3f}" for k, v in se.phase_s.items()))
     finally:
         ops.pq_scan_dc = launch
+        ss_mod.run_shards_scoped = step_fn
     del se
+    check(set(steps) == {False, True},
+          f"N2: scoped steps captured for quantize {sorted(steps)}")
+    counted_out(lambda: scoped_names_check(ss_mod, steps, meta))
+    del steps
     torch.cuda.empty_cache()
     check(set(captured) == {"pq_scan_dc", "pq_scan_dc_q"},
           f"N2: the scoped step launched {sorted(captured)}")
@@ -4787,6 +4851,35 @@ def d1_compare(dryrun, f32_run: dict, seed: int) -> dict:
             "top10_overlap": share, "max_rel_gap_by_rank": gap}
 
 
+def d1_topk_bf16_alone(ops, seen: dict) -> dict:
+    """E-bf16 alone at D1's shape: its launch in the bf16 fused step
+    (rank 0's shard, T tasks by slot over 512 slots of C = 4,096), as
+    captured, timed by CUDA events (20 launches queued behind a
+    device-side sleep) beside its bound; the instance the wrapper picks
+    (key bits, threads).  After the counts were read: these launches do
+    not count."""
+    from repro_torch.util import next_pow2
+    keys = [key for key in seen if key[0] == "pq_scan_topk_bf16"]
+    check(len(keys) == 1, f"D1: E-bf16 launches captured at {keys}")
+    lut, codes, ids, sizes, slots = seen[keys[0]][1]
+    k = keys[0][4]
+    ms = event_ms(lambda: ops.pq_scan_topk(lut, codes, ids, sizes, k,
+                                           slots=slots), reps=20,
+                  queued=True)
+    nbytes, nops, shape = fused_bytes_ops(codes, sizes,
+                                          next_pow2(max(k, 8)), False,
+                                          slots, bf16=True)
+    b_ms, b_by = bound_ms(nbytes, nops)
+    inst = ops.pq_scan_topk_instance(lut, codes)
+    log(f"  pq_scan_topk_bf16 at D1's shape alone: {ms:.4f} ms by slot "
+        f"(bound {b_ms:.4f} ms by {b_by}, {ms / b_ms:.2f}x); instance "
+        f"{inst}; T={shape['T']} ({shape['nonempty_tasks']} non-empty) "
+        f"C={shape['C']} k_pad={shape['k_pad']}, {shape['valid_rows']} "
+        f"valid rows in {shape['slots_read']} slots")
+    return {"ms": ms, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "ops": nops, "instance": inst, "shape": shape}
+
+
 def dryrun_path(ops, ref, adc, seed: int) -> tuple:
     """Phase 15: the dry-run as rank 0 of a fake world of 256 on the
     (16, 16) production mesh.  D1 the drim cell (rank 0's shard at the
@@ -4831,6 +4924,7 @@ def dryrun_path(ops, ref, adc, seed: int) -> tuple:
                 f"(roofline.drim_search_work), peak {r['peak_bytes']} B")
         log("kernels vs plain, at the drim cell's rank-0 shape:")
         checked = check_captured(ops, ref, adc, seen, phase="D1")
+        run["D1 E-bf16 alone"] = d1_topk_bf16_alone(ops, seen)
         del seen
         at_cell = {}
         for where, errs in checked.items():

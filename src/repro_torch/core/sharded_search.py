@@ -59,7 +59,9 @@ each task's gathered codes, then the scope mask and a per-task TS.  The
 fused DC+TS kernels cannot interpose the mask, so scoped batches never
 run them, as in the reference.  The step runs ``SCOPED_TASK_CHUNK``
 tasks at a time, which bounds the gathered codes and the (T, cpart)
-distances.
+distances.  The reference's names for it, :func:`run_shards_vmap_scoped`
+and :func:`run_shards_vmap_lut_scoped`, take the scope as raw arrays
+(tenant and tag tables, per-query tenants and terms) and wrap it.
 
 The mesh (``mesh=``, a :class:`repro_torch.launch.mesh.Mesh` from
 ``make_shard_mesh``) is the reference's production path: the steps of
@@ -90,8 +92,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.adc import (QuantizedLUT, scan_codes,
-                                  scan_codes_quantized)
+from repro_torch.core.adc import (QuantizedLUT, check_strategy,
+                                  scan_codes, scan_codes_quantized)
 from repro_torch.core.ivf import IVFPQIndex
 from repro_torch.core.layout import Layout, build_layout, estimate_heat
 from repro_torch.core.perf_model import (IndexParams, TaskLatencyModel,
@@ -100,7 +102,8 @@ from repro_torch.core.perf_model import (IndexParams, TaskLatencyModel,
 from repro_torch.core.pq import PQCodebook
 from repro_torch.core.scheduler import (ShardSchedule, schedule_batch,
                                         schedule_naive)
-from repro_torch.core.filter import Scope, VectorMeta
+from repro_torch.core.filter import (Scope, VectorMeta,
+                                     mask_scoped_distances, terms_bits)
 from repro_torch.core.search import cluster_locate, cluster_locate_masked
 from repro_torch.core.topk import topk_smallest
 from repro_torch.util import ieee_f32_matmul, next_pow2
@@ -464,6 +467,73 @@ def run_shards_scoped(sindex: ShardedIndex, qidx: np.ndarray,
         out_i.append(bi)
     return (torch.cat(out_d).reshape(s, t, k),
             torch.cat(out_i).reshape(s, t, k))
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _bits(x) -> np.ndarray:
+    """u32 tags or terms (numpy, or their int32 bit views) -> the int32
+    bit views (the device form; NO_TAG is ``NO_TAG_BITS``)."""
+    return terms_bits(_host(x).astype(np.uint32))
+
+
+class _ArrayScope:
+    """A scope given as the reference's raw arrays: meta_tenant (N,) i32,
+    meta_tags (N, F) u32, q_tenants (Q,) i32, q_terms (Q, W) u32.  It
+    offers what :func:`run_shards_scoped` reads of a :class:`Scope`, its
+    ``masker``: :func:`~repro_torch.core.filter.mask_scoped_distances`
+    with the rows' tenants and terms."""
+
+    def __init__(self, meta_tenant, meta_tags, q_tenants, q_terms, device):
+        self.device = device
+        self.tables = (
+            torch.from_numpy(_host(meta_tenant).astype(np.int32)).to(device),
+            torch.from_numpy(_bits(meta_tags)).to(device))
+        self.tenants = _host(q_tenants).astype(np.int32).reshape(-1)
+        self.terms = _bits(q_terms)
+
+    def masker(self, rows):
+        qt, qg = (torch.from_numpy(np.ascontiguousarray(a[rows]))
+                  .to(self.device) for a in (self.tenants, self.terms))
+        return lambda d, row_ids: mask_scoped_distances(d, row_ids,
+                                                        *self.tables, qt, qg)
+
+
+def run_shards_vmap_scoped(sindex: ShardedIndex, qidx, sidx, queries,
+                           meta_tenant, meta_tags, q_tenants, q_terms, *,
+                           k: int, strategy: str = "onehot",
+                           quantize: bool = False):
+    """The reference's scoped step on raw scope arrays: (S, T) task tables
+    -> (S, T, k) candidates, RC + LC, DC, the scope mask of each task's
+    query, TS (:func:`run_shards_scoped` with the arrays in place of a
+    :class:`Scope`).  ``meta_tenant`` (N,) i32, ``meta_tags`` (N, F) u32,
+    ``q_tenants`` (Q,) i32 (-1: unscoped), ``q_terms`` (Q, W) u32
+    (NO_TAG pad); u32 arrays may come as their int32 bit views.
+    ``strategy`` names a TPU dataflow and does not change the result."""
+    check_strategy(strategy)
+    dev = sindex.codes.device
+    scope = _ArrayScope(meta_tenant, meta_tags, q_tenants, q_terms, dev)
+    queries = (queries if isinstance(queries, torch.Tensor)
+               else torch.from_numpy(_host(queries).astype(np.float32)))
+    return run_shards_scoped(sindex, _host(qidx), _host(sidx),
+                             queries.to(dev), scope, k=k, quantize=quantize)
+
+
+def run_shards_vmap_lut_scoped(sindex: ShardedIndex, qidx, sidx, lidx,
+                               lut_bank, meta_tenant, meta_tags, q_tenants,
+                               q_terms, *, k: int, strategy: str = "onehot"):
+    """The reference's scoped cached step on raw scope arrays: DC from the
+    LUT bank's rows ``lidx`` (-1: the task is invalid), the scope mask,
+    TS; the arrays as :func:`run_shards_vmap_scoped`'s."""
+    check_strategy(strategy)
+    dev = sindex.codes.device
+    scope = _ArrayScope(meta_tenant, meta_tags, q_tenants, q_terms, dev)
+    # the bank path reads only the number of queries of ``queries``
+    rows = torch.empty((len(scope.tenants), 0), device=dev)
+    return run_shards_scoped(sindex, _host(qidx), _host(sidx), rows, scope,
+                             k=k, lidx=_host(lidx), lut_bank=lut_bank)
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,10 @@ SIGNATURES = {
                              _I, _I, _I, _I, _P], _I),
         "pq_scan_topk_bf16": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _P], _I),
-        "pq_scan_topk_smem_bytes": ([_I, _I, _I, _I], _S),
+        "pq_scan_topk_bf16_wide": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _I, _P], _I),
+        "pq_scan_topk_smem_bytes": ([_I, _I, _I, _I, _I], _S),
+        "pq_scan_topk_threads": ([_I], _I),
         "pq_scan_topk_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -112,9 +115,14 @@ def build(names: Optional[Iterable[str]] = None) -> float:
     return time.perf_counter() - t0
 
 
-def _load(name: str, path: Path) -> ctypes.CDLL:
+def _load(name: str, path: Path, require_all: bool = True) -> ctypes.CDLL:
+    """The library at ``path`` with ``SIGNATURES[name]`` set; a function
+    it lacks raises, or with ``require_all`` off is left out (an older
+    source's build)."""
     lib = ctypes.CDLL(str(path))
     for fn, (argtypes, restype) in SIGNATURES[name].items():
+        if not require_all and not hasattr(lib, fn):
+            continue
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib
@@ -144,21 +152,29 @@ def with_constants(source: str, spec: str) -> str:
     return source
 
 
-def build_variant(name: str, source: str,
-                  label: Optional[str] = None) -> ctypes.CDLL:
+def build_variant(name: str, source: str, label: Optional[str] = None,
+                  headers: Optional[Dict[str, str]] = None,
+                  require_all: bool = True) -> ctypes.CDLL:
     """``source``, a replacement for ``csrc/<name>.cu`` with the same C
     interface, built beside copies of the shared headers into
-    ``build/kernel_variants/`` and loaded with ``SIGNATURES[name]``.
-    nvcc's output goes to ``build_log[label]`` (default
+    ``build/kernel_variants/`` and loaded with ``SIGNATURES[name]``
+    (``require_all`` off: functions it lacks are left out, see
+    :func:`_load`).  ``headers`` ({file name: text}) replaces those
+    headers' copies.  nvcc's output goes to ``build_log[label]`` (default
     ``"<name>@<hash>"``)."""
-    tag = hashlib.sha256(source.encode()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = headers or {}
+    tag = hashlib.sha256(
+        source.encode() + " ".join(NVCC_FLAGS).encode()
+        + "".join(f"{h}\0{t}" for h, t in sorted(headers.items())).encode()
+    ).hexdigest()[:12]
     where = VARIANT_DIR / f"{name}-{tag}"
     lib = where / f"{name}.so"
     if not lib.exists():
         where.mkdir(parents=True, exist_ok=True)
         for h in CSRC.glob("*.cuh"):
             shutil.copy(h, where / h.name)
+        for h, text in headers.items():
+            (where / h).write_text(text)
         (where / f"{name}.cu").write_text(source)
         out = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(lib),
                               str(where / f"{name}.cu")],
@@ -169,4 +185,4 @@ def build_variant(name: str, source: str,
             raise RuntimeError(f"nvcc failed for the {name} variant "
                                f"{where} (exit {out.returncode}):\n"
                                f"{out.stdout}")
-    return _load(name, lib)
+    return _load(name, lib, require_all)

@@ -21,9 +21,10 @@
 // -1) and reads no table.
 //
 // The (T, C) distance matrix never reaches device memory.  Ties are
-// broken by row: a candidate is the 64-bit key (order-preserving bits of
-// its distance, row), keys are unique, and the selection is exact, so the
-// output is a function of the inputs alone.
+// broken by row: a candidate is the key (order-preserving bits of its
+// distance, row), keys are unique, and the selection is exact, so the
+// output is a function of the inputs alone.  Keys are 64-bit, except on
+// a bf16 table of at most 65,535 rows a slot (below).
 //
 // What bounds it on an H100: bytes.  The function reads each non-empty
 // task's table (M*CB*4 bytes f32; M*CB*2 bf16; M*CB + 8*M u8), the codes
@@ -71,6 +72,29 @@
 //     (reversed-min + bitonic merge), and warp 0 writes the k_pad winners
 //     and looks their ids up.
 //
+// E-bf16 (the bf16 table, pq_scan_topk_bf16).  Its table is 8 KB, half
+// the f32 one, so the bytes it must move are 0.18 ms at the sharded step
+// against E's 0.32; on E's kernel (64-bit keys, 64 threads) it took 0.41
+// ms there (2.25x the bound).  Probes of that kernel (tools/
+// torch_fused_topk_bench.py --probe, PERF.md) put 29% of its time in the
+// selection, ~1% in waiting for a staged table.  A bf16 row distance has 16 bits, so
+// its key fits in 32 bits: (the high half of the f32 ordered bits, which
+// are the bf16 ordered bits, << 16) | row, with row 0xffff meaning none;
+// the order is the 64-bit key's.  pq_scan_topk_narrow_kernel runs the
+// same task loop on those keys, so every shuffle of the sort, insert,
+// k-th broadcast and merge moves one register instead of two, and the
+// lists and their shared-memory merge halve.  Its block was swept on the
+// H100 (kThreadsBF16 32 / 64 / 128, and a second table buffer staged
+// during the scan): 64 threads were fastest at the sharded step and at
+// the dry-run cell's shape (4,096 rows a task), a second buffer slower.
+// What bounds it now: the lookups' instructions (a byte extract, an
+// address, a shared-memory load, a widening and an add for each of a
+// row's 16 terms) -- a probe that makes every warp load conflict-free but
+// adds two operations a lookup is slower, not faster -- then the
+// selection (14% by the probe).  The wrapper sends C >= 65,536 rows a
+// slot to pq_scan_topk_bf16_wide: E's kernel on the bf16 table, 64-bit
+// keys, as before.
+//
 // k_pad is a power of two in [8, 256].  The kernels allocate nothing and
 // never synchronise with the host.
 
@@ -88,7 +112,8 @@ namespace {
 // f32, u8 and bf16 tables.  Chosen on an H100 with
 // tools/torch_fused_topk_bench.py --variant, which replays the sharded
 // path's first launch (PERF.md): fewer warps a task cost less selection
-// and merging.  The bf16 tables take the f32 tables' block (not tuned).
+// and merging.  The bf16 value was swept with 32-bit keys (the 64-bit
+// bf16 instance, for slots of more than 65,535 rows, takes it too).
 constexpr int kThreadsF32 = 64;
 constexpr int kThreadsU8 = 32;
 constexpr int kThreadsBF16 = 64;
@@ -124,16 +149,58 @@ __device__ __forceinline__ float from_ordered(uint32_t o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
 
-__device__ __forceinline__ u64 kmin(u64 a, u64 b) { return a < b ? a : b; }
-__device__ __forceinline__ u64 kmax(u64 a, u64 b) { return a < b ? b : a; }
+// Selection keys: (order-preserving bits of the distance, row), smaller
+// key = smaller distance, ties by row.  64-bit: the f32 distance's 32
+// bits, then the row (kNone: +inf, row 0xffffffff).  32-bit (bf16 tables,
+// C <= kMaxRowsKey32): a bf16 distance has 16 bits, so its f32 ordered
+// bits are its bf16 ordered bits in the high half; the row takes the low
+// half (kNone32: +inf, row 0xffff), and the order is the 64-bit key's.
+constexpr uint32_t kNone32 = 0xff80ffffu;   // (+inf, none)
+constexpr int kMaxRowsKey32 = 0xffff;       // rows 0 .. 0xfffe
+
+__device__ __forceinline__ u64 make_key(float d, int c, u64) {
+  return ((u64)ordered_bits(d) << 32) | (uint32_t)c;
+}
+
+__device__ __forceinline__ uint32_t make_key(float d, int c, uint32_t) {
+  return (ordered_bits(d) & 0xffff0000u) | (uint32_t)c;
+}
+
+__device__ __forceinline__ u64 none_key(u64) { return kNone; }
+__device__ __forceinline__ uint32_t none_key(uint32_t) { return kNone32; }
+
+// A key's row (none_row(Key()) for a "none" key) and distance.
+__device__ __forceinline__ uint32_t key_row(u64 k) { return (uint32_t)k; }
+__device__ __forceinline__ uint32_t key_row(uint32_t k) {
+  return k & 0xffffu;
+}
+
+__device__ __forceinline__ uint32_t none_row(u64) { return 0xffffffffu; }
+__device__ __forceinline__ uint32_t none_row(uint32_t) { return 0xffffu; }
+
+__device__ __forceinline__ float key_dist(u64 k) {
+  return from_ordered((uint32_t)(k >> 32));
+}
+
+__device__ __forceinline__ float key_dist(uint32_t k) {
+  const uint32_t o = k >> 16;         // bf16 ordered bits -> bf16 bits
+  return __uint_as_float(((o & 0x8000u) ? (o & 0x7fffu) : (~o & 0xffffu))
+                         << 16);
+}
+
+template <typename Key>
+__device__ __forceinline__ Key kmin(Key a, Key b) { return a < b ? a : b; }
+template <typename Key>
+__device__ __forceinline__ Key kmax(Key a, Key b) { return a < b ? b : a; }
 
 // One key a lane, sorted ascending across the warp (bitonic, 15 steps).
-__device__ __forceinline__ u64 warp_sort32(u64 x, int lane) {
+template <typename Key>
+__device__ __forceinline__ Key warp_sort32(Key x, int lane) {
 #pragma unroll
   for (int k = 2; k <= 32; k <<= 1) {
 #pragma unroll
     for (int j = k >> 1; j > 0; j >>= 1) {
-      const u64 y = __shfl_xor_sync(kAll, x, j);
+      const Key y = __shfl_xor_sync(kAll, x, j);
       const bool low = (lane & j) == 0, up = (lane & k) == 0;
       x = low == up ? kmin(x, y) : kmax(x, y);
     }
@@ -143,14 +210,14 @@ __device__ __forceinline__ u64 warp_sort32(u64 x, int lane) {
 
 // Sort a bitonic sequence of L = 32 * KPL keys held as i = j*32 + lane:
 // half-cleaners at distances L/2 .. 32 inside a lane, 16 .. 1 across.
-template <int KPL>
-__device__ __forceinline__ void bitonic_merge(u64 (&v)[KPL], int lane) {
+template <int KPL, typename Key>
+__device__ __forceinline__ void bitonic_merge(Key (&v)[KPL], int lane) {
 #pragma unroll
   for (int jd = KPL / 2; jd > 0; jd >>= 1) {
 #pragma unroll
     for (int j = 0; j < KPL; ++j) {
       if ((j & jd) == 0) {
-        const u64 a = v[j], b = v[j + jd];
+        const Key a = v[j], b = v[j + jd];
         v[j] = kmin(a, b);
         v[j + jd] = kmax(a, b);
       }
@@ -160,31 +227,31 @@ __device__ __forceinline__ void bitonic_merge(u64 (&v)[KPL], int lane) {
   for (int d = 16; d > 0; d >>= 1) {
 #pragma unroll
     for (int j = 0; j < KPL; ++j) {
-      const u64 y = __shfl_xor_sync(kAll, v[j], d);
+      const Key y = __shfl_xor_sync(kAll, v[j], d);
       v[j] = (lane & d) ? kmax(v[j], y) : kmin(v[j], y);
     }
   }
 }
 
-// Fold 32 candidates (one a lane, kNone where none) into the sorted list:
+// Fold 32 candidates (one a lane, none where none) into the sorted list:
 // after it the list holds the L smallest of both, sorted.  The candidates
 // are sorted, reversed and min-ed into the list's last 32 keys, which
 // leaves a bitonic sequence.
-template <int KPL>
-__device__ __forceinline__ void merge32(u64 (&v)[KPL], u64 cand, int lane) {
+template <int KPL, typename Key>
+__device__ __forceinline__ void merge32(Key (&v)[KPL], Key cand, int lane) {
   cand = warp_sort32(cand, lane);
   v[KPL - 1] = kmin(v[KPL - 1], __shfl_sync(kAll, cand, 31 - lane));
   bitonic_merge<KPL>(v, lane);
 }
 
-// Insert one key (not kNone) into the sorted list; the largest key drops.
-template <int KPL>
-__device__ __forceinline__ void insert1(u64 (&v)[KPL], u64 x, int lane) {
-  u64 prev[KPL];
+// Insert one key (not none) into the sorted list; the largest key drops.
+template <int KPL, typename Key>
+__device__ __forceinline__ void insert1(Key (&v)[KPL], Key x, int lane) {
+  Key prev[KPL];
 #pragma unroll
   for (int j = 0; j < KPL; ++j) {
-    const u64 up = __shfl_up_sync(kAll, v[j], 1);
-    const u64 last = j > 0 ? __shfl_sync(kAll, v[j > 0 ? j - 1 : 0], 31) : 0;
+    const Key up = __shfl_up_sync(kAll, v[j], 1);
+    const Key last = j > 0 ? __shfl_sync(kAll, v[j > 0 ? j - 1 : 0], 31) : 0;
     prev[j] = lane > 0 ? up : last;
   }
 #pragma unroll
@@ -196,8 +263,8 @@ __device__ __forceinline__ void insert1(u64 (&v)[KPL], u64 x, int lane) {
 
 // The k_pad-th smallest key of the list (k_pad <= 32 when KPL == 1, else
 // k_pad == 32 * KPL), on every lane.
-template <int KPL>
-__device__ __forceinline__ u64 kth(const u64 (&v)[KPL], int kp) {
+template <int KPL, typename Key>
+__device__ __forceinline__ Key kth(const Key (&v)[KPL], int kp) {
   if constexpr (KPL == 1) return __shfl_sync(kAll, v[0], kp - 1);
   return __shfl_sync(kAll, v[KPL - 1], 31);
 }
@@ -235,32 +302,31 @@ size_t table_bytes(int kind, int M, int CB) {
 
 int keys_per_lane(int kp) { return kp <= 32 ? 1 : kp / 32; }
 
-// The table and, with more than one warp, the warps' lists.
-size_t smem_bytes(int kind, int M, int CB, int kp) {
+// The table and, with more than one warp, the warps' lists (of 32-bit
+// keys with key32, bf16 tables only).
+size_t smem_bytes(int kind, int M, int CB, int kp, bool key32) {
   const int warps = threads_of(kind) / 32;
   return table_bytes(kind, M, CB) +
-         (warps > 1 ? (size_t)warps * 32 * keys_per_lane(kp) * sizeof(u64)
+         (warps > 1 ? (size_t)warps * 32 * keys_per_lane(kp) *
+                          (key32 ? sizeof(uint32_t) : sizeof(u64))
                     : 0);
 }
 
-template <int KPL, typename CodeT, int kKind, bool kVec16>
-__global__ void __launch_bounds__(threads_of<kKind>())
-    pq_scan_topk_kernel(const void* __restrict__ lut,
-                        const float* __restrict__ scale,
-                        const float* __restrict__ bias,
-                        const CodeT* __restrict__ codes,
-                        const int* __restrict__ ids,
-                        const int* __restrict__ sizes,
-                        const int* __restrict__ slots,
-                        float* __restrict__ out_d, int* __restrict__ out_i,
-                        int T, int P, int C, int M, int CB, int kp,
-                        int tbytes) {
+// The block's task loop: Key is the selection key (u64, or uint32_t on a
+// bf16 table), kThreads the block.
+template <typename Key, int kThreads, int KPL, typename CodeT, int kKind,
+          bool kVec16>
+__device__ __forceinline__ void scan_tasks(
+    const void* lut, const float* scale, const float* bias,
+    const CodeT* codes, const int* ids, const int* sizes, const int* slots,
+    float* out_d, int* out_i, int T, int P, int C, int M, int CB, int kp,
+    int tbytes) {
   constexpr bool kQuant = kKind == pqrow::kU8;
-  constexpr int kThreads = threads_of<kKind>();
   constexpr int kWarps = kThreads / 32;
   constexpr int L = 32 * KPL;
+  const Key none = none_key(Key());
   extern __shared__ __align__(16) unsigned char smem[];
-  u64* lists = reinterpret_cast<u64*>(smem + tbytes);   // [kWarps][L]
+  Key* lists = reinterpret_cast<Key*>(smem + tbytes);   // [kWarps][L]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   int slot, rows;
@@ -284,10 +350,10 @@ __global__ void __launch_bounds__(threads_of<kKind>())
     }
 
     // -- scan: each warp keeps its own top list ------------------------
-    u64 v[KPL];
+    Key v[KPL];
 #pragma unroll
-    for (int j = 0; j < KPL; ++j) v[j] = kNone;
-    u64 thr = kNone;                   // the warp's k_pad-th key
+    for (int j = 0; j < KPL; ++j) v[j] = none;
+    Key thr = none;                    // the warp's k_pad-th key
     const CodeT* base = codes + (size_t)slot * C * M;
     const uint4* base16 = reinterpret_cast<const uint4*>(base);
     uint4 next = {};                   // vec16: this lane's next row
@@ -295,7 +361,7 @@ __global__ void __launch_bounds__(threads_of<kKind>())
       if (warp * 32 + lane < rows) next = __ldg(base16 + warp * 32 + lane);
     for (int c0 = warp * 32; c0 < rows; c0 += kThreads) {
       const int c = c0 + lane;
-      u64 key = kNone;
+      Key key = none;
       if constexpr (kVec16) {
         const uint4 w = next;
         if (c + kThreads < rows) next = __ldg(base16 + c + kThreads);
@@ -305,13 +371,13 @@ __global__ void __launch_bounds__(threads_of<kKind>())
             d = pqrow::row_sum_vec16<kKind, 256>(w, tab, scl, CB) + bsum;
           else
             d = pqrow::row_sum_vec16<kKind, 256>(w, tab, tab.sc, CB);
-          key = ((u64)ordered_bits(d) << 32) | (uint32_t)c;
+          key = make_key(d, c, Key());
         }
       } else if (c < rows) {
         float d = pqrow::row_sum<CodeT, kKind>(base + (size_t)c * M, tab,
                                                tab.sc, M, CB);
         if constexpr (kQuant) d += bsum;
-        key = ((u64)ordered_bits(d) << 32) | (uint32_t)c;
+        key = make_key(d, c, Key());
       }
       const bool keep = key < thr;
       unsigned kept = __ballot_sync(kAll, keep);
@@ -323,7 +389,7 @@ __global__ void __launch_bounds__(threads_of<kKind>())
           insert1<KPL>(v, __shfl_sync(kAll, key, src), lane);
         } while (kept);
       } else {
-        merge32<KPL>(v, keep ? key : kNone, lane);
+        merge32<KPL>(v, keep ? key : none, lane);
       }
       thr = kth<KPL>(v, kp);
     }
@@ -337,7 +403,7 @@ __global__ void __launch_bounds__(threads_of<kKind>())
       }
       __syncthreads();
       if (warp < half) {
-        const u64* other = lists + (warp + half) * L;
+        const Key* other = lists + (warp + half) * L;
 #pragma unroll
         for (int j = 0; j < KPL; ++j)
           v[j] = kmin(v[j], other[L - 1 - (j * 32 + lane)]);
@@ -357,11 +423,11 @@ __global__ void __launch_bounds__(threads_of<kKind>())
       for (int j = 0; j < KPL; ++j) {
         const int i = j * 32 + lane;
         if (i < kp) {
-          const uint32_t row = (uint32_t)v[j];
-          const bool none = row == 0xffffffffu;
-          out_d[(size_t)t * kp + i] =
-              none ? INFINITY : from_ordered((uint32_t)(v[j] >> 32));
-          out_i[(size_t)t * kp + i] = none ? -1 : ids[(size_t)slot * C + row];
+          const uint32_t row = key_row(v[j]);
+          const bool no_row = row == none_row(Key());
+          out_d[(size_t)t * kp + i] = no_row ? INFINITY : key_dist(v[j]);
+          out_i[(size_t)t * kp + i] = no_row ? -1
+                                             : ids[(size_t)slot * C + row];
         }
       }
     }
@@ -369,13 +435,58 @@ __global__ void __launch_bounds__(threads_of<kKind>())
   }
 }
 
+// f32 and u8 tables, and bf16 tables of more than kMaxRowsKey32 rows a
+// slot: 64-bit keys.
 template <int KPL, typename CodeT, int kKind, bool kVec16>
+__global__ void __launch_bounds__(threads_of<kKind>())
+    pq_scan_topk_kernel(const void* __restrict__ lut,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ bias,
+                        const CodeT* __restrict__ codes,
+                        const int* __restrict__ ids,
+                        const int* __restrict__ sizes,
+                        const int* __restrict__ slots,
+                        float* __restrict__ out_d, int* __restrict__ out_i,
+                        int T, int P, int C, int M, int CB, int kp,
+                        int tbytes) {
+  scan_tasks<u64, threads_of<kKind>(), KPL, CodeT, kKind, kVec16>(
+      lut, scale, bias, codes, ids, sizes, slots, out_d, out_i, T, P, C, M,
+      CB, kp, tbytes);
+}
+
+// bf16 tables of at most kMaxRowsKey32 rows a slot: narrow (32-bit) keys.
+template <int KPL, typename CodeT, bool kVec16>
+__global__ void __launch_bounds__(kThreadsBF16)
+    pq_scan_topk_narrow_kernel(const void* __restrict__ lut,
+                              const float* __restrict__ scale,
+                              const float* __restrict__ bias,
+                              const CodeT* __restrict__ codes,
+                              const int* __restrict__ ids,
+                              const int* __restrict__ sizes,
+                              const int* __restrict__ slots,
+                              float* __restrict__ out_d,
+                              int* __restrict__ out_i, int T, int P, int C,
+                              int M, int CB, int kp, int tbytes) {
+  scan_tasks<uint32_t, kThreadsBF16, KPL, CodeT, pqrow::kBF16, kVec16>(
+      lut, scale, bias, codes, ids, sizes, slots, out_d, out_i, T, P, C, M,
+      CB, kp, tbytes);
+}
+
+template <int KPL, typename CodeT, int kKind, bool kVec16, bool kKey32>
 int launch_typed(const void* lut, const void* scale, const void* bias,
                  const void* codes, const void* ids, const void* sizes,
                  const void* slots, void* out_d, void* out_i, int T, int P,
                  int C, int M, int CB, int kp, void* stream) {
-  auto kernel = pq_scan_topk_kernel<KPL, CodeT, kKind, kVec16>;
-  const size_t smem = smem_bytes(kKind, M, CB, kp);
+  static_assert(!kKey32 || kKind == pqrow::kBF16, "32-bit keys: bf16 only");
+  void (*kernel)(const void*, const float*, const float*, const CodeT*,
+                 const int*, const int*, const int*, float*, int*, int, int,
+                 int, int, int, int, int);
+  if constexpr (kKey32)
+    kernel = pq_scan_topk_narrow_kernel<KPL, CodeT, kVec16>;
+  else
+    kernel = pq_scan_topk_kernel<KPL, CodeT, kKind, kVec16>;
+  const int threads = threads_of<kKind>();
+  const size_t smem = smem_bytes(kKind, M, CB, kp, kKey32);
   // The blocks of this instance that fit on the card at once, looked up on
   // the first launch per device and shared-memory size: (smem << 32) |
   // blocks, 0 until then.
@@ -396,7 +507,7 @@ int launch_typed(const void* lut, const void* scale, const void* bias,
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess ||
         (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, threads_of<kKind>(), smem)) != cudaSuccess)
+             &per_sm, kernel, threads, smem)) != cudaSuccess)
       return (int)e;
     if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
     blocks = sms * per_sm;
@@ -405,57 +516,58 @@ int launch_typed(const void* lut, const void* scale, const void* bias,
                           std::memory_order_relaxed);
   }
   const int grid = T < blocks ? T : blocks;
-  kernel<<<grid, threads_of<kKind>(), smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       lut, (const float*)scale, (const float*)bias, (const CodeT*)codes,
       (const int*)ids, (const int*)sizes, (const int*)slots, (float*)out_d,
       (int*)out_i, T, P, C, M, CB, kp, (int)table_bytes(kKind, M, CB));
   return (int)cudaGetLastError();
 }
 
-template <int KPL, int kKind>
+template <int KPL, int kKind, bool kKey32>
 int launch_codes(const void* lut, const void* scale, const void* bias,
                  const void* codes, const void* ids, const void* sizes,
                  const void* slots, void* out_d, void* out_i, int T, int P,
                  int C, int M, int CB, int code_bytes, int kp, void* stream) {
   if (code_bytes == 4)
-    return launch_typed<KPL, int32_t, kKind, false>(
+    return launch_typed<KPL, int32_t, kKind, false, kKey32>(
         lut, scale, bias, codes, ids, sizes, slots, out_d, out_i, T, P, C, M,
         CB, kp, stream);
   if (M == 16 && CB == 256 && reinterpret_cast<uintptr_t>(codes) % 16 == 0)
-    return launch_typed<KPL, uint8_t, kKind, true>(
+    return launch_typed<KPL, uint8_t, kKind, true, kKey32>(
         lut, scale, bias, codes, ids, sizes, slots, out_d, out_i, T, P, C, M,
         CB, kp, stream);
-  return launch_typed<KPL, uint8_t, kKind, false>(
+  return launch_typed<KPL, uint8_t, kKind, false, kKey32>(
       lut, scale, bias, codes, ids, sizes, slots, out_d, out_i, T, P, C, M,
       CB, kp, stream);
 }
 
-template <int kKind>
+template <int kKind, bool kKey32 = false>
 int launch(const void* lut, const void* scale, const void* bias,
            const void* codes, const void* ids, const void* sizes,
            const void* slots, void* out_d, void* out_i, int T, int P, int C,
            int M, int CB, int code_bytes, int kp, void* stream) {
   if (kp < 8 || kp > kMaxKPad || (kp & (kp - 1)) != 0 || sizes == nullptr ||
-      (code_bytes != 1 && code_bytes != 4) || (slots == nullptr && P != T))
+      (code_bytes != 1 && code_bytes != 4) || (slots == nullptr && P != T) ||
+      (kKey32 && C > kMaxRowsKey32))
     return (int)cudaErrorInvalidValue;
   if (T == 0) return (int)cudaSuccess;
   switch (keys_per_lane(kp)) {
     case 1:
-      return launch_codes<1, kKind>(lut, scale, bias, codes, ids, sizes,
-                                    slots, out_d, out_i, T, P, C, M, CB,
-                                    code_bytes, kp, stream);
+      return launch_codes<1, kKind, kKey32>(lut, scale, bias, codes, ids,
+                                            sizes, slots, out_d, out_i, T, P,
+                                            C, M, CB, code_bytes, kp, stream);
     case 2:
-      return launch_codes<2, kKind>(lut, scale, bias, codes, ids, sizes,
-                                    slots, out_d, out_i, T, P, C, M, CB,
-                                    code_bytes, kp, stream);
+      return launch_codes<2, kKind, kKey32>(lut, scale, bias, codes, ids,
+                                            sizes, slots, out_d, out_i, T, P,
+                                            C, M, CB, code_bytes, kp, stream);
     case 4:
-      return launch_codes<4, kKind>(lut, scale, bias, codes, ids, sizes,
-                                    slots, out_d, out_i, T, P, C, M, CB,
-                                    code_bytes, kp, stream);
+      return launch_codes<4, kKind, kKey32>(lut, scale, bias, codes, ids,
+                                            sizes, slots, out_d, out_i, T, P,
+                                            C, M, CB, code_bytes, kp, stream);
     default:
-      return launch_codes<8, kKind>(lut, scale, bias, codes, ids, sizes,
-                                    slots, out_d, out_i, T, P, C, M, CB,
-                                    code_bytes, kp, stream);
+      return launch_codes<8, kKind, kKey32>(lut, scale, bias, codes, ids,
+                                            sizes, slots, out_d, out_i, T, P,
+                                            C, M, CB, code_bytes, kp, stream);
   }
 }
 
@@ -463,10 +575,15 @@ int launch(const void* lut, const void* scale, const void* bias,
 
 extern "C" {
 
-// kind: 0 f32, 1 u8, 2 bf16 table.
-size_t pq_scan_topk_smem_bytes(int kind, int M, int CB, int k_pad) {
-  return smem_bytes(kind, M, CB, k_pad);
+// kind: 0 f32, 1 u8, 2 bf16 table; key_bits: 32 (pq_scan_topk_bf16) or
+// 64 (every other entry point).
+size_t pq_scan_topk_smem_bytes(int kind, int M, int CB, int k_pad,
+                               int key_bits) {
+  return smem_bytes(kind, M, CB, k_pad, key_bits == 32);
 }
+
+// Threads of a block of the instances for a table kind.
+int pq_scan_topk_threads(int kind) { return threads_of(kind); }
 
 // lut (T, M, CB) f32; codes (P, C, M) u8 (code_bytes=1) or i32 (4), ids
 // (P, C) i32, sizes (P,) i32; slots (T,) i32, or NULL with P == T (task t
@@ -492,12 +609,24 @@ int pq_scan_topk_u8(const void* lut_q, const void* scale, const void* bias,
                             stream);
 }
 
-// lut (T, M, CB) bf16, the rest as for pq_scan_topk_f32; each distance
-// out is a bf16 value.
+// lut (T, M, CB) bf16, the rest as for pq_scan_topk_f32, C at most
+// 65,535 (32-bit keys; more: cudaErrorInvalidValue); each distance out is
+// a bf16 value.
 int pq_scan_topk_bf16(const void* lut, const void* codes, const void* ids,
                       const void* sizes, const void* slots, void* out_d,
                       void* out_i, int T, int P, int C, int M, int CB,
                       int code_bytes, int k_pad, void* stream) {
+  return launch<pqrow::kBF16, true>(lut, nullptr, nullptr, codes, ids, sizes,
+                                    slots, out_d, out_i, T, P, C, M, CB,
+                                    code_bytes, k_pad, stream);
+}
+
+// pq_scan_topk_bf16 with 64-bit keys, for any C.
+int pq_scan_topk_bf16_wide(const void* lut, const void* codes,
+                           const void* ids, const void* sizes,
+                           const void* slots, void* out_d, void* out_i, int T,
+                           int P, int C, int M, int CB, int code_bytes,
+                           int k_pad, void* stream) {
   return launch<pqrow::kBF16>(lut, nullptr, nullptr, codes, ids, sizes,
                               slots, out_d, out_i, T, P, C, M, CB,
                               code_bytes, k_pad, stream);

@@ -41,6 +41,10 @@ _SMEM_LIMIT = 232448
 # Largest k_pad the fused DC+TS kernels take (kMaxKPad in
 # csrc/pq_scan_topk.cu); the wrapper holds both routes to it.
 MAX_K_PAD = 256
+# Largest C (rows a slot) the fused kernel's 32-bit selection keys take on
+# a bf16 table: the row is the key's low 16 bits, 0xffff its "no row"
+# (kMaxRowsKey32 in csrc/pq_scan_topk.cu).  More rows take 64-bit keys.
+BF16_KEY32_MAX_C = 0xffff
 
 
 # the service's replica workers launch from several threads at once
@@ -291,6 +295,28 @@ def pq_scan_topk_plain(lut: Union[torch.Tensor, QuantizedLUT],
     return topk_smallest(d, ids, k_pad)
 
 
+def _topk_entry(kind: str, c: int):
+    """(C entry point, selection-key bits) of the fused kernel instance
+    for a table kind and C rows a slot: 32-bit keys on a bf16 table of at
+    most ``BF16_KEY32_MAX_C`` rows, else 64-bit keys."""
+    if kind == "bf16" and c <= BF16_KEY32_MAX_C:
+        return "pq_scan_topk_bf16", 32
+    return {"f32": "pq_scan_topk_f32", "u8": "pq_scan_topk_u8",
+            "bf16": "pq_scan_topk_bf16_wide"}[kind], 64
+
+
+def pq_scan_topk_instance(lut: Union[torch.Tensor, QuantizedLUT],
+                          codes: torch.Tensor) -> dict:
+    """The fused kernel instance :func:`pq_scan_topk` launches on this
+    table and codes: its C entry point, selection-key bits and block
+    threads (the library is built if needed)."""
+    kind = table_kind(lut)
+    entry, bits = _topk_entry(kind, codes.shape[1])
+    threads = _build.library("pq_scan_topk").pq_scan_topk_threads(
+        _KIND[kind])
+    return {"entry": entry, "key_bits": bits, "threads": threads}
+
+
 def pq_scan_topk(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
                  ids: torch.Tensor, sizes: torch.Tensor, k: int, *,
                  strategy: str = "gather",
@@ -310,7 +336,9 @@ def pq_scan_topk(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
     are selected and the outputs are sliced to ``k``; ``k_pad`` may not
     exceed :data:`MAX_K_PAD`.  ``lut`` is the f32 table, a bf16 table or
     a :class:`QuantizedLUT`; codes uint8 or int32; ids and sizes int32.
-    On the card ties are broken by row, so the output is deterministic."""
+    On the card ties are broken by row, so the output is deterministic;
+    the kernel instance is :func:`pq_scan_topk_instance`'s, chosen by the
+    table kind and C (both instances are hand-written kernels)."""
     check_strategy(strategy)
     kind, table, dev, t, p, c, m, cbn = _scan_inputs(lut, codes, sizes,
                                                      slots)
@@ -330,8 +358,10 @@ def pq_scan_topk(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
                                     slots=slots)
         return bd[:, :k], bi[:, :k]
     name = "pq_scan_topk" + KIND_SUFFIX[kind]
+    entry, bits = _topk_entry(kind, c)
     lib = _build.library("pq_scan_topk")
-    _smem(name, lib.pq_scan_topk_smem_bytes(_KIND[kind], m, cbn, k_pad))
+    _smem(name, lib.pq_scan_topk_smem_bytes(_KIND[kind], m, cbn, k_pad,
+                                            bits))
     out_d = torch.empty((t, k_pad), dtype=torch.float32, device=dev)
     out_i = torch.empty((t, k_pad), dtype=torch.int32, device=dev)
     code_bytes = codes.element_size()
@@ -344,12 +374,11 @@ def pq_scan_topk(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
                 out_d.data_ptr(), out_i.data_ptr(), t, p, c, m, cbn,
                 code_bytes, k_pad, _stream(dev))
         else:
-            fn = (lib.pq_scan_topk_f32 if kind == "f32"
-                  else lib.pq_scan_topk_bf16)
-            err = fn(table.data_ptr(), codes.data_ptr(), ids.data_ptr(),
-                     sizes.data_ptr(), slots_ptr, out_d.data_ptr(),
-                     out_i.data_ptr(), t, p, c, m, cbn, code_bytes, k_pad,
-                     _stream(dev))
+            err = getattr(lib, entry)(
+                table.data_ptr(), codes.data_ptr(), ids.data_ptr(),
+                sizes.data_ptr(), slots_ptr, out_d.data_ptr(),
+                out_i.data_ptr(), t, p, c, m, cbn, code_bytes, k_pad,
+                _stream(dev))
     _ok(lib, err, name, "pq_scan_topk")
     _launched(name)
     return out_d[:, :k], out_i[:, :k]

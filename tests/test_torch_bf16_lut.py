@@ -335,3 +335,19 @@ def test_dryrun_main_lut_dtype_bf16(tmp_path, monkeypatch):
     rec = json.loads((tmp_path / "drim_ann__search_100m__pod256__fused__"
                                   "lut_bf16.json").read_text())
     assert rec["shard_shape"]["slots"] == 4 and rec["fits"] is True
+
+
+@pytest.mark.parametrize("kind,c,entry,bits", [
+    ("bf16", 1024, "pq_scan_topk_bf16", 32),
+    ("bf16", 65535, "pq_scan_topk_bf16", 32),
+    ("bf16", 65536, "pq_scan_topk_bf16_wide", 64),
+    ("f32", 1024, "pq_scan_topk_f32", 64),
+    ("u8", 1024, "pq_scan_topk_u8", 64),
+])
+def test_fused_kernel_instance_by_table_and_rows(kind, c, entry, bits):
+    """The fused wrapper's instance: 32-bit selection keys on a bf16
+    table of at most 65,535 rows a slot (the row fills the key's low 16
+    bits, 0xffff meaning none), 64-bit keys otherwise; both launch a
+    hand-written kernel (the CPU runs the plain version either way)."""
+    assert ops.BF16_KEY32_MAX_C == 0xffff
+    assert ops._topk_entry(kind, c) == (entry, bits)

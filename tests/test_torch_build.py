@@ -126,3 +126,34 @@ def test_lut_bench_probes_apply_to_the_source():
     src = (_build.CSRC / "lut_build.cu").read_text()
     for name in bench.PROBES:
         assert bench.probe_source(src, name) != src
+
+
+def _fused_bench():
+    spec = importlib.util.spec_from_file_location(
+        "torch_fused_topk_bench",
+        Path(__file__).resolve().parents[1] / "tools"
+        / "torch_fused_topk_bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    return bench
+
+
+@pytest.mark.parametrize("spec", ["kThreadsF32=128", "kThreadsU8=64",
+                                  "kThreadsBF16=32", "kThreadsBF16=128",
+                                  "kInsertMax=4"])
+def test_fused_topk_constants_can_vary(spec):
+    """The constants the fused bench tool varies exist in the source."""
+    src = (_build.CSRC / "pq_scan_topk.cu").read_text()
+    assert _build.with_constants(src, spec) != src
+
+
+@pytest.mark.parametrize("name", ["conflict-free", "no-selection",
+                                  "pre-staged"])
+def test_fused_bench_probes_apply_to_the_sources(name):
+    """Each diagnostic build of tools/torch_fused_topk_bench.py finds what
+    it edits in csrc/ (every pattern at least once)."""
+    bench = _fused_bench()
+    edited = bench.probe_sources(name)
+    assert edited
+    for fname, text in edited.items():
+        assert text != (_build.CSRC / fname).read_text()

@@ -527,6 +527,123 @@ def test_fused_scan_topk_bf16_all_empty_and_ties(cuda):
         assert bool((gi[t, n:] == -1).all())
 
 
+def _plain_by_row(lut, codes, ids, sizes, k_pad, slots=None):
+    """The plain version with ties broken by row: the plain DC
+    (``adc_distances``) on the (gathered) inputs, a stable sort by
+    distance, ids looked up, (+inf, -1) past the valid rows."""
+    if slots is not None:
+        codes, ids, sizes = ops.gather_slots(codes, ids, sizes, slots)
+    d, row = torch.sort(adc_distances(lut, codes, sizes), dim=1, stable=True)
+    d, row = d[:, :k_pad], row[:, :k_pad]
+    i = torch.where(torch.isinf(d), -1, ids.gather(1, row))
+    short = k_pad - d.shape[1]
+    if short > 0:
+        d = torch.nn.functional.pad(d, (0, short), value=float("inf"))
+        i = torch.nn.functional.pad(i, (0, short), value=-1)
+    return d, i
+
+
+def _assert_bf16_topk_exact(lut, codes, ids, sizes, k_pad, slots=None):
+    """E-bf16 (dense, or by slot and dense on the gathered inputs) ==
+    the plain version bit for bit: its distances are the plain top-k's,
+    and distances and ids those of the plain DC sorted by (distance, row)
+    and of C-bf16's output sorted the same way."""
+    got = [ops.pq_scan_topk(lut, codes, ids, sizes, k_pad, slots=slots)]
+    if slots is not None:
+        got.append(ops.pq_scan_topk(
+            lut, *ops.gather_slots(codes, ids, sizes, slots), k_pad))
+    pd, _ = ops.pq_scan_topk_plain(lut, codes, ids, sizes, k_pad,
+                                   slots=slots)
+    wd, wi = _plain_by_row(lut, codes, ids, sizes, k_pad, slots)
+    dense = (codes, ids, sizes) if slots is None else ops.gather_slots(
+        codes, ids, sizes, slots)
+    sd, si = _lexsort_dc(lut, *dense, k_pad)
+    torch.cuda.synchronize()
+    for gd, gi in got:
+        assert torch.equal(gd, pd) and torch.equal(gd, wd)
+        assert torch.equal(gi, wi)
+        assert torch.equal(gd, sd) and torch.equal(gi, si)
+
+
+@pytest.mark.parametrize("k_pad", [8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("form", ["dense", "slots"])
+def test_fused_scan_topk_bf16_equals_plain_every_k_pad(cuda, k_pad, form):
+    """E-bf16 with 32-bit keys, every k_pad from 8 to 256, dense and by
+    slot: bit-equal to the plain version (ties by row) and to the sorted
+    C-bf16 output, as test_fused_scan_topk_equals_sorted_dc holds E."""
+    _, codes, ids, sizes, slots = _slot_topk_inputs(31, 300, 2000, 1100,
+                                                    np.uint8, False, cuda)
+    g = torch.Generator(device=cuda).manual_seed(31)
+    res = torch.randn(2000, 16 * 8, device=cuda, generator=g)
+    books = torch.randn(16, 256, 8, device=cuda, generator=g)
+    lut = ops.lut_build_bf16(res, books, (books * books).sum(-1))
+    assert ops.pq_scan_topk_instance(lut, codes)["key_bits"] == 32
+    if form == "dense":
+        codes, ids, sizes = ops.gather_slots(codes, ids, sizes, slots)
+        slots = None
+    ops.reset_launches()
+    _assert_bf16_topk_exact(lut, codes, ids, sizes, k_pad, slots)
+    assert ops.launches["pq_scan_topk_bf16"] == (1 if form == "dense" else 2)
+
+
+@pytest.mark.parametrize("case", ["c-below-k-pad", "empty-tasks",
+                                  "all-equal"])
+@pytest.mark.parametrize("k_pad", [16, 256])
+def test_fused_scan_topk_bf16_edges(cuda, case, k_pad):
+    """E-bf16 bit-equal to the plain version where C < k_pad (C = 5), where
+    every other task is empty (size 0, dense; slot -1, by slot), and where
+    every row of a task has the same distance (ties broken by row)."""
+    c = 5 if case == "c-below-k-pad" else 700
+    r, b, s, codes, sizes = _mk(12, 64, 16, 256, c, 8, np.uint8, cuda)
+    sizes[1:] = torch.randint(1, c + 1, (63,), device=cuda,
+                              dtype=torch.int32)
+    ids = torch.randperm(64 * c, device=cuda).int().view(64, c)
+    lut = ops.lut_build_bf16(r, b, s)
+    slots = torch.arange(64, device=cuda, dtype=torch.int32)
+    if case == "empty-tasks":
+        sizes[::2] = 0
+        slots[1::4] = -1
+    elif case == "all-equal":
+        codes = codes[:, :1].expand_as(codes).contiguous()
+    _assert_bf16_topk_exact(lut, codes, ids, sizes, k_pad)
+    _assert_bf16_topk_exact(lut, codes, ids, sizes, k_pad, slots)
+    if case == "all-equal":
+        d, i = ops.pq_scan_topk(lut, codes, ids, sizes, k_pad)
+        for t in range(64):
+            n = min(k_pad, int(sizes[t]))
+            assert torch.equal(i[t, :n], ids[t, :n])
+            assert bool((d[t, :n] == d[t, 0]).all())
+
+
+@pytest.mark.parametrize("c,key_bits", [(65535, 32), (65536, 64)])
+@pytest.mark.parametrize("k_pad", [16, 128])
+def test_fused_scan_topk_bf16_key_limit(cuda, c, key_bits, k_pad):
+    """C on either side of the 32-bit keys' limit: 65,535 rows a slot take
+    the 32-bit instance, 65,536 the 64-bit one; both bit-equal to the
+    plain version, with the best rows (tied) the last ones of a slot, so
+    rows up to C - 1 win and break their ties by row."""
+    t, m = 3, 16
+    r, b, s, codes, sizes = _mk(13, t, m, 256, c, 8, np.uint8, cuda)
+    sizes[:] = c
+    sizes[1] = c - 7
+    lut = ops.lut_build_bf16(r, b, s)
+    best = lut.float().argmin(dim=2).to(torch.uint8)          # (T, M)
+    codes[:, -(k_pad + 40):] = best[:, None, :]
+    ids = torch.randperm(t * c, device=cuda).int().view(t, c)
+    inst = ops.pq_scan_topk_instance(lut, codes)
+    assert inst["key_bits"] == key_bits
+    assert inst["entry"] == ("pq_scan_topk_bf16" if key_bits == 32
+                             else "pq_scan_topk_bf16_wide")
+    slots = torch.tensor([2, 0, -1, 1], device=cuda, dtype=torch.int32)
+    ops.reset_launches()
+    _assert_bf16_topk_exact(lut, codes, ids, sizes, k_pad)
+    lut4 = torch.cat([lut, lut[:1]])
+    _assert_bf16_topk_exact(lut4, codes, ids, sizes, k_pad, slots)
+    assert ops.launches["pq_scan_topk_bf16"] == 3
+    d, i = ops.pq_scan_topk(lut, codes, ids, sizes, k_pad)
+    assert int(i[0, 0]) == int(ids[0, c - k_pad - 40])
+
+
 @pytest.mark.parametrize("lut_dtype", ["f32", "uint8"])
 def test_search_goes_through_kernels(cuda, lut_dtype):
     ds = make_clustered_corpus(0, 8000, 32, n_queries=64, n_components=32,

@@ -2,8 +2,10 @@
 held to the reference on the same arguments: the tenant mix of
 ``make_query_stream``, ``BucketPolicy.pow2`` / ``single``,
 ``MicroBatcher.flush``, the subtraction-form LUT and the one-hot scans,
-the package exports, ``configs/drim_ann.py::smoke_config`` and
-``models/common.py::cast_tree``."""
+the package exports, ``configs/drim_ann.py::smoke_config``,
+``models/common.py::cast_tree``, and the scoped steps on raw scope
+arrays (``sharded_search.run_shards_vmap_scoped`` /
+``run_shards_vmap_lut_scoped``) on the reference's own shards."""
 
 import dataclasses
 
@@ -16,6 +18,8 @@ import repro.core as ref_core
 import repro.runtime as ref_runtime
 import repro.service as ref_service
 from repro.core import adc as ref_adc
+from repro.core import cluster_locate as ref_locate
+from repro.core import sharded_search as ref_ss
 from repro.core.pq import PQCodebook as RefPQCodebook
 from repro.data import make_query_stream as ref_stream
 from repro.runtime.batching import BucketPolicy as RefBucketPolicy
@@ -24,12 +28,19 @@ from repro.runtime.batching import MicroBatcher as RefMicroBatcher
 import repro_torch.core as core
 import repro_torch.runtime as runtime
 import repro_torch.service as service
+from repro_torch.convert import sharded_index_from_numpy
 from repro_torch.core import adc
+from repro_torch.core import filter as flt
+from repro_torch.core import sharded_search as ss
 from repro_torch.core.pq import PQCodebook
 from repro_torch.data import make_query_stream
+from repro_torch.kernels import ops
 from repro_torch.runtime.batching import BucketPolicy, MicroBatcher
 
+from test_torch_search import assert_same_neighbours
+
 RTOL, ATOL = 1e-4, 1e-3        # tests/test_kernels.py's tolerance
+K = 10
 
 
 @pytest.mark.parametrize("kw", [
@@ -194,3 +205,207 @@ def test_cast_tree_equals_reference(dtype):
     for g, w in pairs:
         assert tuple(g.shape) == tuple(w.shape)
         assert np.array_equal(g.float().numpy(), np.asarray(w, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# The scoped steps on raw scope arrays (the reference's names)
+# ---------------------------------------------------------------------------
+
+SCOPED_MODES = ("f32", "uint8", "lut-f32", "lut-uint8")
+
+
+@pytest.fixture(scope="module")
+def scoped_case(small_index, small_corpus):
+    """The reference's shards and schedule (8 shards, 16 probes a query)
+    on the conftest index, carried across through numpy; raw scope
+    arrays (three tenants striped over the ids, a tag field of 6 values
+    and a sparse second one; per-query tenants, -1 for unscoped, and
+    NO_TAG-padded terms); and a LUT bank of the tasks' residuals, f32 and
+    quantized, one row a valid task, every fifth row withheld (-1)."""
+    queries = np.asarray(small_corpus.queries, np.float32)
+    probes = np.asarray(ref_locate(jnp.asarray(queries),
+                                   small_index.centroids, 16)[0])
+    eng = ref_ss.DistributedEngine(
+        small_index, ref_ss.EngineConfig(
+            n_shards=8, nprobe=16, k=K + 1, tasks_per_shard=256,
+            split_max=64, strategy="gather", dup_budget_bytes=1 << 18),
+        probes)
+    sched = eng.schedule(probes)
+    rs = eng.sindex
+    n = int(np.asarray(small_index.ids).max()) + 1
+    rng = np.random.default_rng(7)
+    meta_tenant = (np.arange(n) % 3).astype(np.int32)
+    meta_tags = np.full((n, 2), flt.NO_TAG, np.uint32)
+    meta_tags[:, 0] = rng.integers(0, 6, n)
+    meta_tags[::7, 1] = 9
+    q = len(queries)
+    q_tenants = rng.integers(-1, 3, q).astype(np.int32)
+    q_terms = np.full((q, 2), flt.NO_TAG, np.uint32)
+    q_terms[::2, 0] = rng.integers(0, 6, len(q_terms[::2]))
+    q_terms[::3, 1] = 9
+    qidx, sidx = sched.query_idx, sched.slot_idx
+    valid = qidx >= 0
+    lidx = np.where(valid, np.arange(qidx.size).reshape(qidx.shape), -1)
+    lidx[valid & (np.arange(qidx.size).reshape(qidx.shape) % 5 == 0)] = -1
+    cluster_of = np.asarray(rs.cluster_of)
+    slot = np.clip(sidx, 0, cluster_of.shape[1] - 1)
+    cl = cluster_of[np.arange(qidx.shape[0])[:, None], slot].reshape(-1)
+    res = (queries[np.clip(qidx, 0, q - 1).reshape(-1)]
+           - np.asarray(small_index.centroids)[np.clip(cl, 0, None)])
+    bank = ref_adc.build_lut_batch(small_index.codebook, jnp.asarray(res))
+    banks = {"lut-f32": bank, "lut-uint8": ref_adc.quantize_lut(bank)}
+    return dict(
+        rs=rs, qidx=qidx, sidx=sidx, lidx=lidx, queries=queries,
+        banks=banks,
+        raw=(meta_tenant, meta_tags, q_tenants, q_terms),
+        sx=sharded_index_from_numpy(
+            np.asarray(rs.codes), np.asarray(rs.ids), np.asarray(rs.sizes),
+            cluster_of, np.asarray(rs.start_of), rs.slot_of_instance,
+            np.asarray(rs.centroids), np.asarray(rs.codebook.codebooks),
+            np.asarray(rs.codebook.sqnorms), None, device="cpu"))
+
+
+def _port_bank(bank):
+    if isinstance(bank, ref_adc.QuantizedLUT):
+        return adc.QuantizedLUT(*(torch.from_numpy(np.array(x))
+                                  for x in bank))
+    return torch.from_numpy(np.array(bank))
+
+
+def _scoped_port(case, mode, k=K):
+    if mode.startswith("lut"):
+        return ss.run_shards_vmap_lut_scoped(
+            case["sx"], case["qidx"], case["sidx"], case["lidx"],
+            _port_bank(case["banks"][mode]), *case["raw"], k=k,
+            strategy="gather")
+    return ss.run_shards_vmap_scoped(
+        case["sx"], case["qidx"], case["sidx"], case["queries"],
+        *case["raw"], k=k, quantize=mode == "uint8")
+
+
+def _scoped_ref(case, mode, k=K + 1):
+    raw = [jnp.asarray(a) for a in case["raw"]]
+    if mode.startswith("lut"):
+        d, i = ref_ss.run_shards_vmap_lut_scoped(
+            case["rs"], jnp.asarray(case["qidx"]), jnp.asarray(case["sidx"]),
+            jnp.asarray(case["lidx"]), case["banks"][mode], *raw, k=k,
+            strategy="gather")
+    else:
+        d, i = ref_ss.run_shards_vmap_scoped(
+            case["rs"], jnp.asarray(case["qidx"]), jnp.asarray(case["sidx"]),
+            jnp.asarray(case["queries"]), *raw, k=k, strategy="gather",
+            quantize=mode == "uint8")
+    return np.asarray(d), np.asarray(i)
+
+
+def _task_recall(found, truth):
+    """Mean share of each task's finite truth ids found (tasks with any)."""
+    shares = [len(set(f) & set(t[t >= 0])) / (t >= 0).sum()
+              for f, t in zip(found, truth) if (t >= 0).any()]
+    return float(np.mean(shares))
+
+
+@pytest.mark.parametrize("mode", SCOPED_MODES)
+def test_scoped_steps_equal_reference(scoped_case, mode):
+    """The two names against the reference's on the same shards, schedule
+    and scope: f32 (and a bank, whose rows are the same tables on both
+    sides) distances at rtol 1e-4 / atol 1e-3 with ids up to ties at the
+    k-th place; uint8 (each side quantizes its own LC tables) by recall
+    of the reference's f32 winners, within 0.01 of the reference's."""
+    ops.reset_launches()
+    pd, pi = (x.numpy() for x in _scoped_port(scoped_case, mode))
+    assert pd.shape == scoped_case["qidx"].shape + (K,)
+    assert pi.dtype == np.int32
+    assert all(v == 0 for v in ops.launches.values())    # CPU: plain runs
+    rd, ri = _scoped_ref(scoped_case, mode)
+    if mode == "uint8":
+        _, fi = _scoped_ref(scoped_case, "f32", k=K)
+        got = _task_recall(pi.reshape(-1, K), fi.reshape(-1, K))
+        want = _task_recall(ri[..., :K].reshape(-1, K), fi.reshape(-1, K))
+        assert got >= want - 0.01, (got, want)
+        return
+    pd, pi = pd.reshape(-1, K), pi.reshape(-1, K)
+    rd, ri = rd.reshape(-1, K + 1), ri.reshape(-1, K + 1)
+    np.testing.assert_array_equal(np.isinf(pd), np.isinf(rd[:, :K]))
+    np.testing.assert_allclose(pd, rd[:, :K], rtol=RTOL, atol=ATOL)
+    assert (pi[np.isinf(pd)] == -1).all()
+    assert_same_neighbours(pd, pi, rd, ri)
+
+
+@pytest.mark.parametrize("mode", SCOPED_MODES)
+def test_scoped_steps_keep_out_of_scope_rows_out(scoped_case, mode):
+    """Every id returned is in its task's query's scope: its tenant when
+    the query has one, a tag among the query's terms when it has any.
+    Tasks without a bank row (lidx -1) return nothing."""
+    meta_tenant, meta_tags, q_tenants, q_terms = scoped_case["raw"]
+    _, pi = _scoped_port(scoped_case, mode)
+    pi = pi.numpy().reshape(-1, K)
+    qidx = scoped_case["qidx"].reshape(-1)
+    seen = 0
+    for q, ids in zip(qidx, pi):
+        ids = ids[ids >= 0]
+        if q < 0:
+            assert ids.size == 0
+            continue
+        seen += ids.size
+        if q_tenants[q] >= 0:
+            assert (meta_tenant[ids] == q_tenants[q]).all()
+        terms = q_terms[q][q_terms[q] != flt.NO_TAG]
+        if terms.size:
+            assert np.isin(meta_tags[ids], terms).any(axis=1).all()
+    assert seen > 0
+    if mode.startswith("lut"):
+        lidx = scoped_case["lidx"].reshape(-1)
+        assert (pi[lidx < 0] == -1).all()
+
+
+@pytest.mark.parametrize("mode", SCOPED_MODES)
+def test_scoped_steps_equal_run_shards_scoped(scoped_case, mode):
+    """Each name == ``run_shards_scoped`` with the equivalent
+    :class:`Scope` (a ``VectorMeta`` holding the same tables), bit for
+    bit: the same kernels' plain versions on the same tasks."""
+    meta_tenant, meta_tags, q_tenants, q_terms = scoped_case["raw"]
+    meta = flt.VectorMeta(capacity=len(meta_tenant), tag_fields=2)
+    meta.set(np.arange(len(meta_tenant)), tenant=meta_tenant, tags=meta_tags)
+    scope = flt.Scope(meta, q_tenants, q_terms, "cpu")
+    kw = dict(k=K)
+    if mode.startswith("lut"):
+        kw.update(lidx=scoped_case["lidx"],
+                  lut_bank=_port_bank(scoped_case["banks"][mode]))
+    else:
+        kw.update(quantize=mode == "uint8")
+    wd, wi = ss.run_shards_scoped(scoped_case["sx"], scoped_case["qidx"],
+                                  scoped_case["sidx"],
+                                  torch.from_numpy(scoped_case["queries"]),
+                                  scope, **kw)
+    gd, gi = _scoped_port(scoped_case, mode)
+    assert torch.equal(gd, wd) and torch.equal(gi, wi)
+
+
+@pytest.mark.parametrize("name", ["run_shards_vmap_scoped",
+                                  "run_shards_vmap_lut_scoped"])
+def test_scoped_step_signatures_and_strategy(scoped_case, name):
+    """The reference's parameters in its order; an unknown strategy is
+    refused as by ``run_shards_vmap``."""
+    import inspect
+    got = list(inspect.signature(getattr(ss, name)).parameters)
+    want = list(inspect.signature(getattr(ref_ss, name)).parameters)
+    assert got == want
+    mode = "lut-f32" if "lut" in name else "f32"
+    with pytest.raises(ValueError, match="strategy"):
+        if mode == "f32":
+            ss.run_shards_vmap_scoped(
+                scoped_case["sx"], scoped_case["qidx"], scoped_case["sidx"],
+                scoped_case["queries"], *scoped_case["raw"], k=K,
+                strategy="bogus")
+        else:
+            ss.run_shards_vmap_lut_scoped(
+                scoped_case["sx"], scoped_case["qidx"], scoped_case["sidx"],
+                scoped_case["lidx"], _port_bank(scoped_case["banks"][mode]),
+                *scoped_case["raw"], k=K, strategy="bogus")
+    with pytest.raises(ValueError, match="strategy"):
+        ss.run_shards_vmap(scoped_case["sx"],
+                           torch.from_numpy(scoped_case["qidx"]),
+                           torch.from_numpy(scoped_case["sidx"]),
+                           torch.from_numpy(scoped_case["queries"]), k=K,
+                           strategy="bogus")
