@@ -9,6 +9,10 @@
 ``use_kernels=True`` routes LC/DC through ``repro_torch.kernels.ops``:
 the hand-written CUDA kernels on CUDA tensors, their plain versions on
 CPU tensors.
+
+Each phase runs inside its span (:func:`repro_torch.obs.span`:
+``drim.cl``, ``drim.rc``, ``drim.lc``, ``drim.gather``, ``drim.dc``,
+``drim.ts``), and DC counts the rows it scans (``dc.rows_scanned``).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.adc import (QuantizedLUT, adc_distances,
                                   adc_distances_quantized, build_lut_batch,
                                   quantize_lut)
@@ -45,11 +50,13 @@ def cluster_locate(queries: torch.Tensor, centroids: torch.Tensor,
     distance) by shape, and a near-tie at the nprobe-th centroid would
     otherwise let a query's probes depend on the size of its batch; the
     top-nprobe then runs on the real rows only."""
-    q = queries
-    if block is not None:
-        q = torch.nn.functional.pad(queries, (0, 0, 0, block - len(queries)))
-    d = l2_sq(q, centroids)[:len(queries)]
-    dist, idx = torch.topk(d, nprobe, dim=-1, largest=False, sorted=True)
+    with obs.span("drim.cl"):
+        q = queries
+        if block is not None:
+            q = torch.nn.functional.pad(queries,
+                                        (0, 0, 0, block - len(queries)))
+        d = l2_sq(q, centroids)[:len(queries)]
+        dist, idx = torch.topk(d, nprobe, dim=-1, largest=False, sorted=True)
     return idx, dist
 
 
@@ -66,12 +73,14 @@ def cluster_locate_masked(queries: torch.Tensor, centroids: torch.Tensor,
     bit for bit.  When nprobe exceeds a tenant's member count the surplus
     probes fall on disallowed clusters, whose rows the scope mask strikes
     anyway."""
-    q = queries
-    if block is not None:
-        q = torch.nn.functional.pad(queries, (0, 0, 0, block - len(queries)))
-    d = l2_sq(q, centroids)[:len(queries)].masked_fill(~allowed,
-                                                        float("inf"))
-    dist, idx = torch.topk(d, nprobe, dim=-1, largest=False, sorted=True)
+    with obs.span("drim.cl"):
+        q = queries
+        if block is not None:
+            q = torch.nn.functional.pad(queries,
+                                        (0, 0, 0, block - len(queries)))
+        d = l2_sq(q, centroids)[:len(queries)].masked_fill(~allowed,
+                                                            float("inf"))
+        dist, idx = torch.topk(d, nprobe, dim=-1, largest=False, sorted=True)
     return idx, dist
 
 
@@ -91,14 +100,16 @@ def lc(flat_res: torch.Tensor, codebook, params: SearchParams):
     """LC: (T, D) residuals -> (T, M, CB) f32 tables, or a QuantizedLUT
     on the uint8 path; through the LC kernels with ``use_kernels``."""
     quantized = params.lut_dtype == "uint8"
-    if params.use_kernels:
-        from repro_torch.kernels import ops as kops
-        if quantized:                     # LC with fused quantize epilogue
-            return kops.lut_build_q(flat_res, codebook.codebooks,
-                                    codebook.sqnorms)
-        return kops.lut_build(flat_res, codebook.codebooks, codebook.sqnorms)
-    lut = build_lut_batch(codebook, flat_res)
-    return quantize_lut(lut) if quantized else lut
+    with obs.span("drim.lc"):
+        if params.use_kernels:
+            from repro_torch.kernels import ops as kops
+            if quantized:                 # LC with fused quantize epilogue
+                return kops.lut_build_q(flat_res, codebook.codebooks,
+                                        codebook.sqnorms)
+            return kops.lut_build(flat_res, codebook.codebooks,
+                                  codebook.sqnorms)
+        lut = build_lut_batch(codebook, flat_res)
+        return quantize_lut(lut) if quantized else lut
 
 
 def dc_ts(lut, probes: torch.Tensor, clusters: PaddedClusters,
@@ -111,9 +122,10 @@ def dc_ts(lut, probes: torch.Tensor, clusters: PaddedClusters,
     flat_probes = probes.reshape(-1)
     # gather the probed clusters' codes/ids/sizes; codes keep their
     # stored dtype (uint8: 4x fewer gathered bytes than int32)
-    codes = clusters.codes.index_select(0, flat_probes)           # (QcP, C, M)
-    ids = clusters.ids.index_select(0, flat_probes)               # (QcP, C)
-    sizes = clusters.sizes.index_select(0, flat_probes)           # (QcP,)
+    with obs.span("drim.gather"):
+        codes = clusters.codes.index_select(0, flat_probes)       # (QcP, C, M)
+        ids = clusters.ids.index_select(0, flat_probes)           # (QcP, C)
+        sizes = clusters.sizes.index_select(0, flat_probes)       # (QcP,)
     return dc_ts_tasks(lut, codes, ids, sizes, qc, params, mask)
 
 
@@ -131,20 +143,25 @@ def dc_ts_tasks(lut, codes: torch.Tensor, ids: torch.Tensor,
     :class:`repro_torch.core.filter.Scope`'s) runs between DC and TS, and
     the ids of non-finite winners become -1: the reference's scoped
     DC/TS (tenant namespaces and predicate filters)."""
-    if params.use_kernels:
-        from repro_torch.kernels import ops as kops
-        dists = kops.pq_scan_dc(lut, codes, sizes, strategy=params.strategy)
-    elif isinstance(lut, QuantizedLUT):
-        dists = adc_distances_quantized(lut, codes, sizes, params.strategy)
-    else:
-        dists = adc_distances(lut, codes, sizes, params.strategy)
+    obs.count("dc.rows_scanned", codes.shape[0] * codes.shape[1])
+    with obs.span("drim.dc"):
+        if params.use_kernels:
+            from repro_torch.kernels import ops as kops
+            dists = kops.pq_scan_dc(lut, codes, sizes,
+                                    strategy=params.strategy)
+        elif isinstance(lut, QuantizedLUT):
+            dists = adc_distances_quantized(lut, codes, sizes,
+                                            params.strategy)
+        else:
+            dists = adc_distances(lut, codes, sizes, params.strategy)
     # TS: per query over all probed candidates
-    cand_d = dists.reshape(qc, -1)
-    cand_i = ids.reshape(qc, -1)
-    if mask is None:
-        return topk_smallest(cand_d, cand_i, params.k)
-    bd, bi = topk_smallest(mask(cand_d, cand_i), cand_i, params.k)
-    return bd, bi.masked_fill(~torch.isfinite(bd), -1)
+    with obs.span("drim.ts"):
+        cand_d = dists.reshape(qc, -1)
+        cand_i = ids.reshape(qc, -1)
+        if mask is None:
+            return topk_smallest(cand_d, cand_i, params.k)
+        bd, bi = topk_smallest(mask(cand_d, cand_i), cand_i, params.k)
+        return bd, bi.masked_fill(~torch.isfinite(bd), -1)
 
 
 def rc_from_probes(queries: torch.Tensor, centroids: torch.Tensor, rotation,
@@ -152,12 +169,13 @@ def rc_from_probes(queries: torch.Tensor, centroids: torch.Tensor, rotation,
     """RC for probes routed elsewhere (two-level CL, or CL run ahead of
     the chunk): (Qc, D) + (Qc, P) -> flat residuals (Qc*P, D), the same
     arithmetic as :func:`cl_rc`'s."""
-    q = queries.float()
-    residual = q[:, None, :] - centroids[probes]
-    if rotation is not None:
-        ieee_f32_matmul()
-        residual = residual @ rotation
-    return residual.reshape(probes.shape[0] * probes.shape[1], -1)
+    with obs.span("drim.rc"):
+        q = queries.float()
+        residual = q[:, None, :] - centroids[probes]
+        if rotation is not None:
+            ieee_f32_matmul()
+            residual = residual @ rotation
+        return residual.reshape(probes.shape[0] * probes.shape[1], -1)
 
 
 def _search_chunk(queries, centroids, codebook, clusters: PaddedClusters,

@@ -9,16 +9,17 @@ CPU tensor it runs the kernel's plain PyTorch version from
 the plain version.
 
 ``launches`` counts kernel launches per wrapper (plain runs do not
-count), so a run can show which kernels its path went through.
+count), so a run can show which kernels its path went through; it is one
+of :mod:`repro_torch.obs`'s counters.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Optional, Union
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.adc import (QuantizedLUT, check_strategy,
                                   adc_distances, adc_distances_quantized,
                                   build_lut_batch, quantize_lut)
@@ -27,9 +28,11 @@ from repro_torch.core.topk import topk_smallest
 from repro_torch.kernels import _build
 from repro_torch.util import next_pow2
 
-launches = {"lut_build": 0, "lut_build_q": 0, "lut_build_bf16": 0,
-            "pq_scan_dc": 0, "pq_scan_dc_q": 0, "pq_scan_dc_bf16": 0,
-            "pq_scan_topk": 0, "pq_scan_topk_q": 0, "pq_scan_topk_bf16": 0}
+launches = obs.Counters("lut_build", "lut_build_q", "lut_build_bf16",
+                        "pq_scan_dc", "pq_scan_dc_q", "pq_scan_dc_bf16",
+                        "pq_scan_topk", "pq_scan_topk_q", "pq_scan_topk_bf16")
+reset_launches = launches.reset
+_launched = launches.add
 
 # The C entry points' table kinds (csrc/pq_row.cuh) and each kind's
 # launch-counter suffix.
@@ -45,21 +48,6 @@ MAX_K_PAD = 256
 # a bf16 table: the row is the key's low 16 bits, 0xffff its "no row"
 # (kMaxRowsKey32 in csrc/pq_scan_topk.cu).  More rows take 64-bit keys.
 BF16_KEY32_MAX_C = 0xffff
-
-
-# the service's replica workers launch from several threads at once
-_LAUNCHES_LOCK = threading.Lock()
-
-
-def reset_launches() -> None:
-    with _LAUNCHES_LOCK:
-        for name in launches:
-            launches[name] = 0
-
-
-def _launched(name: str) -> None:
-    with _LAUNCHES_LOCK:
-        launches[name] += 1
 
 
 def _check(t: torch.Tensor, what: str, dtypes, ndim: int,

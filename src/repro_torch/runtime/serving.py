@@ -46,6 +46,7 @@ from typing import Callable, List, Optional, Protocol, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.filter import NO_TAG, Scope, VectorMeta
 from repro_torch.core.ivf import IVFPQIndex, PaddedClusters
 from repro_torch.core.search import (SearchParams, cluster_locate,
@@ -124,7 +125,9 @@ class LocalEngine:
     :attr:`phase_s` (``route``, ``observe``, ``rc``, ``lut_scan``,
     ``lut_fill``, ``bank``, ``rc_lc``, ``fetch``, ``dc_ts``; each ends
     where the host next needs the device's result, so device time is
-    inside).
+    inside).  The queries' copy to the device and each copy of results
+    back run in the spans ``drim.engine.h2d`` and ``drim.engine.d2h``
+    (:mod:`repro_torch.obs`); the phases' spans are ``core.search``'s.
 
     Live-index support: ``(index, clusters)`` live in one ``_view`` tuple
     read exactly once per batch, and ``install`` swaps the whole tuple --
@@ -258,9 +261,11 @@ class LocalEngine:
                 or self.coarse is not None):
             return self._search_tasks(queries, n_valid, budget_s, view,
                                       scope)
-        q = torch.from_numpy(queries).to(self.device)
+        with obs.span("drim.engine.h2d"):
+            q = torch.from_numpy(queries).to(self.device)
         d, i = search_ivfpq(view[0], view[1], q, self.params)
-        return d.cpu().numpy(), i.cpu().numpy()
+        with obs.span("drim.engine.d2h"):
+            return d.cpu().numpy(), i.cpu().numpy()
 
     def _make_scope(self, tenants, terms, n: int) -> Optional[Scope]:
         """The batch's :class:`~repro_torch.core.filter.Scope`, or None
@@ -365,7 +370,8 @@ class LocalEngine:
         nq = len(queries)
         nv = nq if n_valid is None else min(n_valid, nq)
         t0 = time.perf_counter()
-        q_all = torch.from_numpy(queries).to(self.device)
+        with obs.span("drim.engine.h2d"):
+            q_all = torch.from_numpy(queries).to(self.device)
         chunks = [(s, q_all[s:s + qc]) for s in range(0, nq, qc)]
         if scope is not None:
             nlist = index.centroids.shape[0]
@@ -375,8 +381,9 @@ class LocalEngine:
                 for s, q in chunks]
         else:
             probes = [self._route(q, index) for _, q in chunks]
-        probes_np = (torch.cat(probes).cpu().numpy() if probes
-                     else np.zeros((0, p.nprobe), np.int64))
+        with obs.span("drim.engine.d2h"):
+            probes_np = (torch.cat(probes).cpu().numpy() if probes
+                         else np.zeros((0, p.nprobe), np.int64))
         t0 = self._clock("route", t0)
         resident_only = False
         if tier is not None:
@@ -400,9 +407,10 @@ class LocalEngine:
             flat_res = rc_from_probes(q, index.centroids, index.rotation, pr)
             if self.lut_cache is not None:    # clocks its own phases
                 self._clock("rc", t0)
-                lut = self._cached_lut(queries[s:s + qc], nv_chunk,
-                                       flat_probes, pr.shape[1], flat_res,
-                                       index, vgen)
+                with obs.span("drim.lc"):
+                    lut = self._cached_lut(queries[s:s + qc], nv_chunk,
+                                           flat_probes, pr.shape[1],
+                                           flat_res, index, vgen)
             else:
                 lut = lc(flat_res, index.codebook, p)
                 t0 = self._clock("rc_lc", t0)
@@ -417,7 +425,8 @@ class LocalEngine:
                 n_dropped += int(dropped[:nv_chunk * pr.shape[1]].sum())
                 t0 = self._clock("fetch", t0)
                 d, i = dc_ts_tasks(lut, codes, ids, sizes, len(q), p, mask)
-            outs.append((d.cpu().numpy(), i.cpu().numpy()))
+            with obs.span("drim.engine.d2h"):
+                outs.append((d.cpu().numpy(), i.cpu().numpy()))
             t0 = self._clock("dc_ts", t0)
         if n_dropped:
             self.last_batch_info = {"degraded": True,

@@ -98,6 +98,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.filter import VectorMeta, pad_terms
 from repro_torch.core.ivf import IVFPQIndex
 from repro_torch.core.mutable_index import Index
@@ -641,19 +642,21 @@ class AnnService:
         that tenant's rows; ``terms`` (u32 tags, OR semantics) keeps rows
         carrying any of them.  Needs a service built with per-vector
         metadata.  Quotas do not apply on this offline path (admission
-        control guards the online submit paths)."""
-        self._check_open()
-        r = self._batch_rr % self.n_replicas
-        self._batch_rr += 1
-        q = np.asarray(queries, np.float32)
-        tid = self._resolve_tenant(tenant)
-        if tid < 0 and not len(tuple(terms)):
-            return self.replicas[r].engine.search_batch(q)
-        tenants_arr = np.full(len(q), tid, np.int32)
-        terms_arr = pad_terms([tuple(terms)] * len(q),
-                              self.spec.filter_width)
-        return self.replicas[r].engine.search_batch(
-            q, tenants=tenants_arr, terms=terms_arr)
+        control guards the online submit paths).  The call runs in the
+        span ``drim.service.search`` (:mod:`repro_torch.obs`)."""
+        with obs.span("drim.service.search"):
+            self._check_open()
+            r = self._batch_rr % self.n_replicas
+            self._batch_rr += 1
+            q = np.asarray(queries, np.float32)
+            tid = self._resolve_tenant(tenant)
+            if tid < 0 and not len(tuple(terms)):
+                return self.replicas[r].engine.search_batch(q)
+            tenants_arr = np.full(len(q), tid, np.int32)
+            terms_arr = pad_terms([tuple(terms)] * len(q),
+                                  self.spec.filter_width)
+            return self.replicas[r].engine.search_batch(
+                q, tenants=tenants_arr, terms=terms_arr)
 
     # -- async request lifecycle --------------------------------------------
     def _route_and_submit(self, query, now: float, executor: bool,
