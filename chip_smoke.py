@@ -591,20 +591,33 @@ def check_lut_bf16(ops, adc, res, books, sqn, where: str, chunk: int = 0):
     return got, err
 
 
-def check_scan(ops, plain_f32, plain_u8, lut, q, codes, sizes, where: str):
+def check_scan(ops, plain_f32, plain_u8, lut, q, codes, sizes, where: str,
+               slots=None):
     """C on the f32 table ``lut`` (C-bf16 on a bf16 one) and D on the
     QuantizedLUT ``q`` (either may be None) against their plain versions,
     with and without sizes; a bf16 table by the bf16 rule, at least 99%
-    of the distances bit-equal."""
+    of the distances bit-equal.  With ``slots`` the kernels run by slot
+    (codes and sizes are P slots, sizes required) and are held to the
+    plain version on ``gather_slots``' copy, and bit for bit to their
+    dense launch on that copy."""
     errs = {}
+    if slots is not None:
+        gcodes, _, gsizes = ops.gather_slots(codes, None, sizes, slots)
     for table, plain in ((lut, plain_f32), (q, plain_u8)):
         if table is None:
             continue
         name = "pq_scan_dc" + ops.KIND_SUFFIX[ops.table_kind(table)]
         rtol, atol = tol_of(ops, table)
-        for sz in (sizes, None):
-            got = ops.pq_scan_dc(table, codes, sz)
-            want = plain(table, codes, sz)
+        for sz in ((sizes, None) if slots is None else (sizes,)):
+            if slots is None:
+                got = ops.pq_scan_dc(table, codes, sz)
+                want = plain(table, codes, sz)
+            else:
+                got = ops.pq_scan_dc(table, codes, sz, slots=slots)
+                want = plain(table, gcodes, gsizes)
+                check(torch.equal(got, ops.pq_scan_dc(table, gcodes, gsizes)),
+                      f"{name} {where}: by slot differs from the dense "
+                      f"launch on the gathered copy")
             torch.cuda.synchronize()
             fin = torch.isfinite(want)
             check(torch.equal(fin, torch.isfinite(got)),
@@ -617,8 +630,8 @@ def check_scan(ops, plain_f32, plain_u8, lut, q, codes, sizes, where: str):
                 check(eq >= 0.99, f"{name} {where}: only {eq:.4f} of the "
                                   f"distances bit-equal to plain")
             errs[name] = max(errs.get(name, 0.0), e)
-    log(f"  {where}: " + ", ".join(f"{name} max|err| {e:.3e}"
-                                   for name, e in errs.items()))
+    log(f"  {where}{'' if slots is None else ' (slots)'}: " + ", ".join(
+        f"{name} max|err| {e:.3e}" for name, e in errs.items()))
     return errs
 
 
@@ -770,15 +783,24 @@ def ragged_checks(ops, ref, adc):
         ragged_topk_checks(ops, lut, q, codes, where, g)
 
 
-def main_shape_report(ops, ref, adc, res, books, sqn, codes, sizes,
-                      launches):
-    """The main path's first chunk: check, time and bound each kernel."""
+def main_shape_report(ops, ref, adc, res, books, sqn, slot_codes,
+                      slot_sizes, slots, launches, slot_launches):
+    """The main path's first chunk: check, time and bound each kernel.
+    C and D run there by slot (task t scans cluster ``slots[t]`` of the
+    padded clusters ``slot_codes``, ``slot_sizes`` in place): their rows
+    time the dense form on ``gather_slots``' copy and, under ``by_slot``,
+    the form the main path launches, with its ``slot_launches``."""
+    codes, _, sizes = ops.gather_slots(slot_codes, None, slot_sizes, slots)
     t, c = codes.shape[0], codes.shape[1]
     dsub = books.shape[2]
     lut, q, err_a, err_b = check_lut(ops, ref, adc, res, books, sqn,
                                      f"main path T={t} C={c}")
     errs = check_scan(ops, adc.adc_distances, adc.adc_distances_quantized,
                       lut, q, codes, sizes, f"main path T={t} C={c}")
+    slot_errs = check_scan(ops, adc.adc_distances,
+                           adc.adc_distances_quantized, lut, q, slot_codes,
+                           slot_sizes, f"main path T={t} "
+                           f"P={slot_codes.shape[0]} C={c}", slots)
     valid = int(sizes.clamp(max=c).sum())
     from repro_torch.core.pq import PQCodebook
     cbk = PQCodebook(books, sqn)
@@ -811,6 +833,17 @@ def main_shape_report(ops, ref, adc, res, books, sqn, codes, sizes,
             + valid * M * codes.element_size() + t * 4 + t * c * 4,
             nops=valid * M * 2 + t * M, err=errs["pq_scan_dc_q"]),
     }
+    by_slot = {
+        "pq_scan_dc": (lambda: ops.pq_scan_dc(lut, slot_codes, slot_sizes,
+                                              slots=slots),
+                       lambda: adc.adc_distances(lut, *ops.gather_slots(
+                           slot_codes, None, slot_sizes, slots)[::2])),
+        "pq_scan_dc_q": (lambda: ops.pq_scan_dc(q, slot_codes, slot_sizes,
+                                                slots=slots),
+                         lambda: adc.adc_distances_quantized(
+                             q, *ops.gather_slots(slot_codes, None,
+                                                  slot_sizes, slots)[::2])),
+    }
     out = []
     for name, r in rows.items():
         ms = event_ms(r["fn"], reps=20, queued=True)
@@ -829,6 +862,25 @@ def main_shape_report(ops, ref, adc, res, books, sqn, codes, sizes,
         log(f"  {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
             f"plain {plain_ms:.4f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'})")
+        if name not in by_slot:
+            continue
+        fn, plain = by_slot[name]
+        # the dense row's bytes, and the slots
+        nbytes = r["nbytes"] + t * 4
+        ms = event_ms(fn, reps=20, queued=True)
+        plain_ms = event_ms(plain, reps=5, warm=1, queued=True)
+        b_ms, b_by = bound_ms(nbytes, r["nops"])
+        out[-1]["by_slot"] = {
+            "launches": slot_launches[name], "max_abs_err": slot_errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "bytes": nbytes,
+            "ops": r["nops"],
+            "shape": {"T": t, "P": slot_codes.shape[0], "M": M, "CB": CB,
+                      "dsub": dsub, "C": c, "valid_rows": valid}}
+        log(f"  {name} by slot: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+            f"{ms / b_ms:.2f}x; plain on the copy {plain_ms:.4f} ms); "
+            f"T={t} over P={slot_codes.shape[0]} slots, "
+            f"{slot_launches[name]} launches on the local path")
     return out
 
 
@@ -878,9 +930,8 @@ def lut_at_sharded_step(ops, ref, adc, captured) -> dict:
 def phase_breakdown(ops, index, clusters, q, dt: str) -> dict:
     """Device time of each phase of one query chunk, each phase timed
     alone with CUDA events on the chunk's own intermediates (the steps of
-    ``core.search._search_chunk``)."""
+    ``core.search._search_chunk``: DC by slot, no gather)."""
     from repro_torch.core.search import cluster_locate
-    from repro_torch.core.topk import topk_smallest
     qc = q.shape[0]
     probes = cluster_locate(q, index.centroids, NPROBE, block=QUERY_CHUNK)[0]
     flat = probes.reshape(-1)
@@ -888,25 +939,28 @@ def phase_breakdown(ops, index, clusters, q, dt: str) -> dict:
     cb = index.codebook
     lc = ops.lut_build_q if dt == "uint8" else ops.lut_build
     lut = lc(res, cb.codebooks, cb.sqnorms)
-    codes = clusters.codes.index_select(0, flat)
-    sizes = clusters.sizes.index_select(0, flat)
-    ids = clusters.ids.index_select(0, flat)
-    dists = ops.pq_scan_dc(lut, codes, sizes)
-    cand = qc, NPROBE * clusters.cmax
+    slots = flat.int()
+    dists = ops.pq_scan_dc(lut, clusters.codes, clusters.sizes, slots=slots)
+    cmax = clusters.cmax
+
+    def ts():
+        # dc_ts's TS: top-k over the chunk's distances, then each
+        # winner's id by (probe, row) from the padded clusters
+        d, pos = torch.topk(dists.reshape(qc, -1), K, dim=-1,
+                            largest=False, sorted=True)
+        row = probes.gather(1, pos // cmax) * cmax + pos % cmax
+        return d, torch.take(clusters.ids, row)
+
     phases = {
         "CL (GEMM + top-nprobe)": lambda: cluster_locate(
             q, index.centroids, NPROBE, block=QUERY_CHUNK),
         "RC (residuals)": lambda: (q[:, None, :]
                                    - index.centroids[probes]).reshape(
                                        qc * NPROBE, -1),
-        "gather codes/ids/sizes": lambda: (
-            clusters.codes.index_select(0, flat),
-            clusters.ids.index_select(0, flat),
-            clusters.sizes.index_select(0, flat)),
         "LC kernel": lambda: lc(res, cb.codebooks, cb.sqnorms),
-        "DC kernel": lambda: ops.pq_scan_dc(lut, codes, sizes),
-        "TS (torch.topk)": lambda: topk_smallest(dists.reshape(cand),
-                                                 ids.reshape(cand), K),
+        "DC kernel (by slot)": lambda: ops.pq_scan_dc(
+            lut, clusters.codes, clusters.sizes, slots=slots),
+        "TS (torch.topk + ids)": ts,
     }
     return {name: event_ms(fn, reps=10, queued=True)
             for name, fn in phases.items()}
@@ -1110,6 +1164,28 @@ def sharded_step_time(engines, runs, queries) -> None:
 
 MESH_BATCHES = 2               # of the 10 batches of 1,000, per engine, mode
 MESH_FLUSH_TASKS = 256         # the flush batch's task-table width
+
+
+def count_dc_forms(ops, forms: dict):
+    """Wrap DC (C, D, C-bf16) so that ``forms["dense"]`` and
+    ``forms["slots"]`` count each kernel's launches by form.  The wrapped
+    calls launch and count as before.  Returns a function that restores
+    the wrapper."""
+    orig = ops.pq_scan_dc
+    for form in ("dense", "slots"):
+        forms[form] = {"pq_scan_dc" + sfx: 0
+                       for sfx in ops.KIND_SUFFIX.values()}
+
+    def wrapped(lut, codes, sizes=None, **kw):
+        name = "pq_scan_dc" + ops.KIND_SUFFIX[ops.table_kind(lut)]
+        forms["dense" if kw.get("slots") is None else "slots"][name] += 1
+        return orig(lut, codes, sizes, **kw)
+
+    ops.pq_scan_dc = wrapped
+
+    def restore():
+        ops.pq_scan_dc = orig
+    return restore
 
 
 def record_streams(ops, seen: list):
@@ -1481,7 +1557,7 @@ def fused_report(ops, captured, launches) -> list:
 
 
 def bf16_report(ops, adc, res, books, sqn, codes, ids, sizes,
-                captured) -> list:
+                captured, by_slot) -> list:
     """The bf16-table kernels at fixed shapes, held to their plain
     versions, timed and bounded (the table at 2 B an entry): A-bf16 and
     C-bf16 on the main path's first chunk (E-bf16 checked there too, dense),
@@ -1490,7 +1566,9 @@ def bf16_report(ops, adc, res, books, sqn, codes, ids, sizes,
     gathered inputs, on that launch's table cast to bf16 (= A-bf16 of its
     residuals).  Library: ``torch.cdist`` squared, cast, for A-bf16; no one
     call computes C-bf16 or E-bf16.  ``launches`` are D1's, filled in by
-    the caller."""
+    the caller.  ``by_slot`` (the padded clusters' codes and sizes, and the
+    chunk's probes as slots): C-bf16 by slot is held to its plain version
+    and to its dense launch on the copy."""
     from repro_torch.core.pq import PQCodebook
     from repro_torch.core.topk import topk_smallest
     from repro_torch.util import next_pow2
@@ -1500,6 +1578,8 @@ def bf16_report(ops, adc, res, books, sqn, codes, ids, sizes,
     lut, err_a = check_lut_bf16(ops, adc, res, books, sqn, where)
     err_c = check_scan(ops, adc.adc_distances, None, lut, None, codes, sizes,
                        where)["pq_scan_dc_bf16"]
+    check_scan(ops, adc.adc_distances, None, lut, None, *by_slot[:2],
+               f"{where} P={by_slot[0].shape[0]}", by_slot[2])
     check_topk(ops, lut, codes, ids, sizes, K, where)
     cbk = PQCodebook(books, sqn)
     valid = int(sizes.clamp(max=c).sum())
@@ -2889,6 +2969,8 @@ def tenancy_path(ops, index, clusters, points, queries, results, trace,
     def capture(lut, codes, sizes=None, **kw):
         name = ("pq_scan_dc_q" if isinstance(lut, QuantizedLUT)
                 else "pq_scan_dc")
+        check(kw.get("slots") is None, "N2: the scoped sharded step "
+                                       "launched DC by slot (held dense here)")
         captured.setdefault(name, (lut, codes, sizes))
         return launch(lut, codes, sizes, **kw)
 
@@ -3645,7 +3727,8 @@ def _clone(x):
 
 def capture_launches(ops, seen: dict, label: list):
     """Wrap the kernel wrappers so that each kernel's last call with rows
-    per shape, keyed (kernel, M, CB, code dtype[, k]), is copied to
+    per shape, keyed (kernel, M, CB, code dtype[, k for E/F; "dense" or
+    "slots" for C/D]), is copied to
     ``seen`` as (run label, inputs); ``label[0]`` names the run.  The
     wrapped call launches and counts as before.  Returns a function that
     restores the wrappers."""
@@ -3671,9 +3754,11 @@ def capture_launches(ops, seen: dict, label: list):
 
     def dc(lut, codes, sizes=None, **kw):
         sfx, table = table_of(lut)
+        slots = kw.get("slots")
         if table.shape[0]:
-            keep(("pq_scan_dc" + sfx, *table.shape[1:], str(codes.dtype)),
-                 (lut, codes, sizes))
+            keep(("pq_scan_dc" + sfx, *table.shape[1:], str(codes.dtype),
+                  "dense" if slots is None else "slots"),
+                 (lut, codes, sizes, slots))
         return orig["pq_scan_dc"](lut, codes, sizes, **kw)
 
     def topk(lut, codes, ids, sizes, k, **kw):
@@ -3715,12 +3800,15 @@ def check_captured(ops, ref, adc, seen: dict, phase: str = "L1") -> dict:
                                              where)
             out[where] = {"lut_build": err_a, "lut_build_q_counts": count_b}
         elif name.startswith("pq_scan_dc"):
-            lut, codes, sizes = args
-            where += f" T={codes.shape[0]} C={codes.shape[1]} {key[3]}"
+            lut, codes, sizes, slots = args
+            where += (f" T={codes.shape[0]} C={codes.shape[1]} {key[3]}"
+                      if slots is None else
+                      f" T={slots.shape[0]} P={codes.shape[0]} "
+                      f"C={codes.shape[1]} {key[3]} by slot")
             lut, q = (None, lut) if name == "pq_scan_dc_q" else (lut, None)
             out[where] = check_scan(ops, adc.adc_distances,
                                     adc.adc_distances_quantized, lut, q,
-                                    codes, sizes, where)
+                                    codes, sizes, where, slots)
         else:
             lut, codes, ids, sizes, slots = args
             where += f" P={codes.shape[0]} C={codes.shape[1]} {key[3]}"
@@ -5040,6 +5128,8 @@ def main() -> int:
         f"{CFG.tasks_per_shard} -> {TASKS_PER_SHARD} ({N_SHARDS} shards)")
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    local_forms: dict = {}
+    restore_forms = count_dc_forms(ops, local_forms)
 
     t0 = time.perf_counter()
     ds = make_clustered_corpus(args.seed, n, D, n_queries=N_QUERIES,
@@ -5156,6 +5246,13 @@ def main() -> int:
     direct_serving = {"virtual": m, "wall": mw}
     peak = torch.cuda.max_memory_allocated()
     launches = dict(ops.launches)
+    restore_forms()
+    log(f"  DC launches by form: {local_forms}")
+    for name in ("pq_scan_dc", "pq_scan_dc_q"):
+        check(local_forms["dense"][name] == 0
+              and local_forms["slots"][name] == launches[name],
+              f"{name}: the local path launched it dense "
+              f"({local_forms['dense'][name]} of {launches[name]})")
     for clock, mm in direct_serving.items():
         log(f"  serving {mm['requests']} requests in {mm['batches']} "
             f"batches, clock={clock}: p50 {mm['p50_ms']:.3f} ms, p99 "
@@ -5233,9 +5330,9 @@ def main() -> int:
     flat = probes.reshape(-1)
     local_lc = (res.contiguous(), index.codebook.codebooks,
                 index.codebook.sqnorms)
-    rows = main_shape_report(ops, ref, adc, *local_lc,
-                             clusters.codes.index_select(0, flat),
-                             clusters.sizes.index_select(0, flat), total)
+    rows = main_shape_report(ops, ref, adc, *local_lc, clusters.codes,
+                             clusters.sizes, flat.int(), total,
+                             local_forms["slots"])
     log("kernels vs plain, the sharded path's first launches:")
     at_step = lut_at_sharded_step(ops, ref, adc, captured)
     for r in rows:
@@ -5247,7 +5344,8 @@ def main() -> int:
     rows += bf16_report(ops, adc, *local_lc,
                         clusters.codes.index_select(0, flat),
                         clusters.ids.index_select(0, flat),
-                        clusters.sizes.index_select(0, flat), captured)
+                        clusters.sizes.index_select(0, flat), captured,
+                        (clusters.codes, clusters.sizes, flat.int()))
     for r in rows:
         if r["name"] in at_entry:
             r["at_mesh_entry"] = at_entry[r["name"]]

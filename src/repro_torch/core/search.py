@@ -10,9 +10,12 @@
 the hand-written CUDA kernels on CUDA tensors, their plain versions on
 CPU tensors.
 
-Each phase runs inside its span (:func:`repro_torch.obs.span`:
-``drim.cl``, ``drim.rc``, ``drim.lc``, ``drim.gather``, ``drim.dc``,
-``drim.ts``), and DC counts the rows it scans (``dc.rows_scanned``).
+DC reads each probed cluster where it lies in the ``PaddedClusters``
+(by slot); TS looks its winners' ids up.  Each phase runs inside its
+span (:func:`repro_torch.obs.span`: ``drim.cl``, ``drim.rc``,
+``drim.lc``, ``drim.dc``, ``drim.ts``; a scoped chunk adds
+``drim.gather``, the copy of the probed clusters' ids its mask reads),
+and DC counts the rows it scans (``dc.rows_scanned``).
 """
 
 from __future__ import annotations
@@ -117,16 +120,30 @@ def dc_ts(lut, probes: torch.Tensor, clusters: PaddedClusters,
     """DC + TS over one chunk's tables: ``lut`` (Qc*P, M, CB) f32 or a
     (Qc*P,)-batched QuantizedLUT, one row per (query, probe) in
     ``probes`` order -> ((Qc, k) dists, (Qc, k) ids).  ``mask``: as
-    :func:`dc_ts_tasks`'."""
+    :func:`dc_ts_tasks`'.
+
+    DC reads each probed cluster's codes and size where they lie in
+    ``clusters`` (the DC kernels by slot; the plain version from a copy),
+    and TS turns each winner's position back into its id, so the padded
+    rows are never copied.  With ``mask`` the mask reads every
+    candidate's id, so the probed clusters' ids are gathered
+    (``drim.gather``).  The answers are :func:`dc_ts_tasks`' on the
+    gathered codes, ids and sizes, bit for bit."""
     qc, p = probes.shape
+    cmax = clusters.codes.shape[1]
     flat_probes = probes.reshape(-1)
-    # gather the probed clusters' codes/ids/sizes; codes keep their
-    # stored dtype (uint8: 4x fewer gathered bytes than int32)
-    with obs.span("drim.gather"):
-        codes = clusters.codes.index_select(0, flat_probes)       # (QcP, C, M)
-        ids = clusters.ids.index_select(0, flat_probes)           # (QcP, C)
-        sizes = clusters.sizes.index_select(0, flat_probes)       # (QcP,)
-    return dc_ts_tasks(lut, codes, ids, sizes, qc, params, mask)
+    dists = _dc(lut, clusters.codes, clusters.sizes, params,
+                slots=flat_probes)
+    if mask is not None:
+        with obs.span("drim.gather"):
+            ids = clusters.ids.index_select(0, flat_probes)       # (QcP, C)
+        return _ts(dists, ids, qc, params, mask)
+    with obs.span("drim.ts"):
+        d, pos = torch.topk(dists.reshape(qc, -1), params.k, dim=-1,
+                            largest=False, sorted=True)
+        # position -> (probe, row) -> the id stored at that padded row
+        row = probes.gather(1, pos // cmax) * cmax + pos % cmax
+        return d, torch.take(clusters.ids, row)
 
 
 def dc_ts_tasks(lut, codes: torch.Tensor, ids: torch.Tensor,
@@ -135,26 +152,45 @@ def dc_ts_tasks(lut, codes: torch.Tensor, ids: torch.Tensor,
     """DC + TS over pre-gathered task tensors: codes (Qc*P, C, M), ids
     (Qc*P, C), sizes (Qc*P,), one task per (query, probe) in probe order
     -> ((Qc, k) dists, (Qc, k) ids).  The tiered path fetches these rows
-    from its store; bytes equal to ``dc_ts``'s gather give equal
-    results.
+    from its store; bytes equal to the probed clusters' give
+    :func:`dc_ts`'s results.
 
     ``mask`` (a function of the (Qc, P*C) candidate distances and ids
     returning the distances with out-of-scope rows at ``+inf``, e.g. a
     :class:`repro_torch.core.filter.Scope`'s) runs between DC and TS, and
     the ids of non-finite winners become -1: the reference's scoped
     DC/TS (tenant namespaces and predicate filters)."""
-    obs.count("dc.rows_scanned", codes.shape[0] * codes.shape[1])
+    return _ts(_dc(lut, codes, sizes, params), ids, qc, params, mask)
+
+
+def _dc(lut, codes: torch.Tensor, sizes: torch.Tensor, params: SearchParams,
+        slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """DC: a (T, C) row of distances per task, T = len(codes), or with
+    ``slots`` ((T,) probe ids) T = len(slots) and task t scans code slot
+    ``slots[t]`` (one outside the clusters: size 0, as
+    :func:`~repro_torch.kernels.ops.gather_slots` has it for both routes);
+    counts the T * C rows it is launched over."""
+    tasks = codes.shape[0] if slots is None else slots.shape[0]
+    obs.count("dc.rows_scanned", tasks * codes.shape[1])
     with obs.span("drim.dc"):
         if params.use_kernels:
             from repro_torch.kernels import ops as kops
-            dists = kops.pq_scan_dc(lut, codes, sizes,
-                                    strategy=params.strategy)
-        elif isinstance(lut, QuantizedLUT):
-            dists = adc_distances_quantized(lut, codes, sizes,
-                                            params.strategy)
-        else:
-            dists = adc_distances(lut, codes, sizes, params.strategy)
-    # TS: per query over all probed candidates
+            return kops.pq_scan_dc(
+                lut, codes, sizes, strategy=params.strategy,
+                slots=None if slots is None else slots.int())
+        if slots is not None:
+            from repro_torch.kernels.ops import gather_slots
+            codes, _, sizes = gather_slots(codes, None, sizes, slots)
+        if isinstance(lut, QuantizedLUT):
+            return adc_distances_quantized(lut, codes, sizes,
+                                           params.strategy)
+        return adc_distances(lut, codes, sizes, params.strategy)
+
+
+def _ts(dists: torch.Tensor, ids: torch.Tensor, qc: int,
+        params: SearchParams, mask=None):
+    """TS: per query over all its probed candidates, the mask (if any)
+    first; a masked chunk's non-finite winners get id -1."""
     with obs.span("drim.ts"):
         cand_d = dists.reshape(qc, -1)
         cand_i = ids.reshape(qc, -1)

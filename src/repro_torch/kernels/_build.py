@@ -40,9 +40,12 @@ SIGNATURES = {
         "lut_build_error_string": ([_I], ctypes.c_char_p),
     },
     "pq_scan": {
-        "pq_scan_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-        "pq_scan_u8": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-        "pq_scan_bf16": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "pq_scan_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                        _I),
+        "pq_scan_u8": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P], _I),
+        "pq_scan_bf16": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                         _I),
         "pq_scan_smem_bytes": ([_I, _I, _I], _S),
         "pq_scan_error_string": ([_I], ctypes.c_char_p),
     },

@@ -1,5 +1,6 @@
 // One PQ code row against one task's lookup table, shared by the DC
-// kernels (pq_scan.cu) and the fused DC+TS kernels (pq_scan_topk.cu).
+// kernels (pq_scan.cu) and the fused DC+TS kernels (pq_scan_topk.cu), and
+// the slot convention both read code slots by (task_rows).
 //
 // Both score a row by summing its terms in order m = 0..M-1 (row_sum,
 // then the u8 path's bias sum, or the bf16 path's one rounding), so the
@@ -119,6 +120,16 @@ __device__ __forceinline__ float row_dist(const CodeT* row, const Table& tab,
     acc = row_sum<CodeT, kKind>(row, tab, tab.sc, M, CB);
   if constexpr (kKind == kU8) acc += tab.sc[M];
   return acc;
+}
+
+// Task t's slot and its number of valid rows (0: no slot or no rows):
+// slots == NULL reads slot t (the dense form), and a slot outside [0, P)
+// has no rows.
+__device__ __forceinline__ int task_rows(const int* slots, const int* sizes,
+                                         int t, int P, int C, int* slot) {
+  const int s = slots == nullptr ? t : slots[t];
+  *slot = s;
+  return (s >= 0 && s < P) ? max(0, min(sizes[s], C)) : 0;
 }
 
 // Copy n elements of T from device memory into shared memory with the

@@ -269,14 +269,6 @@ __device__ __forceinline__ Key kth(const Key (&v)[KPL], int kp) {
   return __shfl_sync(kAll, v[KPL - 1], 31);
 }
 
-// Task t's slot and its number of valid rows (0: no slot or no rows).
-__device__ __forceinline__ int task_rows(const int* slots, const int* sizes,
-                                         int t, int P, int C, int* slot) {
-  const int s = slots == nullptr ? t : slots[t];
-  *slot = s;
-  return (s >= 0 && s < P) ? max(0, min(sizes[s], C)) : 0;
-}
-
 // From task t on, in steps of the grid, the first task with rows (T if
 // none); the empty tasks passed over are written as (+inf, -1).  Every
 // thread of the block calls it with the same arguments.
@@ -286,7 +278,7 @@ __device__ __forceinline__ int next_task(int t, int T, const int* slots,
                                          int kp, float* out_d, int* out_i,
                                          int* slot, int* rows) {
   for (; t < T; t += gridDim.x) {
-    *rows = task_rows(slots, sizes, t, P, C, slot);
+    *rows = pqrow::task_rows(slots, sizes, t, P, C, slot);
     if (*rows > 0) return t;
     for (int j = threadIdx.x; j < kp; j += kThreads) {
       out_d[(size_t)t * kp + j] = INFINITY;

@@ -209,17 +209,29 @@ def _scan_inputs(lut, codes, sizes, slots=None):
 
 def pq_scan_dc(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
                sizes: Optional[torch.Tensor] = None, *,
-               strategy: str = "gather") -> torch.Tensor:
+               strategy: str = "gather",
+               slots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """DC: (T, M, CB) table x (T, C, M) codes -> (T, C) f32; rows
     ``>= sizes[t]`` are +inf (``sizes`` None: all rows valid).
+
+    ``slots`` ((T,) int32): codes (P, C, M) and sizes (P,), which are then
+    required, are P code slots, and task t reads slot ``slots[t]`` in place
+    (any slot outside [0, P): size 0, all +inf).  The result is that of the
+    dense call on :func:`gather_slots`' copy, which the plain version
+    scans.
 
     ``lut`` is the f32 table, a bf16 table (each row's f32 sum rounded
     once to bf16, :func:`~repro_torch.core.adc.scan_codes`) or a
     :class:`QuantizedLUT` (uint8 path).  Codes are uint8 or int32.
     ``strategy`` names a TPU dataflow and does not change the result."""
     check_strategy(strategy)
-    kind, table, dev, t, _, c, m, cbn = _scan_inputs(lut, codes, sizes)
+    kind, table, dev, t, p, c, m, cbn = _scan_inputs(lut, codes, sizes,
+                                                     slots)
+    if slots is not None and sizes is None:
+        raise ValueError("pq_scan_dc: slots need sizes")
     if not _route(dev):
+        if slots is not None:
+            codes, _, sizes = gather_slots(codes, None, sizes, slots)
         if kind == "u8":
             return adc_distances_quantized(lut, codes, sizes, strategy)
         return adc_distances(lut, codes, sizes, strategy)
@@ -228,32 +240,35 @@ def pq_scan_dc(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
     _smem(name, lib.pq_scan_smem_bytes(_KIND[kind], m, cbn))
     out = torch.empty((t, c), dtype=torch.float32, device=dev)
     sizes_ptr = None if sizes is None else sizes.data_ptr()
+    slots_ptr = None if slots is None else slots.data_ptr()
     code_bytes = codes.element_size()
     with torch.cuda.device(dev):
         if kind == "u8":
             err = lib.pq_scan_u8(table.data_ptr(), lut.scale.data_ptr(),
                                  lut.bias.data_ptr(), codes.data_ptr(),
-                                 sizes_ptr, out.data_ptr(), t, c, m, cbn,
-                                 code_bytes, _stream(dev))
+                                 sizes_ptr, slots_ptr, out.data_ptr(), t, p,
+                                 c, m, cbn, code_bytes, _stream(dev))
         else:
             fn = lib.pq_scan_f32 if kind == "f32" else lib.pq_scan_bf16
             err = fn(table.data_ptr(), codes.data_ptr(), sizes_ptr,
-                     out.data_ptr(), t, c, m, cbn, code_bytes, _stream(dev))
+                     slots_ptr, out.data_ptr(), t, p, c, m, cbn, code_bytes,
+                     _stream(dev))
     _ok(lib, err, name, "pq_scan")
     _launched(name)
     return out
 
 
-def gather_slots(codes: torch.Tensor, ids: torch.Tensor,
+def gather_slots(codes: torch.Tensor, ids: Optional[torch.Tensor],
                  sizes: torch.Tensor, slots: torch.Tensor):
-    """The dense inputs of a slot-form fused call: task t's codes, ids and
-    size are those of slot ``slots[t]`` of the (P, ...) tensors, and a
-    slot outside [0, P) (-1: no task) has size 0, as on the card.  A
-    copy; the kernels read the slots in place."""
+    """The dense inputs of a slot-form call: task t's codes, ids and size
+    are those of slot ``slots[t]`` of the (P, ...) tensors, and a slot
+    outside [0, P) (-1: no task) has size 0, as on the card.  A copy (ids
+    None: none is made of them); the kernels read the slots in place."""
     s = slots.long()
     valid = (s >= 0) & (s < codes.shape[0])
     si = torch.where(valid, s, 0)
-    return (codes.index_select(0, si), ids.index_select(0, si),
+    return (codes.index_select(0, si),
+            None if ids is None else ids.index_select(0, si),
             sizes.index_select(0, si).masked_fill(~valid, 0))
 
 

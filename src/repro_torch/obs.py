@@ -1,7 +1,8 @@
 """The program's spans and counters.
 
-A span marks one phase of the search path (``drim.cl``, ``drim.gather``,
-``drim.ts``, ...) as a ``torch.profiler.record_function`` range, so a
+A span marks one phase of the search path (``drim.cl``, ``drim.dc``,
+``drim.ts``, ...; ``drim.gather`` is a scoped chunk's copy of the probed
+clusters' ids) as a ``torch.profiler.record_function`` range, so a
 profiler trace puts each host range and each device operation it launched
 on one clock.  Tracing is on exactly while a profiler records; otherwise
 :func:`span` hands back one shared no-op context and costs one C call.

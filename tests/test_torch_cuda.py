@@ -133,6 +133,41 @@ def test_scan_kernels_match_plain(cuda, t, m, cb, c, code_dtype, quantized):
     assert torch.isinf(got[0]).all()
 
 
+@pytest.mark.parametrize("p,t,c", [(5, 4, 700), (37, 300, 1029),
+                                   (400, 20000, 300), (96, 2000, 6200)])
+@pytest.mark.parametrize("code_dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("kind", ["f32", "u8", "bf16"])
+def test_scan_kernels_slots_equal_dense(cuda, p, t, c, code_dtype, kind):
+    """C, D and C-bf16 by slot (task t reads code slot slots[t] in place)
+    against the dense kernel on ``gather_slots``' copy, bit for bit:
+    repeated, -1 and out-of-range slots and an empty one; C = 6,200 runs
+    seven blocks of rows a task.  At M = 16 u8 codes both forms take the
+    16-byte row loads."""
+    g = torch.Generator(device=cuda).manual_seed(40)
+    _, _, _, codes, sizes = _mk(40, p, 16, 256, c, 8, code_dtype, cuda)
+    r = torch.randn(t, 16 * 8, device=cuda, generator=g)
+    b = torch.randn(16, 256, 8, device=cuda, generator=g)
+    build = {"f32": ops.lut_build, "u8": ops.lut_build_q,
+             "bf16": ops.lut_build_bf16}[kind]
+    lut = build(r, b, (b * b).sum(-1))
+    slots = torch.randint(0, p, (t,), device=cuda, generator=g,
+                          dtype=torch.int32)
+    slots[0] = -1
+    slots[1] = slots[2]
+    slots[3] = 0                                   # slot 0 has no rows
+    slots[-1] = p                                  # out of range: no task
+    name = "pq_scan_dc" + ops.KIND_SUFFIX[kind]
+    ops.reset_launches()
+    got = ops.pq_scan_dc(lut, codes, sizes, slots=slots)
+    dense = ops.gather_slots(codes, None, sizes, slots)
+    want = ops.pq_scan_dc(lut, dense[0], dense[2])
+    torch.cuda.synchronize()
+    assert ops.launches[name] == 2
+    assert torch.equal(got, want)
+    for task in (0, 3, t - 1):
+        assert torch.isinf(got[task]).all()
+
+
 def _topk_inputs(seed, t, c, code_dtype, quantized, device, m=16, cb=256):
     r, b, s, codes, sizes = _mk(seed, t, m, cb, c, 8, code_dtype, device)
     sizes = torch.minimum(sizes, torch.full_like(sizes, max(c - 1, 0)))

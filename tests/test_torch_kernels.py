@@ -311,6 +311,62 @@ def test_pq_scan_topk_slots_reject_bad_inputs():
         ops.pq_scan_topk(lut, c, i, z, 3)
 
 
+def _task_table(lut, t):
+    """Task t's table alone, as a one-task table of the same kind."""
+    if isinstance(lut, QuantizedLUT):
+        return QuantizedLUT(lut.lut_q[t:t + 1], lut.scale[t:t + 1],
+                            lut.bias[t:t + 1])
+    return lut[t:t + 1]
+
+
+@pytest.mark.parametrize("code_dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("kind", ["f32", "u8", "bf16"])
+def test_pq_scan_dc_slots_equal_dense_on_gathered_copy(code_dtype, kind):
+    """DC's slot form (task t reads code slot slots[t] in place) equals
+    the dense call on ``gather_slots``' copy bit for bit, for f32, u8 and
+    bf16 tables: slots that repeat, are -1, fall past P, or hold no rows.
+    Each task's row also equals a one-task dense call on its own slot."""
+    p, t, m, cb, c = 5, 12, 8, 64, 300
+    res, books, sqn, codes, _, sizes, slots = _slot_inputs(
+        40, p, t, m, cb, c, code_dtype)
+    slots[7] = -3
+    build = {"f32": ops.lut_build, "u8": ops.lut_build_q,
+             "bf16": ops.lut_build_bf16}[kind]
+    lut = build(*_t(res, books, sqn))
+    tc, tz, ts = _t(codes, sizes, slots)
+    got = ops.pq_scan_dc(lut, tc, tz, slots=ts)
+    assert got.shape == (t, c) and got.dtype == torch.float32
+    dc, none, dz = ops.gather_slots(tc, None, tz, ts)
+    assert none is None
+    assert torch.equal(got, ops.pq_scan_dc(lut, dc, dz))
+    for task, slot in enumerate(slots.tolist()):
+        if 0 <= slot < p:
+            want = ops.pq_scan_dc(_task_table(lut, task), tc[slot:slot + 1],
+                                  tz[slot:slot + 1])[0]
+            assert torch.equal(got[task], want), task
+        else:
+            assert bool(torch.isinf(got[task]).all()), task
+    assert bool(torch.isinf(got[4]).all())        # the empty slot
+
+
+def test_pq_scan_dc_slots_reject_bad_inputs():
+    res, books, sqn, codes, _, sizes, slots = _slot_inputs(
+        41, 4, 6, 4, 16, 32, np.uint8)
+    lut = ops.lut_build(*_t(res, books, sqn))
+    c, z, sl = _t(codes, sizes, slots)
+    assert ops.pq_scan_dc(lut, c, z, slots=sl).shape == (6, 32)
+    with pytest.raises(TypeError):                 # slots: int32
+        ops.pq_scan_dc(lut, c, z, slots=sl.long())
+    with pytest.raises(ValueError):                # slots: (T,)
+        ops.pq_scan_dc(lut, c, z, slots=sl.view(2, 3))
+    with pytest.raises(ValueError):                # one table per task
+        ops.pq_scan_dc(lut, c, z, slots=sl[:-1].contiguous())
+    with pytest.raises(ValueError):                # sizes: one per slot
+        ops.pq_scan_dc(lut, c, z[:-1].contiguous(), slots=sl)
+    with pytest.raises(ValueError):                # slots need sizes
+        ops.pq_scan_dc(lut, c, None, slots=sl)
+
+
 def test_wrappers_reject_bad_inputs():
     res, books, sqn, codes, sizes = _mk(5, 4, 4, 16, 32, 2)
     r, b, s, c, z = _t(res, books, sqn, codes, sizes)

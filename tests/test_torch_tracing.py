@@ -2,8 +2,10 @@
 profiler range only while a profiler records; ``AnnService.search`` on
 the plain and the cached path shows each phase's span once a chunk, in
 the paper's order, inside one ``drim.service.search``, with CL's and TS's
-top-k and the gather of codes inside their own spans; tracing changes no
-answer; DC counts the rows it scans, padding included."""
+top-k inside their own spans and no copy of the padded codes in
+``drim.gather`` (DC reads the probed clusters in place; the plain
+version's copy lies inside ``drim.dc``); tracing changes no answer; DC
+counts the rows it scans, padding included."""
 
 import contextlib
 
@@ -19,8 +21,7 @@ from repro_torch.service import AnnService, ServiceSpec
 
 N_QUERIES = 600                   # three chunks of 256, the last partial
 NPROBE = 4
-PHASES = ("drim.cl", "drim.rc", "drim.lc", "drim.gather", "drim.dc",
-          "drim.ts")
+PHASES = ("drim.cl", "drim.rc", "drim.lc", "drim.dc", "drim.ts")
 PATHS = {"plain": {}, "cached": {"cache_capacity": 4096}}
 
 
@@ -96,7 +97,8 @@ def test_phases_once_a_chunk_in_order_inside_the_service_span(svc, path,
     outer = [e for e in drim if e.name() == "drim.service.search"]
     assert len(outer) == 1
     assert all(_inside(e, outer[0]) for e in drim)
-    phases = [e.name() for e in drim if e.name() in PHASES]
+    phases = [e.name() for e in drim
+              if e.name() in PHASES + ("drim.gather",)]
     chunks = -(-N_QUERIES // 256)
     if path == "plain":
         assert phases == list(PHASES) * chunks
@@ -104,7 +106,8 @@ def test_phases_once_a_chunk_in_order_inside_the_service_span(svc, path,
         assert phases == ["drim.cl"] * chunks + list(PHASES[1:]) * chunks
     names = [e.name() for e in drim]
     assert "drim.engine.h2d" in names and "drim.engine.d2h" in names
-    spans = {n: [e for e in drim if e.name() == n] for n in PHASES}
+    spans = {n: [e for e in drim if e.name() == n]
+             for n in PHASES + ("drim.gather",)}
     topks = [e for e in events if e.name() == "aten::topk"]
     assert topks
     for e in topks:
@@ -114,7 +117,8 @@ def test_phases_once_a_chunk_in_order_inside_the_service_span(svc, path,
                and list(e.shapes()[0]) == list(codes.shape)]
     assert len(gathers) == chunks
     for e in gathers:
-        assert any(_inside(e, s) for s in spans["drim.gather"])
+        assert not any(_inside(e, s) for s in spans["drim.gather"])
+        assert any(_inside(e, s) for s in spans["drim.dc"])
 
 
 def test_answers_equal_with_the_profiler_on_and_off(svc, corpus):
