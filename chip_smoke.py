@@ -358,6 +358,19 @@ BF16_KERNELS = {
                           "src/repro/kernels/pq_scan.py:214"),
 }
 BF16_COMPUTES = "src/repro/core/sharded_search.py:201"   # lut_dtype=bf16
+# TS by slot: the counter -> (route source, what it replaces: no Pallas
+# kernel; the reference's TS is jax.lax.top_k, which XLA runs).
+TS_KERNEL = {"ts_topk": ("src/repro_torch/kernels/csrc/ts_topk.cu",
+                         "none (jax.lax.top_k in topk_smallest, "
+                         "src/repro/core/topk.py:19)")}
+# The benchmark's chunk (annbench's cells): 256 queries x 96 probes of
+# C = 6,200 rows over 65,536 clusters holding 1e8 rows, sizes log-normal
+# of spread 0.337.
+TS_CELL = {"qc": 256, "p": 96, "c": 6200, "nslots": 65536, "n": 10 ** 8,
+           "spread": 0.337}
+# The kernels a phase's launch counts cover (TS by slot runs wherever a
+# local engine searches unscoped, but on no path's every phase).
+COUNTED = (*KERNELS, *TS_KERNEL)
 BF16_RTOL = 2.0 ** -8          # the bf16 rule: within 2^-8 of the value
 SERVICE_BUCKETS = (1, 2, 4, 8, 16, 32)
 
@@ -682,6 +695,132 @@ def check_topk(ops, lut, codes, ids, sizes, k: int, where: str,
     check(bad == 0, f"{what}: ids differ on {bad} tasks beyond k-th-place "
                     f"ties")
     return err
+
+
+def ts_by_position(dists, slots, ids, qc: int, k: int):
+    """TS's exact answer: each query's rows sorted stably by distance (ties
+    by the lower position probe * C + row), the first k with their ids;
+    a padded row's id is -1, as is every row of a slot outside [0,
+    nslots)."""
+    nslots, c = ids.shape
+    d, pos = torch.sort(dists.reshape(qc, -1), dim=-1, stable=True)
+    d, pos = d[:, :k], pos[:, :k]
+    s = slots.long().reshape(qc, -1).gather(1, pos // c)
+    valid = (s >= 0) & (s < nslots)
+    i = torch.take(ids, torch.where(valid, s, 0) * c + pos % c)
+    return d, i.masked_fill(~valid, -1)
+
+
+def check_ts(ops, dists, slots, sizes, ids, qc: int, k: int,
+             where: str) -> int:
+    """TS by slot against its plain route (``torch.topk`` and the id
+    lookup): distances bit for bit, ids equal beyond ties at the k-th
+    place; bit for bit the stable (distance, position) sort's first k;
+    and the same answers with every padded entry of ``dists`` (+inf from
+    DC) at -1.0, so no padded row is read.  Returns the queries whose ids
+    differ from the plain route's in the order of equal distances
+    alone."""
+    gd, gi = ops.ts_topk(dists, slots, sizes, ids, qc, k)
+    pd, pi = ops.ts_topk_plain(dists, slots, ids, qc, k)
+    sd, si = ts_by_position(dists, slots, ids, qc, k)
+    xd, xi = ops.ts_topk(dists.masked_fill(torch.isinf(dists), -1.0), slots,
+                         sizes, ids, qc, k)
+    torch.cuda.synchronize()
+    what = f"ts_topk {where} k={k}"
+    check(torch.equal(gd, sd) and torch.equal(gi, si),
+          f"{what}: differs from the (distance, position) sort")
+    check(torch.equal(gd, pd), f"{what}: distances differ from the plain "
+                               f"route's")
+    check(torch.equal(xd, gd) and torch.equal(xi, gi),
+          f"{what}: the answers move when the padded rows are poisoned")
+    gd, gi, pi = (x.cpu().numpy() for x in (gd, gi, pi))
+    bad = tie_diff_rows(gd, gi, gd, pi, 0.0, 0.0)
+    check(bad == 0, f"{what}: ids differ from the plain route's on {bad} "
+                    f"queries beyond k-th-place ties")
+    return int((gi != pi).any(axis=1).sum())
+
+
+def ts_inputs_at_cell(seed: int):
+    """TS by slot's inputs at the benchmark's chunk (TS_CELL): DC's
+    output over random probes, real rows uniform, +inf past each size;
+    sizes log-normal around n / nslots rows, clamped to C."""
+    qc, p, c, nslots = (TS_CELL[x] for x in ("qc", "p", "c", "nslots"))
+    spread = TS_CELL["spread"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    z = torch.randn(nslots, device="cuda", generator=g)
+    sizes = (TS_CELL["n"] / nslots * torch.exp(spread * z - spread ** 2 / 2)
+             ).clamp(max=c).int()
+    row = torch.arange(c, device="cuda")
+    ids = (torch.arange(nslots, device="cuda")[:, None] * c + row).int()
+    ids.masked_fill_(row[None, :] >= sizes[:, None], -1)
+    slots = torch.randint(0, nslots, (qc * p,), device="cuda", generator=g,
+                          dtype=torch.int32)
+    dists = torch.rand((qc * p, c), device="cuda", generator=g) * 1e5
+    dists.masked_fill_(row[None, :] >= sizes[slots.long()][:, None],
+                       float("inf"))
+    return dists, slots, sizes, ids, qc
+
+
+def ts_row(ops, dists, slots, sizes, ids, qc: int, k: int, where: str,
+           launches: int) -> dict:
+    """Check TS by slot on these inputs (check_ts), then time it (mean of
+    20 warm launches), its plain route and ``torch.topk`` with the id
+    lookup (the code the kernel replaced: ``library_ms``), beside its
+    bytes bound: the real rows' distances once, a slot and a size a task,
+    the winners' ids, the (qc, k) distances and ids out."""
+    t, c = dists.shape
+    p = t // qc
+    tie_rows = check_ts(ops, dists, slots, sizes, ids, qc, k, where)
+    s = slots.long()
+    valid = (s >= 0) & (s < sizes.shape[0])
+    real = int(torch.where(valid, sizes[s.clamp(0, sizes.shape[0] - 1)],
+                           0).clamp(0, c).sum())
+    nbytes = real * 4 + t * 8 + qc * k * 12
+    probes = s.reshape(qc, p)
+
+    def library():
+        d, pos = torch.topk(dists.reshape(qc, -1), k, dim=-1, largest=False,
+                            sorted=True)
+        return d, torch.take(ids, probes.gather(1, pos // c) * c + pos % c)
+
+    ms = event_ms(lambda: ops.ts_topk(dists, slots, sizes, ids, qc, k),
+                  reps=20, queued=True)
+    plain_ms = event_ms(lambda: ops.ts_topk_plain(dists, slots, ids, qc, k),
+                        reps=5, warm=1, queued=True)
+    lib_ms = event_ms(library, reps=20, queued=True)
+    b_ms, b_by = bound_ms(nbytes, real)
+    log(f"  ts_topk {where}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+        f"{ms / b_ms:.2f}x; plain {plain_ms:.4f} ms, library (torch.topk + "
+        f"the lookup) {lib_ms:.4f} ms); qc={qc} P={p} C={c} k={k}, "
+        f"{real} real rows, ids in tie order apart on {tie_rows} queries")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "bytes": nbytes,
+            "ops": real, "max_abs_err": 0.0, "tie_order_rows": tie_rows,
+            "launches": launches,
+            "shape": {"qc": qc, "P": p, "C": c, "k": k, "real_rows": real}}
+
+
+def ts_report(ops, lut, slot_codes, slot_sizes, slot_ids, slots, qc: int,
+              launches: int, seed: int) -> dict:
+    """TS by slot's row of the kernel table: at the main path's first
+    chunk (C by slot's output on ``lut``) and at the benchmark's chunk
+    (ts_inputs_at_cell), k = K; k = 1 and 256 checked at the first."""
+    dists = ops.pq_scan_dc(lut, slot_codes, slot_sizes, slots=slots)
+    for k in (1, 256):
+        check_ts(ops, dists, slots, slot_sizes, slot_ids, qc, k,
+                 "main path first chunk")
+    src, replaces = TS_KERNEL["ts_topk"]
+    row = {"name": "ts_topk", "route": "cuda", "source": src,
+           "replaces": replaces}
+    row.update(ts_row(ops, dists, slots, slot_sizes, slot_ids, qc, K,
+                      "main path first chunk", launches))
+    del dists
+    cell = ts_inputs_at_cell(seed)
+    row["at_benchmark_chunk"] = ts_row(ops, *cell[:4], cell[4], K,
+                                       "at the benchmark's chunk", 0)
+    del cell
+    torch.cuda.empty_cache()
+    return row
 
 
 def ragged_topk_checks(ops, lut, q, codes, where: str, g) -> None:
@@ -3258,7 +3397,7 @@ def chaos_path(ops, ref, adc, index, clusters, points, queries,
     log(f"  padded clusters {total} B; {drawn.size} distinct queries "
         f"drawn; {free / 2**30:.2f} GiB free under {TIER_DIR}")
     out: dict = {}
-    counts = {name: 0 for name in KERNELS}
+    counts = {name: 0 for name in COUNTED}
     try:
         for label, dt, skew, share, margin in CHAOS_RUNS:
             past = share > 4
@@ -3278,7 +3417,7 @@ def chaos_path(ops, ref, adc, index, clusters, points, queries,
                       else ("lut_build", "pq_scan_dc"))
             check(run_launches[lc] > 0 and run_launches[dc] > 0,
                   f"X {label}: {lc} / {dc} never launched: {run_launches}")
-            for name in KERNELS:
+            for name in COUNTED:
                 counts[name] += run_launches[name]
             check(list(TIER_DIR.iterdir()) == [],
                   f"X {label}: spills left under {TIER_DIR}")
@@ -3399,7 +3538,7 @@ def autotune_path(ops, ref, adc, seed: int, device: str = "cuda"):
     space = TuneSpace(**U_SPACE)
     log(f"  corpus {t_corpus:.1f} s")
     out = {"corpus_s": t_corpus}
-    counts = {name: 0 for name in KERNELS}
+    counts = {name: 0 for name in COUNTED}
     for run, (recall, p99) in U_SLOS.items():
         slo = SLO(recall_at_k=recall, p99_ms=p99)
         ops.reset_launches()
@@ -3494,7 +3633,7 @@ def autotune_path(ops, ref, adc, seed: int, device: str = "cuda"):
         log(f"kernels vs plain, the tuner's builds ({run} SLO):")
         rep["kernel_checks"] = tuner_kernel_checks(
             ops, ref, adc, res.indexes, frontier, ds.queries)
-        for name in KERNELS:
+        for name in COUNTED:
             counts[name] += run_launches[name]
         out[run] = rep
         del svc, res
@@ -3728,13 +3867,13 @@ def _clone(x):
 def capture_launches(ops, seen: dict, label: list):
     """Wrap the kernel wrappers so that each kernel's last call with rows
     per shape, keyed (kernel, M, CB, code dtype[, k for E/F; "dense" or
-    "slots" for C/D]), is copied to
+    "slots" for C/D]; TS by slot: ("ts_topk", P, C, k)), is copied to
     ``seen`` as (run label, inputs); ``label[0]`` names the run.  The
     wrapped call launches and counts as before.  Returns a function that
     restores the wrappers."""
     from repro_torch.core.adc import QuantizedLUT
     names = ("lut_build", "lut_build_q", "lut_build_bf16", "pq_scan_dc",
-             "pq_scan_topk")
+             "pq_scan_topk", "ts_topk")
     orig = {n: getattr(ops, n) for n in names}
 
     def keep(key, args):
@@ -3768,9 +3907,15 @@ def capture_launches(ops, seen: dict, label: list):
                   k), (lut, codes, ids, sizes, kw.get("slots")))
         return orig["pq_scan_topk"](lut, codes, ids, sizes, k, **kw)
 
+    def ts(dists, slots, sizes, ids, qc, k):
+        if dists.shape[0]:
+            keep(("ts_topk", dists.shape[0] // qc, dists.shape[1], k),
+                 (dists, slots, sizes, ids))
+        return orig["ts_topk"](dists, slots, sizes, ids, qc, k)
+
     ops.lut_build, ops.lut_build_q = lc("lut_build"), lc("lut_build_q")
     ops.lut_build_bf16 = lc("lut_build_bf16")
-    ops.pq_scan_dc, ops.pq_scan_topk = dc, topk
+    ops.pq_scan_dc, ops.pq_scan_topk, ops.ts_topk = dc, topk, ts
 
     def restore():
         for n, f in orig.items():
@@ -3781,10 +3926,18 @@ def capture_launches(ops, seen: dict, label: list):
 def check_captured(ops, ref, adc, seen: dict, phase: str = "L1") -> dict:
     """Each captured launch's inputs through its kernel again, held to the
     plain version: A and B with check_lut, A-bf16 with check_lut_bf16, C,
-    D or C-bf16 with check_scan, E, F or E-bf16 with check_topk.  Returns
-    {where: max errors}."""
+    D or C-bf16 with check_scan, E, F or E-bf16 with check_topk, TS by
+    slot with check_ts.  Returns {where: max errors}."""
     out = {}
     for key, (label, args) in sorted(seen.items(), key=str):
+        if key[0] == "ts_topk":
+            dists, slots, sizes, ids = args
+            qc = dists.shape[0] // key[1]
+            where = (f"{phase} {label}: ts_topk qc={qc} P={key[1]} "
+                     f"C={key[2]}")
+            check_ts(ops, dists, slots, sizes, ids, qc, key[3], where)
+            out[where] = {"ts_topk": 0.0}
+            continue
         name, m, cb = key[:3]
         where = f"{phase} {label}: {name} M={m} CB={cb}"
         if name == "lut_build_bf16":
@@ -3847,7 +4000,7 @@ def entry_points_path(ops, ref, adc, device: str = "cuda"):
             ("serve --ann --spec (sharded, uint8) --clock wall",
              ["--ann", "--spec", str(path), "--clock", "wall"], "sharded"),
             ("serve --ann --autotune", ["--ann", "--autotune"], "local"))
-    counts = {name: 0 for name in KERNELS}
+    counts = {name: 0 for name in COUNTED}
     out = {}
     seen, label = {}, [None]
     restore = capture_launches(ops, seen, label)
@@ -3877,7 +4030,7 @@ def entry_points_path(ops, ref, adc, device: str = "cuda"):
                       and tie_diff_rows(got_d, got_i, d, i, 1e-5, 1e-5) == 0,
                       f"L1 {label[0]}: served != svc.search")
             check(len(reqs) == 64, f"L1 {label[0]}: served {len(reqs)}")
-            for name in KERNELS:
+            for name in COUNTED:
                 counts[name] += launched[name]
             out[label[0]] = {"secs": secs, "launches": launched}
             log(f"  L1 {label[0]}: served == direct, {secs:.2f} s, "
@@ -3889,7 +4042,7 @@ def entry_points_path(ops, ref, adc, device: str = "cuda"):
             res = _load_example(label[0]).main(["--device", device])
             secs = time.perf_counter() - t0
             launched = dict(ops.launches)
-            for k in KERNELS:
+            for k in COUNTED:
                 counts[k] += launched[k]
             out[label[0]] = {"secs": secs, "result": res,
                              "launches": launched}
@@ -3911,8 +4064,8 @@ def entry_points_path(ops, ref, adc, device: str = "cuda"):
     log(f"kernels vs plain, the {len(seen)} launch shapes of L1:")
     out["kernel_checks"] = check_captured(ops, ref, adc, seen)
     held = {key[0] for key in seen}
-    check(held >= {k for k in KERNELS if counts[k]},
-          f"L1: launched {sorted(k for k in KERNELS if counts[k])} but held "
+    check(held >= {k for k in COUNTED if counts[k]},
+          f"L1: launched {sorted(k for k in COUNTED if counts[k])} but held "
           f"only {sorted(held)} to plain")
     return out, counts
 
@@ -3950,7 +4103,7 @@ def variants_path(ops, ref, adc, index, clusters, points, queries,
     v2 = multiplierless_path(ops, index, clusters, probes, res,
                              results["f32"][1][:QUERY_CHUNK])
     l1, l1_launches = entry_points_path(ops, ref, adc)
-    counts = {k: v1_launches[k] + l1_launches[k] for k in KERNELS}
+    counts = {k: v1_launches[k] + l1_launches[k] for k in COUNTED}
     run = {"V1": v1, "V2": v2, "L1": l1, "launches": counts,
            "secs": time.perf_counter() - t0,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -4401,7 +4554,7 @@ def lm_path(ops, ref, adc, seed: int, device: str = "cuda",
     log(f"kernels vs plain, the {len(seen)} launch shapes of LM3:")
     lm3["kernel_checks"] = check_captured(ops, ref, adc, seen, phase="LM3")
     held = {key[0] for key in seen}
-    launched = {k for k in KERNELS if launches[k]}
+    launched = {k for k in COUNTED if launches[k]}
     check(held >= launched, f"LM3: launched {sorted(launched)} but held "
                             f"only {sorted(held)} to plain")
     run = {"LM1": lm1, "LM2": lm2, "LM3": lm3, "launches": launches,
@@ -5253,6 +5406,12 @@ def main() -> int:
               and local_forms["slots"][name] == launches[name],
               f"{name}: the local path launched it dense "
               f"({local_forms['dense'][name]} of {launches[name]})")
+    # every local chunk is unscoped at k <= 256: one TS by slot a chunk
+    chunks = local_forms["slots"]["pq_scan_dc"] + \
+        local_forms["slots"]["pq_scan_dc_q"]
+    check(launches["ts_topk"] == chunks,
+          f"ts_topk: {launches['ts_topk']} launches on the local path, "
+          f"{chunks} chunks")
     for clock, mm in direct_serving.items():
         log(f"  serving {mm['requests']} requests in {mm['batches']} "
             f"batches, clock={clock}: p50 {mm['p50_ms']:.3f} ms, p99 "
@@ -5333,6 +5492,11 @@ def main() -> int:
     rows = main_shape_report(ops, ref, adc, *local_lc, clusters.codes,
                              clusters.sizes, flat.int(), total,
                              local_forms["slots"])
+    log("TS by slot vs plain, at the first chunk's and the benchmark's "
+        "chunk:")
+    rows.append(ts_report(ops, ops.lut_build(*local_lc), clusters.codes,
+                          clusters.sizes, clusters.ids, flat.int(),
+                          QUERY_CHUNK, launches["ts_topk"], args.seed))
     log("kernels vs plain, the sharded path's first launches:")
     at_step = lut_at_sharded_step(ops, ref, adc, captured)
     for r in rows:

@@ -4,9 +4,9 @@
     RC  residual computation  q - centroid[probe]
     LC  LUT construction      build_lut_batch (or the lut_build kernel)
     DC  distance calculation  adc scan (or the pq_scan kernel)
-    TS  top-k sorting         torch.topk
+    TS  top-k sorting         torch.topk (or the ts_topk kernel)
 
-``use_kernels=True`` routes LC/DC through ``repro_torch.kernels.ops``:
+``use_kernels=True`` routes LC/DC/TS through ``repro_torch.kernels.ops``:
 the hand-written CUDA kernels on CUDA tensors, their plain versions on
 CPU tensors.
 
@@ -125,25 +125,27 @@ def dc_ts(lut, probes: torch.Tensor, clusters: PaddedClusters,
     DC reads each probed cluster's codes and size where they lie in
     ``clusters`` (the DC kernels by slot; the plain version from a copy),
     and TS turns each winner's position back into its id, so the padded
-    rows are never copied.  With ``mask`` the mask reads every
-    candidate's id, so the probed clusters' ids are gathered
-    (``drim.gather``).  The answers are :func:`dc_ts_tasks`' on the
+    rows are never copied.  With ``use_kernels`` and k <= ``MAX_K_PAD``
+    (256) TS is :func:`~repro_torch.kernels.ops.ts_topk`, which on the
+    card reads only each task's real rows; otherwise (a larger k too) it
+    is its plain version, ``torch.topk`` over every row.  With ``mask``
+    the mask reads every candidate's id, so the probed clusters' ids are
+    gathered (``drim.gather``).  The answers are :func:`dc_ts_tasks`' on the
     gathered codes, ids and sizes, bit for bit."""
-    qc, p = probes.shape
-    cmax = clusters.codes.shape[1]
+    from repro_torch.kernels import ops as kops
+    qc = probes.shape[0]
     flat_probes = probes.reshape(-1)
-    dists = _dc(lut, clusters.codes, clusters.sizes, params,
-                slots=flat_probes)
+    slots = flat_probes.int()
+    dists = _dc(lut, clusters.codes, clusters.sizes, params, slots=slots)
     if mask is not None:
         with obs.span("drim.gather"):
             ids = clusters.ids.index_select(0, flat_probes)       # (QcP, C)
         return _ts(dists, ids, qc, params, mask)
     with obs.span("drim.ts"):
-        d, pos = torch.topk(dists.reshape(qc, -1), params.k, dim=-1,
-                            largest=False, sorted=True)
-        # position -> (probe, row) -> the id stored at that padded row
-        row = probes.gather(1, pos // cmax) * cmax + pos % cmax
-        return d, torch.take(clusters.ids, row)
+        if params.use_kernels and params.k <= kops.MAX_K_PAD:
+            return kops.ts_topk(dists, slots, clusters.sizes, clusters.ids,
+                                qc, params.k)
+        return kops.ts_topk_plain(dists, slots, clusters.ids, qc, params.k)
 
 
 def dc_ts_tasks(lut, codes: torch.Tensor, ids: torch.Tensor,

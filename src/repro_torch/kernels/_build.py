@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 VARIANT_DIR = BUILD_DIR.parent / "kernel_variants"
-SOURCES = ("lut_build", "pq_scan", "pq_scan_topk")
+SOURCES = ("lut_build", "pq_scan", "pq_scan_topk", "ts_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -61,6 +61,12 @@ SIGNATURES = {
         "pq_scan_topk_smem_bytes": ([_I, _I, _I, _I, _I], _S),
         "pq_scan_topk_threads": ([_I], _I),
         "pq_scan_topk_error_string": ([_I], ctypes.c_char_p),
+    },
+    "ts_topk": {
+        "ts_topk_scratch_bytes": ([_I, _I, _I], _S),
+        "ts_topk_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                        _I),
+        "ts_topk_error_string": ([_I], ctypes.c_char_p),
     },
 }
 

@@ -1,4 +1,4 @@
-"""Public wrappers around the LC, DC and fused DC+TS kernels.
+"""Public wrappers around the LC, DC, fused DC+TS and TS kernels.
 
 A table is f32 (T, M, CB), bf16 (T, M, CB) or a :class:`QuantizedLUT`
 (uint8 with per-subspace scale and bias); each kind has its own kernel
@@ -30,7 +30,8 @@ from repro_torch.util import next_pow2
 
 launches = obs.Counters("lut_build", "lut_build_q", "lut_build_bf16",
                         "pq_scan_dc", "pq_scan_dc_q", "pq_scan_dc_bf16",
-                        "pq_scan_topk", "pq_scan_topk_q", "pq_scan_topk_bf16")
+                        "pq_scan_topk", "pq_scan_topk_q", "pq_scan_topk_bf16",
+                        "ts_topk")
 reset_launches = launches.reset
 _launched = launches.add
 
@@ -385,3 +386,72 @@ def pq_scan_topk(lut: Union[torch.Tensor, QuantizedLUT], codes: torch.Tensor,
     _ok(lib, err, name, "pq_scan_topk")
     _launched(name)
     return out_d[:, :k], out_i[:, :k]
+
+
+def ts_topk_plain(dists: torch.Tensor, slots: torch.Tensor,
+                  ids: torch.Tensor, qc: int, k: int):
+    """TS by slot's plain version: ``torch.topk`` over each query's (P *
+    C) distances, then each winner's id by (slot of its probe, row); a
+    winner in a slot outside [0, nslots) gets id -1.  ``dists`` as DC by
+    slot writes it: +inf at every row past its task's size."""
+    c = dists.shape[1]
+    d, pos = torch.topk(dists.reshape(qc, -1), k, dim=-1, largest=False,
+                        sorted=True)
+    probes = slots.long().reshape(qc, -1).gather(1, pos // c)
+    valid = (probes >= 0) & (probes < ids.shape[0])
+    # position -> (probe, row) -> the id stored at that padded row
+    row = torch.where(valid, probes, 0) * c + pos % c
+    return d, torch.take(ids, row).masked_fill_(~valid, -1)
+
+
+def ts_topk(dists: torch.Tensor, slots: torch.Tensor, sizes: torch.Tensor,
+            ids: torch.Tensor, qc: int, k: int):
+    """TS by slot: each query's k smallest distances over its probes' real
+    rows, ascending, and their ids: ((qc, k) f32, (qc, k) i32).
+
+    ``dists`` (qc * P, C) f32 is DC by slot's output (task t: query t //
+    P, probe t % P), ``slots`` (qc * P,) int32 the flat probes, ``sizes``
+    (nslots,) and ``ids`` (nslots, C) int32 the padded clusters'.  Task
+    t's real rows are r < ``sizes[slots[t]]`` (a slot outside [0,
+    nslots): none); past a query's real rows the output is (+inf, -1).
+    On the card the kernel reads only the real rows, and ties go to the
+    lower position ``probe * C + row``; the plain version
+    (:func:`ts_topk_plain`) reads every row, so ``dists`` must be +inf
+    past each task's size, as DC writes it.  1 <= k <= :data:`MAX_K_PAD`
+    and k <= P * C."""
+    dev = dists.device
+    _check(dists, "dists", (torch.float32,), 2, dev)
+    _check(slots, "slots", (torch.int32,), 1, dev)
+    _check(sizes, "sizes", (torch.int32,), 1, dev)
+    _check(ids, "ids", (torch.int32,), 2, dev)
+    t, c = dists.shape
+    nslots = sizes.shape[0]
+    if qc < 1 or t % qc or slots.shape[0] != t:
+        raise ValueError(f"dists {tuple(dists.shape)} and slots "
+                         f"{tuple(slots.shape)} are not {qc} queries' "
+                         f"tasks")
+    p = t // qc
+    if ids.shape != (nslots, c):
+        raise ValueError(f"ids {tuple(ids.shape)} != {(nslots, c)}")
+    k_max = min(MAX_K_PAD, p * c)
+    if not 1 <= k <= k_max:
+        raise ValueError(f"ts_topk: k={k} not in [1, {k_max}]")
+    if p * c >= 2 ** 31 - 1:
+        raise ValueError(f"ts_topk: P * C = {p * c} positions, above the "
+                         f"kernel's 32-bit keys")
+    if not _route(dev):
+        return ts_topk_plain(dists, slots, ids, qc, k)
+    lib = _build.library("ts_topk")
+    scratch = torch.empty(lib.ts_topk_scratch_bytes(qc, p, k) // 8,
+                          dtype=torch.int64, device=dev)
+    out_d = torch.empty((qc, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((qc, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ts_topk_f32(dists.data_ptr(), slots.data_ptr(),
+                              sizes.data_ptr(), ids.data_ptr(),
+                              scratch.data_ptr(), out_d.data_ptr(),
+                              out_i.data_ptr(), qc, p, c, nslots, k,
+                              _stream(dev))
+    _ok(lib, err, "ts_topk", "ts_topk")
+    _launched("ts_topk")
+    return out_d, out_i

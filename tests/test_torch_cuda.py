@@ -370,6 +370,139 @@ def test_kernels_refuse_cpu_mixed_inputs(cuda):
 
 
 # ---------------------------------------------------------------------------
+# TS by slot: ops.ts_topk
+# ---------------------------------------------------------------------------
+
+def _ts_inputs(seed, qc, p, c, nslots, device, sizes="uniform",
+               ties=False):
+    """(dists, slots, sizes, ids) as DC by slot leaves them: real rows
+    random (``ties``: rounded to 1/4, so many are equal), +inf past each
+    task's size and in every task of a slot outside [0, nslots) (one task
+    in 7 at -1, one in 11 past the end).  ``sizes``: "uniform" in [0, C],
+    "lognormal" (the benchmark's spread 0.337, mean C / 4) or "empty"."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if sizes == "lognormal":
+        z = torch.randn(nslots, device=device, generator=g)
+        sz = (torch.exp(0.337 * z) * (c / 4)).clamp(max=c).int()
+    elif sizes == "empty":
+        sz = torch.zeros(nslots, dtype=torch.int32, device=device)
+    else:
+        sz = torch.randint(0, c + 1, (nslots,), device=device, generator=g,
+                           dtype=torch.int32)
+    row = torch.arange(c, device=device)
+    ids = (torch.arange(nslots, device=device)[:, None] * c + row).int()
+    ids = ids.masked_fill(row[None, :] >= sz[:, None], -1)
+    slots = torch.randint(0, nslots, (qc * p,), device=device, generator=g,
+                          dtype=torch.int32)
+    slots[::7] = -1
+    slots[3::11] = nslots + 2
+    valid = (slots >= 0) & (slots < nslots)
+    n = torch.where(valid, sz[slots.long().clamp(0, nslots - 1)], 0)
+    dists = torch.rand((qc * p, c), device=device, generator=g) * 100
+    if ties:
+        dists = torch.round(dists * 4) / 4
+    dists.masked_fill_(row[None, :] >= n[:, None], float("inf"))
+    return dists, slots, sz, ids
+
+
+def _ts_by_position(dists, slots, ids, qc, k):
+    """The exact answer: each query's rows sorted stably (ties by the
+    lower position probe * C + row), the first k with their ids; a padded
+    row's id is -1, as is every row of a slot outside [0, nslots)."""
+    nslots, c = ids.shape
+    d, pos = torch.sort(dists.reshape(qc, -1), dim=-1, stable=True)
+    d, pos = d[:, :k], pos[:, :k]
+    s = slots.long().reshape(qc, -1).gather(1, pos // c)
+    valid = (s >= 0) & (s < nslots)
+    i = torch.take(ids, torch.where(valid, s, 0) * c + pos % c)
+    return d, i.masked_fill(~valid, -1)
+
+
+def _assert_ts_equal_up_to_ties(got, want):
+    """Distances bit for bit; ids equal within each group of equal
+    distances, except the k-th distance's group, which may hold any of
+    its rows (torch.topk fixes no order among ties)."""
+    gd, gi = (x.cpu().numpy() for x in got)
+    wd, wi = (x.cpu().numpy() for x in want)
+    np.testing.assert_array_equal(gd, wd)
+    for q in range(gd.shape[0]):
+        for v in np.unique(wd[q]):
+            same = wd[q] == v
+            if v != wd[q, -1] or not np.isfinite(v):
+                assert sorted(gi[q, same]) == sorted(wi[q, same]), q
+
+
+@pytest.mark.parametrize("shape", ["main", "ragged", "empty"])
+@pytest.mark.parametrize("k", [1, 10, 256])
+def test_ts_topk_matches_plain(cuda, shape, k):
+    """The main path's chunk (256 queries x 96 probes of C = 6,200 rows,
+    log-normal sizes over 65,536 slots), a C that is no multiple of a
+    block width or of 4 (unaligned rows), and no real row at all: the
+    kernel == the stable sort by position bit for bit, and == the plain
+    route (torch.topk) up to tie order."""
+    qc, p, c, nslots, sizes = {
+        "main": (256, 96, 6200, 65536, "lognormal"),
+        "ragged": (7, 5, 1029, 13, "uniform"),
+        "empty": (9, 4, 300, 5, "empty")}[shape]
+    dists, slots, sz, ids = _ts_inputs(50, qc, p, c, nslots, cuda, sizes)
+    ops.reset_launches()
+    got = ops.ts_topk(dists, slots, sz, ids, qc, k)
+    torch.cuda.synchronize()
+    assert ops.launches["ts_topk"] == 1
+    assert got[0].shape == got[1].shape == (qc, k)
+    assert got[1].dtype == torch.int32
+    exact = _ts_by_position(dists, slots, ids, qc, k)
+    assert torch.equal(got[0], exact[0]) and torch.equal(got[1], exact[1])
+    _assert_ts_equal_up_to_ties(got, ops.ts_topk_plain(dists, slots, ids,
+                                                       qc, k))
+    if shape == "empty":
+        assert bool(torch.isinf(got[0]).all()) and bool((got[1] == -1).all())
+
+
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_ts_topk_breaks_ties_by_position(cuda, k):
+    """Distances on a grid of 1/4 over [0, 100], so every winner has many
+    equals: the kernel takes the lower probe * C + row first, run after
+    run."""
+    dists, slots, sz, ids = _ts_inputs(51, 33, 40, 777, 50, cuda,
+                                       ties=True)
+    exact = _ts_by_position(dists, slots, ids, 33, k)
+    for _ in range(3):
+        got = ops.ts_topk(dists, slots, sz, ids, 33, k)
+        assert torch.equal(got[0], exact[0])
+        assert torch.equal(got[1], exact[1])
+
+
+@pytest.mark.parametrize("k", [10, 256])
+def test_ts_topk_never_reads_padding(cuda, k):
+    """Every padded entry (rows past a task's size, every row of a slot
+    outside [0, nslots)) poisoned with -1.0, below any real distance: the
+    answers are those on DC's +inf padding."""
+    qc, p, c, nslots = 64, 96, 2000, 4096
+    dists, slots, sz, ids = _ts_inputs(52, qc, p, c, nslots, cuda,
+                                       "lognormal")
+    want = ops.ts_topk(dists, slots, sz, ids, qc, k)
+    poisoned = dists.masked_fill(torch.isinf(dists), -1.0)
+    got = ops.ts_topk(poisoned, slots, sz, ids, qc, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], _ts_by_position(dists, slots, ids, qc, k)[0])
+
+
+def test_ts_topk_refuses(cuda):
+    dists, slots, sz, ids = _ts_inputs(53, 4, 6, 50, 9, cuda)
+    assert ops.ts_topk(dists, slots, sz, ids, 4, ops.MAX_K_PAD)[0].shape \
+        == (4, ops.MAX_K_PAD)
+    for bad in ((dists, slots, sz, ids.cpu(), 4, 10),
+                (dists, slots.long(), sz, ids, 4, 10),
+                (dists, slots, sz, ids, 4, ops.MAX_K_PAD + 1),
+                (torch.cat([dists, dists], 1)[:, ::2], slots, sz, ids, 4,
+                 10)):
+        with pytest.raises((TypeError, ValueError)):
+            ops.ts_topk(*bad)
+
+
+# ---------------------------------------------------------------------------
 # The bf16-table kernels: A-bf16, C-bf16, E-bf16
 # ---------------------------------------------------------------------------
 
@@ -694,6 +827,7 @@ def test_search_goes_through_kernels(cuda, lut_dtype):
     lc, dc = (("lut_build_q", "pq_scan_dc_q") if lut_dtype == "uint8"
               else ("lut_build", "pq_scan_dc"))
     assert ops.launches[lc] == 2 and ops.launches[dc] == 2
+    assert ops.launches["ts_topk"] == 2            # one a chunk
     pd, pi = search_ivfpq(idx, cl, q, SearchParams(
         nprobe=8, k=10, query_chunk=32, lut_dtype=lut_dtype))
     assert abs(recall_at_k(ki, ds.groundtruth)
