@@ -79,8 +79,9 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
 #include <type_traits>
+
+#include "occupancy.cuh"
 
 namespace {
 
@@ -102,7 +103,6 @@ constexpr int kStreamStores = 1;     // A's stores evict-first (__stcs)
 constexpr int kRowsF32 = 4;          // rows a warp computes at once: A
 constexpr int kRowsU8 = 2;           // and B (the bf16 table: kRowsF32)
 constexpr int kStageDsub = 8;        // least dsub whose slice is staged
-constexpr int kMaxDevices = 64;
 
 // The one f32 entry every variant computes.  nvcc may contract it into
 // fma(-2, cross, rsq + sqn), which rounds the same (2 * cross is exact), so
@@ -490,34 +490,11 @@ int launch_instance(const void* res, const void* books, const void* sqnorms,
   auto kernel = lut_build_kernel<DSUB, kSmemBook, kOut>;
   const size_t smem = (kSmemBook ? book_bytes(CB, dsub) : 0) +
                       (DSUB ? tile_bytes(DSUB) : 0);
-  // The blocks of this instance that fit on the card at once, looked up on
-  // the first launch per device and shared-memory size: (smem << 32) |
-  // blocks, 0 until then.
-  static std::atomic<unsigned long long> resident[kMaxDevices];
-  cudaError_t e;
-  int dev = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  const unsigned long long seen =
-      dev < kMaxDevices ? resident[dev].load(std::memory_order_relaxed) : 0;
-  int blocks = (int)(seen & 0xffffffffull);
-  if (seen == 0 || (seen >> 32) != smem) {
-    if (smem > 48 * 1024 &&
-        (e = cudaFuncSetAttribute(kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)) != cudaSuccess)
-      return (int)e;
-    int sms = 0, per_sm = 0;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, kThreads, smem)) != cudaSuccess)
-      return (int)e;
-    if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
-    blocks = sms * per_sm;
-    if (dev < kMaxDevices)
-      resident[dev].store(((unsigned long long)smem << 32) | (unsigned)blocks,
-                          std::memory_order_relaxed);
-  }
+  static occupancy::Resident resident;
+  int blocks = 0;
+  const cudaError_t e =
+      occupancy::resident_blocks(resident, kernel, kThreads, smem, &blocks);
+  if (e != cudaSuccess) return (int)e;
   // the resident blocks split over the M subspaces; no more than the tasks
   // need (kWarps tasks a block)
   int per_m = blocks / M;

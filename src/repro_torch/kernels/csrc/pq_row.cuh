@@ -1,6 +1,8 @@
 // One PQ code row against one task's lookup table, shared by the DC
 // kernels (pq_scan.cu) and the fused DC+TS kernels (pq_scan_topk.cu), and
-// the slot convention both read code slots by (task_rows).
+// the slot convention they and TS by slot (ts_topk.cu) read slots by
+// (slot_rows, task_rows).  Included by pq_scan.cu, pq_scan_topk.cu and
+// ts_topk.cu.
 //
 // Both score a row by summing its terms in order m = 0..M-1 (row_sum,
 // then the u8 path's bias sum, or the bf16 path's one rounding), so the
@@ -122,14 +124,20 @@ __device__ __forceinline__ float row_dist(const CodeT* row, const Table& tab,
   return acc;
 }
 
+// The valid rows of slot s: its size clamped to [0, C], 0 for a slot
+// outside [0, P) (-1: no task).
+__device__ __forceinline__ int slot_rows(const int* sizes, int s, int P,
+                                         int C) {
+  return (s >= 0 && s < P) ? max(0, min(sizes[s], C)) : 0;
+}
+
 // Task t's slot and its number of valid rows (0: no slot or no rows):
-// slots == NULL reads slot t (the dense form), and a slot outside [0, P)
-// has no rows.
+// slots == NULL reads slot t (the dense form).
 __device__ __forceinline__ int task_rows(const int* slots, const int* sizes,
                                          int t, int P, int C, int* slot) {
   const int s = slots == nullptr ? t : slots[t];
   *slot = s;
-  return (s >= 0 && s < P) ? max(0, min(sizes[s], C)) : 0;
+  return slot_rows(sizes, s, P, C);
 }
 
 // Copy n elements of T from device memory into shared memory with the

@@ -20,11 +20,10 @@
 // tasks' codes or ids is made.  A zero-size task writes k_pad x (+inf,
 // -1) and reads no table.
 //
-// The (T, C) distance matrix never reaches device memory.  Ties are
-// broken by row: a candidate is the key (order-preserving bits of its
-// distance, row), keys are unique, and the selection is exact, so the
-// output is a function of the inputs alone.  Keys are 64-bit, except on
-// a bf16 table of at most 65,535 rows a slot (below).
+// The (T, C) distance matrix never reaches device memory.  The selection
+// is warp_topk.cuh's, with the row as a key's position: ties go to the
+// lower row, and the output is a function of the inputs alone.  Keys are
+// 64-bit, except on a bf16 table of at most 65,535 rows a slot (below).
 //
 // What bounds it on an H100: bytes.  The function reads each non-empty
 // task's table (M*CB*4 bytes f32; M*CB*2 bf16; M*CB + 8*M u8), the codes
@@ -61,13 +60,11 @@
 //     at M = 16 u8 (the next round's load in flight while this one is
 //     scored) and M lookups out of shared memory summed in order m =
 //     0..M-1 (pq_row.cuh: the same float as pq_scan.cu's);
-//   * each warp keeps its own running top list in registers, L = max(32,
-//     k_pad) keys, k_pad/32 a lane, sorted in the order i = j*32 + lane.
-//     A row is kept only below the list's k_pad-th key, which a shuffle
-//     broadcasts.  Up to kInsertMax kept rows are inserted one by one (a
-//     shuffle shift); more are sorted across the warp and merged in with
-//     a bitonic merge over __shfl_xor_sync.  No block barrier runs inside
-//     the scan;
+//   * each warp keeps its own running top list in registers
+//     (warp_topk.cuh).  A round of 32 rows is one vote against the list's
+//     k_pad-th key; up to kInsertMax kept rows are inserted one by one,
+//     more are merged in at once, and the k_pad-th key is read again after
+//     the round.  No block barrier runs inside the scan;
 //   * the warps' lists are merged pairwise through shared memory
 //     (reversed-min + bitonic merge), and warp 0 writes the k_pad winners
 //     and looks their ids up.
@@ -77,16 +74,15 @@
 // against E's 0.32; on E's kernel (64-bit keys, 64 threads) it took 0.41
 // ms there (2.25x the bound).  Probes of that kernel (tools/
 // torch_fused_topk_bench.py --probe, PERF.md) put 29% of its time in the
-// selection, ~1% in waiting for a staged table.  A bf16 row distance has 16 bits, so
-// its key fits in 32 bits: (the high half of the f32 ordered bits, which
-// are the bf16 ordered bits, << 16) | row, with row 0xffff meaning none;
-// the order is the 64-bit key's.  pq_scan_topk_narrow_kernel runs the
-// same task loop on those keys, so every shuffle of the sort, insert,
-// k-th broadcast and merge moves one register instead of two, and the
-// lists and their shared-memory merge halve.  Its block was swept on the
-// H100 (kThreadsBF16 32 / 64 / 128, and a second table buffer staged
-// during the scan): 64 threads were fastest at the sharded step and at
-// the dry-run cell's shape (4,096 rows a task), a second buffer slower.
+// selection, ~1% in waiting for a staged table.  A bf16 row distance has
+// 16 bits, so its key fits in 32 bits (warp_topk.cuh's 32-bit keys), and
+// pq_scan_topk_narrow_kernel runs the same task loop on those keys, so
+// every shuffle of the sort, insert, k-th broadcast and merge moves one
+// register instead of two, and the lists and their shared-memory merge
+// halve.  Its block was swept on the H100 (kThreadsBF16 32 / 64 / 128,
+// and a second table buffer staged during the scan): 64 threads were
+// fastest at the sharded step and at the dry-run cell's shape (4,096 rows
+// a task), a second buffer slower.
 // What bounds it now: the lookups' instructions (a byte extract, an
 // address, a shared-memory load, a widening and an add for each of a
 // row's 16 terms) -- a probe that makes every warp load conflict-free but
@@ -102,11 +98,13 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
-
+#include "occupancy.cuh"
 #include "pq_row.cuh"
+#include "warp_topk.cuh"
 
 namespace {
+
+using namespace wtopk;
 
 // Threads of a block (one task at a time, 32 rows a warp a round) for
 // f32, u8 and bf16 tables.  Chosen on an H100 with
@@ -117,15 +115,9 @@ namespace {
 constexpr int kThreadsF32 = 64;
 constexpr int kThreadsU8 = 32;
 constexpr int kThreadsBF16 = 64;
-constexpr int kMaxKPad = 256;
-constexpr int kMaxDevices = 64;   // devices whose grid size is remembered
 // Kept rows in a round up to which they are inserted one at a time; more
 // are sorted across the warp and merged.
 constexpr int kInsertMax = 16;
-constexpr unsigned kAll = 0xffffffffu;
-constexpr unsigned long long kNone = 0xff800000ffffffffull;  // (+inf, none)
-
-typedef unsigned long long u64;
 
 template <int kKind>
 __host__ __device__ constexpr int threads_of() {
@@ -138,135 +130,6 @@ int threads_of(int kind) {
   return kind == pqrow::kU8     ? kThreadsU8
          : kind == pqrow::kBF16 ? kThreadsBF16
                                 : kThreadsF32;
-}
-
-__device__ __forceinline__ uint32_t ordered_bits(float d) {
-  const uint32_t u = __float_as_uint(d);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_ordered(uint32_t o) {
-  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
-}
-
-// Selection keys: (order-preserving bits of the distance, row), smaller
-// key = smaller distance, ties by row.  64-bit: the f32 distance's 32
-// bits, then the row (kNone: +inf, row 0xffffffff).  32-bit (bf16 tables,
-// C <= kMaxRowsKey32): a bf16 distance has 16 bits, so its f32 ordered
-// bits are its bf16 ordered bits in the high half; the row takes the low
-// half (kNone32: +inf, row 0xffff), and the order is the 64-bit key's.
-constexpr uint32_t kNone32 = 0xff80ffffu;   // (+inf, none)
-constexpr int kMaxRowsKey32 = 0xffff;       // rows 0 .. 0xfffe
-
-__device__ __forceinline__ u64 make_key(float d, int c, u64) {
-  return ((u64)ordered_bits(d) << 32) | (uint32_t)c;
-}
-
-__device__ __forceinline__ uint32_t make_key(float d, int c, uint32_t) {
-  return (ordered_bits(d) & 0xffff0000u) | (uint32_t)c;
-}
-
-__device__ __forceinline__ u64 none_key(u64) { return kNone; }
-__device__ __forceinline__ uint32_t none_key(uint32_t) { return kNone32; }
-
-// A key's row (none_row(Key()) for a "none" key) and distance.
-__device__ __forceinline__ uint32_t key_row(u64 k) { return (uint32_t)k; }
-__device__ __forceinline__ uint32_t key_row(uint32_t k) {
-  return k & 0xffffu;
-}
-
-__device__ __forceinline__ uint32_t none_row(u64) { return 0xffffffffu; }
-__device__ __forceinline__ uint32_t none_row(uint32_t) { return 0xffffu; }
-
-__device__ __forceinline__ float key_dist(u64 k) {
-  return from_ordered((uint32_t)(k >> 32));
-}
-
-__device__ __forceinline__ float key_dist(uint32_t k) {
-  const uint32_t o = k >> 16;         // bf16 ordered bits -> bf16 bits
-  return __uint_as_float(((o & 0x8000u) ? (o & 0x7fffu) : (~o & 0xffffu))
-                         << 16);
-}
-
-template <typename Key>
-__device__ __forceinline__ Key kmin(Key a, Key b) { return a < b ? a : b; }
-template <typename Key>
-__device__ __forceinline__ Key kmax(Key a, Key b) { return a < b ? b : a; }
-
-// One key a lane, sorted ascending across the warp (bitonic, 15 steps).
-template <typename Key>
-__device__ __forceinline__ Key warp_sort32(Key x, int lane) {
-#pragma unroll
-  for (int k = 2; k <= 32; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const Key y = __shfl_xor_sync(kAll, x, j);
-      const bool low = (lane & j) == 0, up = (lane & k) == 0;
-      x = low == up ? kmin(x, y) : kmax(x, y);
-    }
-  }
-  return x;
-}
-
-// Sort a bitonic sequence of L = 32 * KPL keys held as i = j*32 + lane:
-// half-cleaners at distances L/2 .. 32 inside a lane, 16 .. 1 across.
-template <int KPL, typename Key>
-__device__ __forceinline__ void bitonic_merge(Key (&v)[KPL], int lane) {
-#pragma unroll
-  for (int jd = KPL / 2; jd > 0; jd >>= 1) {
-#pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      if ((j & jd) == 0) {
-        const Key a = v[j], b = v[j + jd];
-        v[j] = kmin(a, b);
-        v[j + jd] = kmax(a, b);
-      }
-    }
-  }
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-#pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      const Key y = __shfl_xor_sync(kAll, v[j], d);
-      v[j] = (lane & d) ? kmax(v[j], y) : kmin(v[j], y);
-    }
-  }
-}
-
-// Fold 32 candidates (one a lane, none where none) into the sorted list:
-// after it the list holds the L smallest of both, sorted.  The candidates
-// are sorted, reversed and min-ed into the list's last 32 keys, which
-// leaves a bitonic sequence.
-template <int KPL, typename Key>
-__device__ __forceinline__ void merge32(Key (&v)[KPL], Key cand, int lane) {
-  cand = warp_sort32(cand, lane);
-  v[KPL - 1] = kmin(v[KPL - 1], __shfl_sync(kAll, cand, 31 - lane));
-  bitonic_merge<KPL>(v, lane);
-}
-
-// Insert one key (not none) into the sorted list; the largest key drops.
-template <int KPL, typename Key>
-__device__ __forceinline__ void insert1(Key (&v)[KPL], Key x, int lane) {
-  Key prev[KPL];
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const Key up = __shfl_up_sync(kAll, v[j], 1);
-    const Key last = j > 0 ? __shfl_sync(kAll, v[j > 0 ? j - 1 : 0], 31) : 0;
-    prev[j] = lane > 0 ? up : last;
-  }
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const bool first = j == 0 && lane == 0;
-    v[j] = v[j] < x ? v[j] : (first || prev[j] < x ? x : prev[j]);
-  }
-}
-
-// The k_pad-th smallest key of the list (k_pad <= 32 when KPL == 1, else
-// k_pad == 32 * KPL), on every lane.
-template <int KPL, typename Key>
-__device__ __forceinline__ Key kth(const Key (&v)[KPL], int kp) {
-  if constexpr (KPL == 1) return __shfl_sync(kAll, v[0], kp - 1);
-  return __shfl_sync(kAll, v[KPL - 1], 31);
 }
 
 // From task t on, in steps of the grid, the first task with rows (T if
@@ -291,8 +154,6 @@ __device__ __forceinline__ int next_task(int t, int T, const int* slots,
 size_t table_bytes(int kind, int M, int CB) {
   return (pqrow::table_smem_bytes(kind, M, CB) + 15) & ~(size_t)15;
 }
-
-int keys_per_lane(int kp) { return kp <= 32 ? 1 : kp / 32; }
 
 // The table and, with more than one warp, the warps' lists (of 32-bit
 // keys with key32, bf16 tables only).
@@ -479,34 +340,11 @@ int launch_typed(const void* lut, const void* scale, const void* bias,
     kernel = pq_scan_topk_kernel<KPL, CodeT, kKind, kVec16>;
   const int threads = threads_of<kKind>();
   const size_t smem = smem_bytes(kKind, M, CB, kp, kKey32);
-  // The blocks of this instance that fit on the card at once, looked up on
-  // the first launch per device and shared-memory size: (smem << 32) |
-  // blocks, 0 until then.
-  static std::atomic<unsigned long long> resident[kMaxDevices];
-  cudaError_t e;
-  int dev = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  const unsigned long long seen =
-      dev < kMaxDevices ? resident[dev].load(std::memory_order_relaxed) : 0;
-  int blocks = (int)(seen & 0xffffffffull);
-  if (seen == 0 || (seen >> 32) != smem) {
-    if (smem > 48 * 1024 &&
-        (e = cudaFuncSetAttribute(kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)) != cudaSuccess)
-      return (int)e;
-    int sms = 0, per_sm = 0;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, threads, smem)) != cudaSuccess)
-      return (int)e;
-    if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
-    blocks = sms * per_sm;
-    if (dev < kMaxDevices)
-      resident[dev].store(((unsigned long long)smem << 32) | (unsigned)blocks,
-                          std::memory_order_relaxed);
-  }
+  static occupancy::Resident resident;
+  int blocks = 0;
+  const cudaError_t e =
+      occupancy::resident_blocks(resident, kernel, threads, smem, &blocks);
+  if (e != cudaSuccess) return (int)e;
   const int grid = T < blocks ? T : blocks;
   kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       lut, (const float*)scale, (const float*)bias, (const CodeT*)codes,

@@ -14,12 +14,11 @@
 //               ascending, as (distance, ids[s, r]); past the query's real
 //               rows (+inf, -1).
 //
-// Ties go to the lower flat position j * C + r: a candidate is the key
-// (order-preserving bits of its distance, position), keys are unique, and
-// the selection is exact, so the output is a function of the inputs
-// alone.  The distances out are the f32 values DC wrote; nothing is
-// recomputed.  No row at or past its task's size is read, so C's padded
-// output may hold anything.
+// The selection is warp_topk.cuh's, with the flat position j * C + r as a
+// key's position: ties go to the lower position, and the output is a
+// function of the inputs alone.  The distances out are the f32 values DC
+// wrote; nothing is recomputed.  No row at or past its task's size is read
+// (pq_row.cuh slot_rows), so C's padded output may hold anything.
 //
 // What bounds it on an H100: bytes.  It reads the real rows' distances
 // once (4 B a row), each task's slot and size, and the winners' ids, and
@@ -38,95 +37,40 @@
 //     about the same bytes whatever the sizes, and the grid is one wave;
 //   * a warp reads its rows with 16-byte loads (kUnroll a lane in flight)
 //     where the row's address allows, scalar loads at the ragged edges;
-//   * each warp keeps a running sorted list of L = max(32, k_pad) keys in
-//     registers, k_pad / 32 a lane, and its k_pad-th key on every lane.  A
-//     round of rows costs one compare against that key's distance and one
-//     vote; only a round with a candidate builds keys and updates the list
-//     (one at a time up to kInsertMax, else a sort of the round's 32 and a
-//     bitonic merge over __shfl_xor_sync, as pq_scan_topk.cu does);
+//   * each warp keeps a running top list (warp_topk.cuh) and its k_pad-th
+//     key on every lane.  A round of rows costs one compare against that
+//     key's distance and one vote; only a round with a candidate builds
+//     keys and updates the list: up to kInsertMax kept keys one at a time,
+//     each followed by a new vote against the new k_pad-th key, else all
+//     32 merged in at once;
 //   * a warp writes its k_pad keys to the scratch the wrapper allocated;
 //   * stage 2, ts_topk_merge_kernel: a warp per query folds its groups'
 //     keys into one list the same way and writes the first k, looking each
 //     winner's id up by (slot of its probe, row).
 //
-// k_pad = next_pow2(max(k, 8)) is at most 256.  The kernels allocate
-// nothing and never synchronise with the host.
+// k_pad = k_pad_of(k) is at most kMaxKPad.  The kernels allocate nothing
+// and never synchronise with the host.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
+#include "occupancy.cuh"
+#include "pq_row.cuh"
+#include "warp_topk.cuh"
 
 namespace {
+
+using namespace wtopk;
 
 constexpr int kWarps = 4;                 // stage 1 and 2: warps a block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kUnroll = 2;                // 16-byte loads a lane in flight
-constexpr int kMaxKPad = 256;
 constexpr int kMaxMergeKeys = 2048;       // stage 2's keys a query, at most
-constexpr int kInsertMax = 16;            // see pq_scan_topk.cu
-constexpr int kMaxDevices = 64;           // devices whose capacity is kept
-constexpr unsigned kAll = 0xffffffffu;
-constexpr unsigned long long kNone = 0xff800000ffffffffull;  // (+inf, none)
-
-typedef unsigned long long u64;
-
-__device__ __forceinline__ uint32_t ordered_bits(float d) {
-  const uint32_t u = __float_as_uint(d);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_dist(u64 k) {
-  const uint32_t o = (uint32_t)(k >> 32);
-  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
-}
-
-__device__ __forceinline__ u64 make_key(float d, uint32_t pos) {
-  return ((u64)ordered_bits(d) << 32) | pos;
-}
-
-__device__ __forceinline__ u64 kmin(u64 a, u64 b) { return a < b ? a : b; }
-__device__ __forceinline__ u64 kmax(u64 a, u64 b) { return a < b ? b : a; }
-
-// One key a lane, sorted ascending across the warp (bitonic, 15 steps).
-__device__ __forceinline__ u64 warp_sort32(u64 x, int lane) {
-#pragma unroll
-  for (int k = 2; k <= 32; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const u64 y = __shfl_xor_sync(kAll, x, j);
-      const bool low = (lane & j) == 0, up = (lane & k) == 0;
-      x = low == up ? kmin(x, y) : kmax(x, y);
-    }
-  }
-  return x;
-}
-
-// Sort a bitonic sequence of L = 32 * KPL keys held as i = j*32 + lane.
-template <int KPL>
-__device__ __forceinline__ void bitonic_merge(u64 (&v)[KPL], int lane) {
-#pragma unroll
-  for (int jd = KPL / 2; jd > 0; jd >>= 1) {
-#pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      if ((j & jd) == 0) {
-        const u64 a = v[j], b = v[j + jd];
-        v[j] = kmin(a, b);
-        v[j + jd] = kmax(a, b);
-      }
-    }
-  }
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-#pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      const u64 y = __shfl_xor_sync(kAll, v[j], d);
-      v[j] = (lane & d) ? kmax(v[j], y) : kmin(v[j], y);
-    }
-  }
-}
+// Kept keys in a round up to which they are inserted one at a time; more
+// are merged in at once.
+constexpr int kInsertMax = 16;
 
 // The warp's running list: the L smallest keys offered so far, sorted in
 // the order i = j*32 + lane, and its k_pad-th key (thr) on every lane.
@@ -144,34 +88,8 @@ struct TopList {
   }
 
   __device__ __forceinline__ void refresh(int kp) {
-    thr = KPL == 1 ? __shfl_sync(kAll, v[0], kp - 1)
-                   : __shfl_sync(kAll, v[KPL - 1], 31);
+    thr = kth<KPL>(v, kp);
     thr_d = key_dist(thr);
-  }
-
-  // Insert one key below thr; the largest key drops.
-  __device__ __forceinline__ void insert1(u64 x, int lane) {
-    u64 prev[KPL];
-#pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      const u64 up = __shfl_up_sync(kAll, v[j], 1);
-      const u64 last = j > 0 ? __shfl_sync(kAll, v[j > 0 ? j - 1 : 0], 31)
-                             : 0;
-      prev[j] = lane > 0 ? up : last;
-    }
-#pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      const bool first = j == 0 && lane == 0;
-      v[j] = v[j] < x ? v[j] : (first || prev[j] < x ? x : prev[j]);
-    }
-  }
-
-  // Fold 32 candidates (kNone where none) in: sorted, reversed and min-ed
-  // into the list's last 32 keys, which leaves a bitonic sequence.
-  __device__ __forceinline__ void merge32(u64 cand, int lane) {
-    cand = warp_sort32(cand, lane);
-    v[KPL - 1] = kmin(v[KPL - 1], __shfl_sync(kAll, cand, 31 - lane));
-    bitonic_merge<KPL>(v, lane);
   }
 
   // Every lane offers one key (kNone: nothing); the whole warp calls it.
@@ -179,13 +97,13 @@ struct TopList {
     unsigned kept = __ballot_sync(kAll, key < thr);
     if (kept == 0) return;
     if (__popc(kept) > kInsertMax) {
-      merge32(key < thr ? key : kNone, lane);
+      merge32<KPL>(v, key < thr ? key : kNone, lane);
       refresh(kp);
       return;
     }
     do {
       const int src = __ffs(kept) - 1;
-      insert1(__shfl_sync(kAll, key, src), lane);
+      insert1<KPL>(v, __shfl_sync(kAll, key, src), lane);
       refresh(kp);
       // the lanes after src whose key is still below the new thr
       kept = __ballot_sync(kAll, key < thr) & ~((2u << src) - 1u);
@@ -205,18 +123,10 @@ struct TopList {
     if (!__any_sync(kAll, hit)) return;
 #pragma unroll
     for (int u = 0; u < V; ++u)
-      offer(ok[u] && d[u] <= thr_d ? make_key(d[u], pos[u]) : kNone, kp,
-            lane);
+      offer(ok[u] && d[u] <= thr_d ? make_key(d[u], pos[u], u64()) : kNone,
+            kp, lane);
   }
 };
-
-// Rows of task t: its slot's size clamped to [0, C], 0 for a slot outside
-// [0, nslots).
-__device__ __forceinline__ int task_rows(const int* slots, const int* sizes,
-                                         int t, int nslots, int C) {
-  const int s = slots[t];
-  return (s >= 0 && s < nslots) ? max(0, min(sizes[s], C)) : 0;
-}
 
 // Sum and inclusive prefix sum of one value a lane.
 __device__ __forceinline__ int warp_sum(int x) {
@@ -307,7 +217,8 @@ __global__ void __launch_bounds__(kThreads)
   int total = 0;
   for (int j0 = 0; j0 < P; j0 += 32) {
     const int j = j0 + lane;
-    total += warp_sum(j < P ? task_rows(qslots, sizes, j, nslots, C) : 0);
+    total +=
+        warp_sum(j < P ? pqrow::slot_rows(sizes, qslots[j], nslots, C) : 0);
   }
   // floor(total * g / G) in 32 bits: total = a * G + b
   const int a = total / G, b = total % G;
@@ -318,7 +229,7 @@ __global__ void __launch_bounds__(kThreads)
   int carry = 0;                           // real rows of the tasks before
   for (int j0 = 0; j0 < P && carry < r1; j0 += 32) {
     const int j = j0 + lane;
-    const int n = j < P ? task_rows(qslots, sizes, j, nslots, C) : 0;
+    const int n = j < P ? pqrow::slot_rows(sizes, qslots[j], nslots, C) : 0;
     const int incl = warp_scan(n, lane);
     const int lo = carry + incl - n;       // task j's rows: [lo, lo + n)
     unsigned mine = __ballot_sync(kAll, n > 0 && lo < r1 && lo + n > r0);
@@ -376,14 +287,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int keys_per_lane(int kp) { return kp <= 32 ? 1 : kp / 32; }
-
-int k_pad_of(int k) {
-  int kp = 8;
-  while (kp < k) kp <<= 1;
-  return kp;
-}
-
 // Groups a query may be split into, whatever the card.
 int max_groups(int P, int kp) {
   return max(1, min(P, kMaxMergeKeys / kp));
@@ -394,27 +297,13 @@ int launch_typed(const float* dists, const int* slots, const int* sizes,
                  const int* ids, u64* part, float* out_d, int* out_i, int qc,
                  int P, int C, int nslots, int k, int kp,
                  cudaStream_t stream) {
-  // Stage 1's warps that fit on the card at once, looked up on the first
-  // launch per device (0 until then).
-  static std::atomic<int> resident[kMaxDevices];
-  cudaError_t e;
-  int dev = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  int warps = dev < kMaxDevices ? resident[dev].load(std::memory_order_relaxed)
-                                : 0;
-  if (warps == 0) {
-    int sms = 0, per_sm = 0;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, ts_topk_select_kernel<KPL>, kThreads, 0)) !=
-            cudaSuccess)
-      return (int)e;
-    if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
-    warps = sms * per_sm * kWarps;
-    if (dev < kMaxDevices)
-      resident[dev].store(warps, std::memory_order_relaxed);
-  }
+  // Stage 1's warps that fit on the card at once.
+  static occupancy::Resident resident;
+  int blocks = 0;
+  cudaError_t e = occupancy::resident_blocks(
+      resident, ts_topk_select_kernel<KPL>, kThreads, 0, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  const int warps = blocks * kWarps;
   const int G = max(1, min(max_groups(P, kp), warps / qc));
   const int blocks1 = (int)(((long long)qc * G + kWarps - 1) / kWarps);
   ts_topk_select_kernel<KPL><<<blocks1, kThreads, 0, stream>>>(

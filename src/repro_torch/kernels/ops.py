@@ -42,12 +42,12 @@ KIND_SUFFIX = {"f32": "", "u8": "_q", "bf16": "_bf16"}
 
 # Dynamic shared memory one block may use on an H100 (227 KB).
 _SMEM_LIMIT = 232448
-# Largest k_pad the fused DC+TS kernels take (kMaxKPad in
-# csrc/pq_scan_topk.cu); the wrapper holds both routes to it.
+# Largest k_pad the fused DC+TS kernels and TS by slot take; must equal
+# kMaxKPad in csrc/warp_topk.cuh.  The wrapper holds both routes to it.
 MAX_K_PAD = 256
 # Largest C (rows a slot) the fused kernel's 32-bit selection keys take on
 # a bf16 table: the row is the key's low 16 bits, 0xffff its "no row"
-# (kMaxRowsKey32 in csrc/pq_scan_topk.cu).  More rows take 64-bit keys.
+# (kMaxRowsKey32 in csrc/warp_topk.cuh).  More rows take 64-bit keys.
 BF16_KEY32_MAX_C = 0xffff
 
 

@@ -3,8 +3,10 @@ interface the CUDA sources declare.  A C function whose arguments drift
 from its ``ctypes`` signature corrupts memory without an error, so each
 ``extern "C"`` function of each ``csrc/*.cu`` is held to its entry in
 ``SIGNATURES``: name, argument count, and a pointer, ``int`` or
-``size_t`` in each place (and the return type).  Runs on the CPU: it
-reads the sources and never builds them."""
+``size_t`` in each place (and the return type).  Also: the constants the
+tuning tools vary exist, and each piece of shared kernel code is defined
+in one file under ``csrc/``.  Runs on the CPU: it reads the sources and
+never builds them."""
 
 import ctypes
 import importlib.util
@@ -13,7 +15,7 @@ from pathlib import Path
 
 import pytest
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ops
 
 _C_TYPES = {"pointer": ctypes.c_void_p, "int": ctypes.c_int,
             "size_t": ctypes.c_size_t, "const char*": ctypes.c_char_p}
@@ -126,6 +128,78 @@ def test_lut_bench_probes_apply_to_the_source():
     src = (_build.CSRC / "lut_build.cu").read_text()
     for name in bench.PROBES:
         assert bench.probe_source(src, name) != src
+
+
+@pytest.mark.parametrize("spec", ["kWarps=8", "kUnroll=4", "kInsertMax=8",
+                                  "kMaxMergeKeys=1024"])
+def test_ts_topk_constants_can_vary(spec):
+    """The tuning handles of TS by slot exist in its source."""
+    src = (_build.CSRC / "ts_topk.cu").read_text()
+    assert _build.with_constants(src, spec) != src
+
+
+def _defines(text: str, kind: str, name: str) -> bool:
+    """Whether CUDA source ``text`` defines the function or the constant
+    ``name`` (kind "function" / "constant"), or calls ``name`` ("call")."""
+    text = re.sub(r"//[^\n]*", "", text)
+    if kind == "constant":
+        return re.search(rf"\bconstexpr [\w ]+ {name} =", text) is not None
+    if kind == "call":
+        return re.search(rf"\b{name}\s*\(", text) is not None
+    # a return type (not a statement's keyword) before the name, then a body
+    return re.search(rf"^[ \t]*(?!return\b|else\b)(?:[\w:]+[ \t]+)+[*&]?"
+                     rf"{name}[ \t]*\([^;{{]*\)\s*\{{", text,
+                     re.M) is not None
+
+
+_SHARED = ([("function", n) for n in (
+    "ordered_bits", "from_ordered", "make_key", "key_dist", "kmin", "kmax",
+    "warp_sort32", "bitonic_merge", "merge32", "insert1", "kth",
+    "keys_per_lane", "k_pad_of", "slot_rows", "task_rows",
+    "resident_blocks")]
+    + [("constant", n) for n in ("kAll", "kNone", "kNone32",
+                                 "kMaxRowsKey32", "kMaxKPad", "kMaxDevices")]
+    + [("call", "cudaOccupancyMaxActiveBlocksPerMultiprocessor")])
+
+
+@pytest.mark.parametrize("kind,name", _SHARED)
+def test_shared_kernel_code_is_written_once(kind, name):
+    """Each piece of the kernels' shared machinery (the warp top-k and its
+    k_pad rules, the slot convention, the resident-grid lookup) lives in
+    one file under csrc/."""
+    files = sorted(f.name for f in _build.CSRC.iterdir()
+                   if f.suffix in (".cu", ".cuh")
+                   and _defines(f.read_text(), kind, name))
+    assert len(files) == 1, files
+
+
+@pytest.mark.parametrize("py,cpp", [("MAX_K_PAD", "kMaxKPad"),
+                                    ("BF16_KEY32_MAX_C", "kMaxRowsKey32")])
+def test_ops_limits_equal_the_warp_topk_header(py, cpp):
+    """The wrapper refuses what the kernels refuse: its limits are the
+    selection header's."""
+    text = (_build.CSRC / "warp_topk.cuh").read_text()
+    value = re.search(rf"\bconstexpr [\w ]+ {cpp} = (\w+);", text).group(1)
+    assert getattr(ops, py) == int(value, 0)
+
+
+def test_defines_tells_a_definition_from_a_use():
+    src = ("template <int KPL, typename Key>\n"
+           "__device__ __forceinline__ void insert1(Key (&v)[KPL], Key x,\n"
+           "                                        int lane) {\n"
+           "}\n"
+           "inline int keys_per_lane(int kp) { return kp; }\n"
+           "constexpr unsigned kAll = 0xffffffffu;\n")
+    uses = ("  insert1<KPL>(v, x, lane);\n"
+            "  return keys_per_lane(kp);\n"
+            "  if (keys_per_lane(kp) > 1) {\n"
+            "  x = kAll;  // constexpr unsigned kAll = 0;\n")
+    for kind, name in (("function", "insert1"), ("function", "keys_per_lane"),
+                       ("constant", "kAll")):
+        assert _defines(src, kind, name)
+        assert not _defines(uses, kind, name)
+    assert _defines(uses, "call", "keys_per_lane")
+    assert not _defines(uses, "call", "insert1")
 
 
 def _fused_bench():
