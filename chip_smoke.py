@@ -823,6 +823,88 @@ def ts_report(ops, lut, slot_codes, slot_sizes, slot_ids, slots, qc: int,
     return row
 
 
+def dc_inputs_at_cell(ops, seed: int, code_dtype=torch.uint8):
+    """C / D by slot's inputs at the benchmark's chunk (TS_CELL): the
+    cells' cluster sizes (``annbench/draws/ivfpq.py``'s multiset over
+    nslots clusters, dealt in a seeded order), uniform codes in (nslots,
+    C, M) slots, each query's distinct random probes, and A's and B's
+    tables for random residuals.  Returns (lut, q, codes, sizes, slots).
+    int32 codes (four times the bytes) fill only the probed slots, the
+    others left zero."""
+    from annbench.draws.ivfpq import size_multiset
+    qc, p, c, nslots = (TS_CELL[x] for x in ("qc", "p", "c", "nslots"))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sizes = size_multiset(TS_CELL["n"], nslots, TS_CELL["spread"]).cuda()
+    sizes = sizes[torch.randperm(nslots, device="cuda", generator=g)].int()
+    slots = torch.rand(qc, nslots, device="cuda", generator=g).argsort(
+        dim=1)[:, :p].reshape(-1).int()
+    if code_dtype == torch.uint8:
+        codes = torch.randint(0, CB, (nslots, c, M), dtype=torch.uint8,
+                              device="cuda", generator=g)
+    else:
+        codes = torch.zeros((nslots, c, M), dtype=code_dtype, device="cuda")
+        used = slots.long().unique()
+        codes[used] = torch.randint(0, CB, (len(used), c, M),
+                                    dtype=code_dtype, device="cuda",
+                                    generator=g)
+    res = torch.randn(qc * p, D, device="cuda", generator=g) * 8
+    books = torch.randn(M, CB, D // M, device="cuda", generator=g) * 6
+    sqn = (books * books).sum(-1)
+    return (ops.lut_build(res, books, sqn), ops.lut_build_q(res, books, sqn),
+            codes, sizes, slots)
+
+
+def dc_cell_report(ops, adc, seed: int) -> dict:
+    """C and D by slot at the benchmark's chunk (dc_inputs_at_cell):
+    checked (check_scan on the first 512 tasks: by slot against plain and
+    bit for bit against the dense launch; on every task, bit for bit the
+    dense launch on ``gather_slots``' copy, +inf exactly at the rows at or
+    past each size), then timed (mean of 20 warm launches) beside the
+    bound the benchmark's DC roofline metrics take
+    (``annbench/roofline.py::dc_bytes_ops``, ``roofline_u8.py::
+    dc_u8_bytes_ops``: each task's table, the real rows' codes and
+    distances, the sizes).  Returns {counter: row} for C and D."""
+    from annbench import roofline, roofline_u8
+    lut, q, codes, sizes, slots = dc_inputs_at_cell(ops, seed)
+    t, c = slots.shape[0], codes.shape[1]
+    gcodes, _, gsizes = ops.gather_slots(codes, None, sizes, slots)
+    real = int(gsizes.sum())
+    n = 512
+    check_scan(ops, adc.adc_distances, adc.adc_distances_quantized, lut[:n],
+               type(q)(*(x[:n] for x in q)), codes, sizes,
+               f"the benchmark's chunk, first {n} tasks", slots[:n])
+    padding = torch.arange(c, device="cuda")[None, :] >= gsizes[:, None]
+    out = {}
+    for name, table, count in (("pq_scan_dc", lut, roofline.dc_bytes_ops),
+                               ("pq_scan_dc_q", q,
+                                roofline_u8.dc_u8_bytes_ops)):
+        def call():
+            return ops.pq_scan_dc(table, codes, sizes, slots=slots)
+        got = call()
+        check(torch.equal(got, ops.pq_scan_dc(table, gcodes, gsizes)),
+              f"{name} at the benchmark's chunk: by slot differs from the "
+              f"dense launch on the gathered copy")
+        check(torch.equal(torch.isinf(got), padding),
+              f"{name} at the benchmark's chunk: +inf not exactly at the "
+              f"rows past each size")
+        del got
+        ms = event_ms(call, reps=20, queued=True)
+        nbytes, nops = count(t, M, CB, real)
+        b_ms, b_by = bound_ms(nbytes, nops)
+        out[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "roofline_pct": 100.0 * b_ms / ms, "bytes": nbytes,
+                     "ops": nops, "shape": {"qc": TS_CELL["qc"],
+                                            "P": TS_CELL["p"], "C": c,
+                                            "T": t, "real_rows": real}}
+        log(f"  {name} by slot at the benchmark's chunk: {ms:.4f} ms "
+            f"(bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of "
+            f"it); T={t} over {codes.shape[0]} slots, C={c}, {real} real "
+            f"rows")
+    del lut, q, codes, gcodes
+    torch.cuda.empty_cache()
+    return out
+
+
 def ragged_topk_checks(ops, lut, q, codes, where: str, g) -> None:
     """E and F at k = 1, 10, 100 on one ragged shape (sizes < C, a task
     with sizes = 0), dense and in the slot form (the T tasks read code
@@ -5497,6 +5579,11 @@ def main() -> int:
     rows.append(ts_report(ops, ops.lut_build(*local_lc), clusters.codes,
                           clusters.sizes, clusters.ids, flat.int(),
                           QUERY_CHUNK, launches["ts_topk"], args.seed))
+    log("C and D by slot at the benchmark's chunk:")
+    at_cell = dc_cell_report(ops, adc, args.seed)
+    for r in rows:
+        if r["name"] in at_cell:
+            r["by_slot"]["at_benchmark_chunk"] = at_cell[r["name"]]
     log("kernels vs plain, the sharded path's first launches:")
     at_step = lut_at_sharded_step(ops, ref, adc, captured)
     for r in rows:

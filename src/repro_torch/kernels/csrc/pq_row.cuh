@@ -6,9 +6,9 @@
 //
 // Both score a row by summing its terms in order m = 0..M-1 (row_sum,
 // then the u8 path's bias sum, or the bf16 path's one rounding), so the
-// fused and the unfused scans give the same float for every row.  The DC
-// kernels stage a task's table with stage_table; the fused kernels copy
-// theirs in with stage_table_async, which other blocks' scans overlap.
+// fused and the unfused scans give the same float for every row.  Both
+// copy a task's table in with stage_table_async, which other blocks'
+// scans overlap, and sum the u8 path's biases themselves (bias_sum).
 //
 // Three kinds of table (the template parameter kKind):
 //   kF32   f32 entries, summed in f32;
@@ -18,8 +18,8 @@
 //          back: the reference's jnp.sum over a bf16 gather.
 //
 // Shared-memory layout of one staged table: f32 (M, CB); bf16 (M, CB); or
-// u8 (M, CB) padded to 16 bytes and followed by the M scales, the bias sum
-// and the M biases it was summed from.
+// u8 (M, CB) padded to 16 bytes and followed by the M scales, one float
+// no kernel writes, and the M biases.
 
 #pragma once
 
@@ -56,7 +56,7 @@ __device__ __forceinline__ float round_bf16(float acc) {
 }
 
 // The views of a staged table: f32 entries, u8 entries, bf16 entries, the
-// scales (sc[0..M-1]) with the bias sum at sc[M].
+// scales (sc[0..M-1]) and, from sc[M + 1] on, the biases.
 struct Table {
   const float* lut_f;
   const uint8_t* lut_q;
@@ -108,22 +108,6 @@ __device__ __forceinline__ float row_sum(const CodeT* row, const Table& tab,
   return acc;
 }
 
-// Distance of one code row, summed in order m = 0..M-1, plus the bias sum
-// sc[M] on the u8 path.  kVec16: M == 16 u8 codes read as one 16-byte load
-// (the row must be 16-byte aligned).
-template <typename CodeT, int kKind, bool kVec16>
-__device__ __forceinline__ float row_dist(const CodeT* row, const Table& tab,
-                                          int M, int CB) {
-  float acc;
-  if constexpr (kVec16)
-    acc = row_sum_vec16<kKind>(*reinterpret_cast<const uint4*>(row), tab,
-                               tab.sc, CB);
-  else
-    acc = row_sum<CodeT, kKind>(row, tab, tab.sc, M, CB);
-  if constexpr (kKind == kU8) acc += tab.sc[M];
-  return acc;
-}
-
 // The valid rows of slot s: its size clamped to [0, C], 0 for a slot
 // outside [0, P) (-1: no task).
 __device__ __forceinline__ int slot_rows(const int* sizes, int s, int P,
@@ -140,62 +124,12 @@ __device__ __forceinline__ int task_rows(const int* slots, const int* sizes,
   return slot_rows(sizes, s, P, C);
 }
 
-// Copy n elements of T from device memory into shared memory with the
-// whole block: 16 bytes a thread per load where the size and the source
-// allow it, so a thread keeps several loads in flight (the stride is a
-// compile-time constant, so the loop unrolls).
-template <typename T, int kThreads>
-__device__ __forceinline__ void copy_in(T* dst, const T* src, int n) {
-  const size_t bytes = (size_t)n * sizeof(T);
-  if (bytes % 16 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    const int n16 = (int)(bytes / 16);
-#pragma unroll 4
-    for (int i = threadIdx.x; i < n16; i += kThreads) d[i] = s[i];
-  } else {
-#pragma unroll 4
-    for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
-  }
-}
-
 // The u8 path's bias sum from a staged table's biases, in order m =
-// 0..M-1: the value stage_table writes to sc[M].
+// 0..M-1, added to each row's sum last.
 __device__ __forceinline__ float bias_sum(const float* sc, int M) {
   float b = 0.0f;
   for (int m = 0; m < M; ++m) b += sc[M + 1 + m];
   return b;
-}
-
-// Copy task t's table into shared memory with the whole block; ends with
-// a barrier.  The bias sum sc[M] is taken in order m = 0..M-1 by one
-// thread, from biases staged in shared memory first.
-template <int kKind, int kThreads>
-__device__ __forceinline__ void stage_table(const void* lut,
-                                            const float* scale,
-                                            const float* bias, int t, int M,
-                                            int CB, unsigned char* smem) {
-  const int mcb = M * CB;
-  if constexpr (kKind == kU8) {
-    float* sc = reinterpret_cast<float*>(smem + ((mcb + 15) & ~15));
-    copy_in<uint8_t, kThreads>(
-        smem, static_cast<const uint8_t*>(lut) + (size_t)t * mcb, mcb);
-    for (int i = threadIdx.x; i < M; i += kThreads) {
-      sc[i] = scale[(size_t)t * M + i];
-      sc[M + 1 + i] = bias[(size_t)t * M + i];
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) sc[M] = bias_sum(sc, M);
-  } else if constexpr (kKind == kBF16) {
-    copy_in<uint16_t, kThreads>(
-        reinterpret_cast<uint16_t*>(smem),
-        static_cast<const uint16_t*>(lut) + (size_t)t * mcb, mcb);
-  } else {
-    copy_in<float, kThreads>(reinterpret_cast<float*>(smem),
-                             static_cast<const float*>(lut) + (size_t)t * mcb,
-                             mcb);
-  }
-  __syncthreads();
 }
 
 // Asynchronous copies from device memory into shared memory (cp.async):
@@ -238,10 +172,9 @@ __device__ __forceinline__ void copy_in_async(unsigned char* dst,
   }
 }
 
-// Issue the copy of task t's table into shared memory (the layout of
-// stage_table) without waiting for it.  The bias sum sc[M] is not
-// written: once the copy has landed, the caller sums the biases
-// sc[M+1..2M] in order m = 0..M-1 itself (bias_sum).
+// Issue the copy of task t's table into shared memory (the layout above)
+// without waiting for it.  Once the copy has landed, the caller sums the
+// biases sc[M+1..2M] in order m = 0..M-1 itself (bias_sum).
 template <int kKind, int kThreads>
 __device__ __forceinline__ void stage_table_async(const void* lut,
                                                   const float* scale,

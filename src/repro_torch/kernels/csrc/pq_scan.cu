@@ -19,8 +19,7 @@
 // codes[slots[t]] and sizes[slots[t]], and a slot outside [0, P) has
 // size 0.  So the engine scans the probed clusters without a copy of
 // their codes.  The slot form is the kernel's overload with a slot table;
-// both overloads run one block body (scan_rows, the slot form a template
-// parameter), so the dense instances are the code they were.
+// both overloads run one block body (scan_task).
 //
 // The TPU kernels turned the gather into a one-hot MXU contraction,
 // because a lane gather is slow there.  On Hopper a gather out of shared
@@ -28,19 +27,31 @@
 //
 // What bounds it on an H100: bytes.  Per task it reads the table (16 KB
 // f32, 8 KB bf16 or 4 KB u8 at M=16, CB=256) and 16 bytes of codes per
-// valid row, and writes 4 bytes per row; the adds are ~1 op per byte
-// read.  The design:
+// valid row, and writes 4 bytes per row, padding included; the adds are
+// ~1 op per byte read.  The design reads each task's table from device
+// memory once a launch, and not at all for a task with no valid row:
 //
-//   * grid (T, ceil(C / 1024)): a block stages its task's table in
-//     shared memory once and scores up to 1024 rows with 256 threads;
-//   * a thread reads a row's M=16 u8 codes as one 16-byte load (generic
-//     loop for other M and for int32 codes), then M lookups out of shared
-//     memory, summed in order m = 0..M-1;
-//   * rows past the task's size are not read: they are written +inf.
+//   * grid (T): one block of 256 threads a task.  It reads the task's
+//     size first; if the task has a valid row it issues the copy of the
+//     table into shared memory with cp.async (pq_row.cuh
+//     stage_table_async), writes the padding while the copy lands, then
+//     scores rows [0, size) against that one copy.  A task with no valid
+//     row reads no table;
+//   * a thread reads a row's M=16 u8 codes as one 16-byte load (the next
+//     row's load in flight while this one is scored; generic loop for
+//     other M and for int32 codes), then M lookups out of shared memory,
+//     summed in order m = 0..M-1 (pq_row.cuh row_sum, the u8 bias sum
+//     added last);
+//   * rows [size, C) are not read: they are written +inf with 16-byte
+//     stores, no table needed.
+//
+// A persistent grid (as many blocks as fit at once, each walking tasks b,
+// b + grid, ...) was 4-7% slower on the H100 at the benchmark's chunk
+// than one block a task (PERF.md).
 //
 // The staging and the row distance live in pq_row.cuh, shared with the
 // fused DC+TS kernels (pq_scan_topk.cu).  The kernels allocate nothing and
-// never synchronise.
+// never synchronise with the host.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,12 +62,64 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = 1024;
 
-// One block of kernel C: stage task t's table, then score the block's
-// rows of the task's slot (slot t in the dense form).
-template <typename CodeT, int kKind, bool kVec16, bool kSlots>
-__device__ __forceinline__ void scan_rows(const void* __restrict__ lut,
+// row[c] = +inf for c in [c0, C), with the whole block: 16-byte stores
+// from the first 16-byte boundary on.
+__device__ __forceinline__ void write_padding(float* row, int c0, int C) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(row + c0);
+  const int head = min(C, c0 + (int)(((16 - (a & 15)) & 15) / 4));
+  const int n4 = (C - head) / 4, tail = head + 4 * n4;
+  if (c0 + (int)threadIdx.x < head) row[c0 + threadIdx.x] = INFINITY;
+  float4* v = reinterpret_cast<float4*>(row + head);
+  const float4 inf4 = make_float4(INFINITY, INFINITY, INFINITY, INFINITY);
+  for (int i = threadIdx.x; i < n4; i += kThreads) v[i] = inf4;
+  if (tail + (int)threadIdx.x < C) row[tail + threadIdx.x] = INFINITY;
+}
+
+// Score rows [0, rows) of code slot `base` against the staged table into
+// `o`: each row's terms summed in order m = 0..M-1, the u8 bias sum
+// `bsum` added last.
+template <typename CodeT, int kKind, bool kVec16>
+__device__ __forceinline__ void score_rows(const CodeT* __restrict__ base,
+                                           const pqrow::Table& tab,
+                                           float bsum,
+                                           float* __restrict__ o, int rows,
+                                           int M, int CB) {
+  if constexpr (kVec16) {
+    float scl[16];                       // u8: the scales in registers
+    if constexpr (kKind == pqrow::kU8) {
+#pragma unroll
+      for (int m = 0; m < 16; ++m) scl[m] = tab.sc[m];
+    }
+    const uint4* base16 = reinterpret_cast<const uint4*>(base);
+    uint4 next = {};
+    if ((int)threadIdx.x < rows) next = __ldg(base16 + threadIdx.x);
+    for (int c = threadIdx.x; c < rows; c += kThreads) {
+      const uint4 w = next;
+      if (c + kThreads < rows) next = __ldg(base16 + c + kThreads);
+      float d;
+      if constexpr (kKind == pqrow::kU8)
+        d = pqrow::row_sum_vec16<kKind>(w, tab, scl, CB) + bsum;
+      else
+        d = pqrow::row_sum_vec16<kKind>(w, tab, tab.sc, CB);
+      o[c] = d;
+    }
+  } else {
+    for (int c = threadIdx.x; c < rows; c += kThreads) {
+      float d = pqrow::row_sum<CodeT, kKind>(base + (size_t)c * M, tab,
+                                             tab.sc, M, CB);
+      if constexpr (kKind == pqrow::kU8) d += bsum;
+      o[c] = d;
+    }
+  }
+}
+
+// One block of kernel C: task t = blockIdx.x reads slot slots[t] of P
+// (slots == NULL: slot t), all C rows valid without sizes.  If the task
+// has a valid row, issue its table's copy; write the padding while the
+// copy lands; then score the rows against the table.
+template <typename CodeT, int kKind, bool kVec16>
+__device__ __forceinline__ void scan_task(const void* __restrict__ lut,
                                           const float* __restrict__ scale,
                                           const float* __restrict__ bias,
                                           const CodeT* __restrict__ codes,
@@ -66,22 +129,21 @@ __device__ __forceinline__ void scan_rows(const void* __restrict__ lut,
                                           int C, int M, int CB) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = blockIdx.x;
-  pqrow::stage_table<kKind, kThreads>(lut, scale, bias, t, M, CB, smem);
+  int slot = t;
+  const int rows =
+      sizes == nullptr ? C : pqrow::task_rows(slots, sizes, t, P, C, &slot);
+  float* o = out + (size_t)t * C;
+  if (rows > 0)
+    pqrow::stage_table_async<kKind, kThreads>(lut, scale, bias, t, M, CB,
+                                              smem);
+  write_padding(o, rows, C);
+  if (rows == 0) return;
+  pqrow::cp_async_wait_all();            // this thread's copies
+  __syncthreads();                       // ... and everyone's
   const pqrow::Table tab = pqrow::table_view(smem, M, CB);
-
-  int s = t, size;
-  if constexpr (kSlots)
-    size = pqrow::task_rows(slots, sizes, t, P, C, &s);
-  else
-    size = sizes == nullptr ? C : min(sizes[t], C);
-  const int c0 = blockIdx.y * kRowsPerBlock;
-  const int c1 = min(c0 + kRowsPerBlock, C);
-  for (int c = c0 + threadIdx.x; c < c1; c += kThreads) {
-    out[(size_t)t * C + c] =
-        c < size ? pqrow::row_dist<CodeT, kKind, kVec16>(
-                       codes + ((size_t)s * C + c) * M, tab, M, CB)
-                 : INFINITY;
-  }
+  const float bsum = kKind == pqrow::kU8 ? pqrow::bias_sum(tab.sc, M) : 0.0f;
+  score_rows<CodeT, kKind, kVec16>(codes + (size_t)slot * C * M, tab, bsum,
+                                   o, rows, M, CB);
 }
 
 // The dense form: task t reads slot t.
@@ -93,8 +155,8 @@ __global__ void __launch_bounds__(kThreads)
                    const CodeT* __restrict__ codes,
                    const int* __restrict__ sizes, float* __restrict__ out,
                    int C, int M, int CB) {
-  scan_rows<CodeT, kKind, kVec16, false>(lut, scale, bias, codes, sizes,
-                                         nullptr, out, 0, C, M, CB);
+  scan_task<CodeT, kKind, kVec16>(lut, scale, bias, codes, sizes, nullptr,
+                                  out, gridDim.x, C, M, CB);
 }
 
 // The slot form: task t reads slot slots[t] of P.
@@ -107,25 +169,23 @@ __global__ void __launch_bounds__(kThreads)
                    const int* __restrict__ sizes,
                    const int* __restrict__ slots, float* __restrict__ out,
                    int P, int C, int M, int CB) {
-  scan_rows<CodeT, kKind, kVec16, true>(lut, scale, bias, codes, sizes,
-                                        slots, out, P, C, M, CB);
+  scan_task<CodeT, kKind, kVec16>(lut, scale, bias, codes, sizes, slots,
+                                  out, P, C, M, CB);
 }
 
 size_t smem_bytes(int kind, int M, int CB) {
   return pqrow::table_smem_bytes(kind, M, CB);
 }
 
-// Launch one overload of the kernel on a (T, ceil(C / kRowsPerBlock)) grid.
+// Launch one overload of the kernel on a grid of T blocks, a task each.
 template <typename Kernel, typename... Args>
-int run(Kernel kernel, size_t smem, int T, int C, void* stream,
-        Args... args) {
+int run(Kernel kernel, size_t smem, int T, void* stream, Args... args) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(T, (C + kRowsPerBlock - 1) / kRowsPerBlock);
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(args...);
+  kernel<<<T, kThreads, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -143,13 +203,13 @@ int launch_typed(const void* lut, const void* scale, const void* bias,
     void (*dense)(const void*, const float*, const float*, const CodeT*,
                   const int*, float*, int, int, int) =
         pq_scan_kernel<CodeT, kKind, kVec16>;
-    return run(dense, smem, T, C, stream, lut, sc, bi, co, sz, (float*)out,
-               C, M, CB);
+    return run(dense, smem, T, stream, lut, sc, bi, co, sz, (float*)out, C,
+               M, CB);
   }
   void (*by_slot)(const void*, const float*, const float*, const CodeT*,
                   const int*, const int*, float*, int, int, int, int) =
       pq_scan_kernel<CodeT, kKind, kVec16>;
-  return run(by_slot, smem, T, C, stream, lut, sc, bi, co, sz,
+  return run(by_slot, smem, T, stream, lut, sc, bi, co, sz,
              (const int*)slots, (float*)out, P, C, M, CB);
 }
 

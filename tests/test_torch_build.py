@@ -231,3 +231,77 @@ def test_fused_bench_probes_apply_to_the_sources(name):
     assert edited
     for fname, text in edited.items():
         assert text != (_build.CSRC / fname).read_text()
+
+
+def _template_params(source: str, kernel: str) -> list:
+    """The template parameter lists of each ``__global__`` definition of
+    ``kernel`` in a CUDA source, one list of "type name" strings each."""
+    text = re.sub(r"//[^\n]*", "", source)
+    found = re.findall(rf"template\s*<([^<>]*)>\s*__global__[^;{{]*?"
+                       rf"\b{kernel}\s*\(", text)
+    return [[" ".join(p.split()) for p in f.split(",")] for f in found]
+
+
+class _MetricCtx:
+    """What a DC roofline reader takes: a trace, a window, the cell's
+    index shape and the rows it scanned."""
+
+    def __init__(self, trace):
+        from types import SimpleNamespace
+        self.trace = trace
+        self.window = SimpleNamespace(answered=256)
+        self.cell = SimpleNamespace(config={
+            "service": {"index": {"m": 16, "cb": 256}, "nprobe": 96}})
+
+    def scanned_rows(self) -> int:
+        return 256 * 96 * 1526
+
+
+def test_pq_scan_kernel_names_keep_the_dc_metrics_reading():
+    """Kernel C's instances, named as the profiler names them, are read
+    as C by ``dc_roofline.batch`` (the name ``pq_scan_kernel``) and as D by
+    ``dc_u8_roofline.batch`` (the table kind 1 as the second template
+    argument, a third one after it) and by no top-k metric.  So a change
+    to the kernel's name or its leading ``<CodeT, kKind`` parameters fails
+    here, not as a null metric on the card."""
+    import sys
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from annbench import harness, trace
+    params = _template_params((_build.CSRC / "pq_scan.cu").read_text(),
+                              "pq_scan_kernel")
+    assert len(params) == 2                        # dense and by slot
+    for p in params:
+        assert p[:2] == ["typename CodeT", "int kKind"] and len(p) >= 3, p
+    rest = ", ".join(["true"] * (len(params[0]) - 2))
+    for code in ("unsigned char", "int"):
+        for kind, value in ops._KIND.items():
+            name = (f"void (anonymous namespace)::pq_scan_kernel<{code}, "
+                    f"{value}, {rest}>(void const*, float const*, float "
+                    f"const*, {code} const*, int const*, float*, int, int, "
+                    f"int, int)")
+            ctx = _MetricCtx(trace.Trace(1.0, 1.0,
+                                         kernels={name: (1, 1e-3)}))
+            read = {m: harness.reader(m, root)(ctx) for m in (
+                "dc_roofline.batch", "dc_u8_roofline.batch",
+                "topk_share.batch")}
+            assert read["dc_roofline.batch"] is not None, name
+            assert (read["dc_u8_roofline.batch"] is not None) == \
+                (kind == "u8"), name
+            assert read["topk_share.batch"] == 0.0, name
+
+
+def test_dc_layout_bench_edits_apply_to_the_source():
+    """The layouts and constants tools/torch_dc_layout_bench.py times
+    against the source find what they edit in csrc/pq_scan.cu."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_dc_layout_bench",
+        Path(__file__).resolve().parents[1] / "tools"
+        / "torch_dc_layout_bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    src = (_build.CSRC / "pq_scan.cu").read_text()
+    for name in bench.PROBES:
+        assert bench.probe_source(name) != src
+    assert _build.with_constants(src, "kThreads=128") != src

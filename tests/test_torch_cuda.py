@@ -140,9 +140,9 @@ def test_scan_kernels_match_plain(cuda, t, m, cb, c, code_dtype, quantized):
 def test_scan_kernels_slots_equal_dense(cuda, p, t, c, code_dtype, kind):
     """C, D and C-bf16 by slot (task t reads code slot slots[t] in place)
     against the dense kernel on ``gather_slots``' copy, bit for bit:
-    repeated, -1 and out-of-range slots and an empty one; C = 6,200 runs
-    seven blocks of rows a task.  At M = 16 u8 codes both forms take the
-    16-byte row loads."""
+    repeated, -1 and out-of-range slots and an empty one; C = 6,200 rows
+    a task, as in the benchmark's cells.  At M = 16 u8 codes both forms
+    take the 16-byte row loads."""
     g = torch.Generator(device=cuda).manual_seed(40)
     _, _, _, codes, sizes = _mk(40, p, 16, 256, c, 8, code_dtype, cuda)
     r = torch.randn(t, 16 * 8, device=cuda, generator=g)
